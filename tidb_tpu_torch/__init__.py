@@ -1,0 +1,27 @@
+"""tidb_tpu_torch — the coprocessor program on PyTorch and CUDA.
+
+A port of `tidb_tpu`'s device path to eager PyTorch on an NVIDIA Hopper
+card. The layout mirrors the JAX package module for module, so each
+module's counterpart is easy to find:
+
+  types/, chunk/column.py, chunk/chunk.py, expr/ir.py, expr/agg.py,
+  exec/dag.py, exec/ladder.py
+             copies of the JAX package's JAX-free modules (imports only
+             rewritten); the port never imports `tidb_tpu` or `jax`
+  chunk/device.py  host Chunk -> capacity-padded torch DeviceBatch
+  expr/compile.py  Expr trees -> eager torch ops over device columns
+  ops/             selection, key normalisation, segment machinery,
+                   aggregation, and ops/dense_agg.py — the one-pass small-G
+                   GROUP BY kernel written in CUDA C++ for sm_90a
+                   (csrc/dense_agg.cu)
+  exec/            DAG -> a closure over eager ops (builder.py) and the
+                   overflow-retry driver (executor.py)
+  interop.py       numpy column arrays -> DeviceBatch (feeds both packages
+                   identical batches in the tests)
+
+Every entry point takes an explicit `device` (default "cuda") and raises
+when CUDA is absent; the tests pass device="cpu". Dtypes are explicit:
+int lanes are int64, MySQL DOUBLE is float64.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,354 @@
+"""Aggregation (port of tidb_tpu/ops/aggregate.py).
+
+Group-by is hash-cluster based: normalize keys to int64 words
+(ops/keys.py), mix them into ONE 63-bit hash word (ops/seg.py), sort by
+that word (stable, so each segment's first row is its earliest input row),
+and reduce each contiguous hash cluster with cumsum segment passes.
+Collisions (different keys, equal 62-bit hash) are caught by a neighbour
+compare on an independently salted second hash and surface as the
+overflow flag; the retry driver's larger capacity re-salts both hashes.
+
+With a small-G hint (<= 32) and an eligible aggregate mix, the one-pass
+CUDA kernel (ops/dense_agg.py) runs instead; its overflow flag sends the
+driver back here. The JAX package's other routes — the XLA dense kernel
+and the stream kernel — are not ported: their inputs take the sort path,
+which gives the same rows in the same first-encounter order. DISTINCT
+aggregates and merge mode raise NotImplementedError.
+
+Partial states (expr/agg.py): count=[n], sum=[s], avg=[n,s], min/max=[v].
+Output groups are ordered by first encounter (earliest contributing input
+row), matching the row-at-a-time oracle's insertion order.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..expr.agg import AggDesc
+from ..expr.compile import CompVal, _round_div, _scale
+from .keys import segments_from_sorted, sort_key_arrays
+from .seg import (
+    I64_MAX,
+    SegCtx,
+    SumBatch,
+    group_hash,
+    hash_words,
+    make_segctx,
+    seg_first_match,
+    seg_max,
+    seg_min,
+    seg_sum,
+)
+
+I64_MIN_ = -0x8000000000000000
+
+
+@dataclass
+class GroupAggResult:
+    """Fixed-capacity aggregation output.
+
+    group_rep: int32 [G] earliest original input-row index per group.
+    states: per agg, either a list of (value[G], null[G]) state/result
+    columns or a GatherState (the caller gathers the agg's value column —
+    and its raw string bytes — from the original batch).
+    need: the true distinct-group count when the kernel knows it (the sort
+    kernel's segment count); None = unknown."""
+
+    group_rep: torch.Tensor
+    group_valid: torch.Tensor
+    n_groups: torch.Tensor
+    overflow: torch.Tensor
+    states: list
+    need: torch.Tensor | None = None
+
+
+@dataclass
+class GatherState:
+    """Per-group 'fetch this original row' aggregate state (first_row and
+    string min/max)."""
+
+    idx: torch.Tensor  # int32 [G] original row index (clipped; dead when ~has)
+    has: torch.Tensor  # bool [G] group produced a state
+
+
+_VAR_FUNCS = frozenset({"stddev_pop", "stddev_samp", "var_pop", "var_samp"})
+
+
+def _as_f64(a: CompVal):
+    """Value lane as float64 (stddev/var are always DOUBLE in MySQL)."""
+    if a.eval_type == "real":
+        return a.value
+    if a.eval_type == "decimal":
+        return a.value.to(torch.float64) / float(10 ** max(a.ft.decimal, 0))
+    return a.value.to(torch.float64)
+
+
+def _zeros_bool(n: int, like: torch.Tensor):
+    return torch.zeros(n, dtype=torch.bool, device=like.device)
+
+
+def _agg_states_raw(desc: AggDesc, args: list[CompVal], valid, ctx: SegCtx):
+    """Per-group partial states from raw rows."""
+    name = desc.name
+    nseg = ctx.nseg
+    if name == "count":
+        mask = valid
+        for a in args:
+            mask = mask & ~a.null
+        return [(seg_sum(ctx, mask.to(torch.int64)), _zeros_bool(nseg, valid))]
+    a = args[0]
+    mask = valid & ~a.null
+    cnt = seg_sum(ctx, mask.to(torch.int64))
+    empty = cnt == 0
+    if name in ("sum", "avg"):
+        if a.eval_type == "real":
+            s = seg_sum(ctx, torch.where(mask, a.value, 0.0))
+        else:
+            s = seg_sum(ctx, torch.where(mask, a.value.to(torch.int64), 0))
+        if name == "sum":
+            return [(s, empty)]
+        return [(cnt, _zeros_bool(nseg, valid)), (s, empty)]
+    if name in ("min", "max"):
+        op = seg_min if name == "min" else seg_max
+        if a.eval_type == "real":
+            fill = float("inf") if name == "min" else float("-inf")
+            v = op(ctx, torch.where(mask, a.value, fill))
+        elif a.value.dim() == 2:
+            raise AssertionError("string min/max is routed via GatherState")
+        elif a.ft.is_unsigned() and a.eval_type == "int":
+            av = a.value.to(torch.int64) ^ I64_MIN_
+            fill = I64_MAX if name == "min" else I64_MIN_
+            v = op(ctx, torch.where(mask, av, fill)) ^ I64_MIN_
+        else:
+            av = a.value.to(torch.int64)
+            fill = I64_MAX if name == "min" else I64_MIN_
+            v = op(ctx, torch.where(mask, av, fill))
+        return [(v, empty)]
+    if name == "first_row":
+        raise AssertionError("first_row is routed via GatherState")
+    if name in _VAR_FUNCS:
+        # moment states [count, sum, sum_sq] — additive
+        v = _as_f64(a)
+        s = seg_sum(ctx, torch.where(mask, v, 0.0))
+        q = seg_sum(ctx, torch.where(mask, v * v, 0.0))
+        return [(cnt, _zeros_bool(nseg, valid)), (s, empty), (q, empty)]
+    raise NotImplementedError(f"aggregate {name} on device")
+
+
+def _first_match_idx(mask_s, orig_s, ctx: SegCtx, n):
+    """Per-segment earliest ORIGINAL row index among mask rows (the sort
+    is stable, so the first masked sorted position is the earliest row).
+    Returns (idx int32 [nseg], has bool [nseg])."""
+    pos, has = seg_first_match(ctx, mask_s)
+    idx = orig_s[pos.to(torch.int64)].to(torch.int32)
+    return torch.clamp(idx, 0, n - 1), has
+
+
+def _arg_extreme_mask(words_s, cand, ctx: SegCtx, maximize: bool):
+    """Narrow `cand` (sorted order) to rows holding the per-segment
+    lexicographic extreme of `words_s` ([n, K] int64, most significant
+    word first): word-by-word radix arg-extreme."""
+    seg = ctx.seg.to(torch.int64)
+    for k in range(words_s.shape[1]):
+        w = words_s[:, k]
+        if maximize:
+            best = seg_max(ctx, torch.where(cand, w, I64_MIN_))
+        else:
+            best = seg_min(ctx, torch.where(cand, w, I64_MAX))
+        cand = cand & (w == best[seg])
+    return cand
+
+
+def finalize_agg(desc: AggDesc, states: list, group_valid) -> tuple:
+    """State columns -> final (value, null) result column."""
+    name = desc.name
+    if name == "avg":
+        cnt, (s, snull) = states[0][0], states[1]
+        if desc.ft.eval_type() == "real":
+            out = s / torch.where(cnt == 0, 1, cnt).to(torch.float64)
+            return out, snull | (cnt == 0)
+        # decimal: scale(avg) = scale(sum) + 4 (div frac incr)
+        sum_scale = _scale(desc.partial_fts()[1])
+        tgt = _scale(desc.ft)
+        num = s * (10 ** (tgt - sum_scale))
+        out = _round_div(num, torch.where(cnt == 0, 1, cnt))
+        return out, snull | (cnt == 0)
+    if name == "first_row":
+        has = states[0][0]
+        v, nl = states[1]
+        return v, nl | (has == 0)
+    if name in _VAR_FUNCS:
+        cnt = states[0][0]
+        s, q = states[1][0], states[2][0]
+        n = torch.clamp(cnt, min=1).to(torch.float64)
+        mean = s / n
+        if name.endswith("samp"):
+            var = torch.clamp(q - n * mean * mean, min=0.0) / torch.clamp(n - 1.0, min=1.0)
+            null = cnt < 2  # sample stats undefined for n < 2 (MySQL NULL)
+        else:
+            var = torch.clamp(q / n - mean * mean, min=0.0)
+            null = cnt == 0
+        out = torch.sqrt(var) if name.startswith("stddev") else var
+        return out, null
+    v, nl = states[0][0], states[0][1]
+    return v, nl
+
+
+def _gather_state_sorted(desc, sorted_avs, valid_s, ctx: SegCtx, perm, n, merge):
+    """GatherState for first_row / string min-max, from SORTED args."""
+    name = desc.name
+    if name == "first_row":
+        mask = valid_s
+        if merge:
+            mask = mask & (sorted_avs[0].value > 0)
+        idx, has = _first_match_idx(mask, perm, ctx, n)
+        return GatherState(idx, has)
+    a = sorted_avs[-1]
+    mask = valid_s & ~a.null
+    cand = _arg_extreme_mask(a.value, mask, ctx, name == "max")
+    idx, has = _first_match_idx(cand, perm, ctx, n)
+    return GatherState(idx, has)
+
+
+def _needs_gather_state(desc, arg_vals) -> bool:
+    if desc.name == "first_row":
+        return True
+    return desc.name in ("min", "max") and bool(arg_vals) and arg_vals[-1].value.dim() == 2
+
+
+def _check_supported(aggs, merge: bool):
+    if merge:
+        raise NotImplementedError("merge-mode aggregation not on device in this port")
+    for desc, avs in aggs:
+        if desc.distinct and avs and desc.name in ({"count", "sum", "avg"} | _VAR_FUNCS):
+            raise NotImplementedError(f"{desc.name}(DISTINCT) not on device in this port")
+
+
+def group_aggregate(
+    group_bys: list[CompVal],
+    aggs: list,
+    row_valid: torch.Tensor,
+    group_capacity: int,
+    merge: bool = False,
+    small_groups: int | None = None,
+    stream: bool = False,
+):
+    """Hash-cluster group aggregation.
+
+    aggs: list of (AggDesc, [arg CompVals]). Returns GroupAggResult; groups
+    in first-encounter order.
+    small_groups: statistics-driven hint (planner NDV product) — with a
+    hint <= 32 and an eligible agg mix the one-pass kernel runs; its
+    overflow flag routes the driver back here.
+    stream: input pre-sorted on the group keys; the sort path gives the
+    same rows (the stream kernel is not ported)."""
+    _check_supported(aggs, merge)
+    if small_groups and group_bys and small_groups <= 32:
+        from .dense_agg import dense_agg_eligible, group_aggregate_dense
+
+        if dense_agg_eligible(group_bys, aggs, merge):
+            return group_aggregate_dense(group_bys, aggs, row_valid, small_groups)
+    dev = row_valid.device
+    n = row_valid.shape[0]
+    keys: list[torch.Tensor] = []
+    for g in group_bys:
+        keys.extend(sort_key_arrays(g))
+    # ONE sortable word: salted 62-bit hash, invalid rows pinned to the tail;
+    # a second independently-salted hash rides along for collision detection
+    hp = group_hash(keys, row_valid, salt=group_capacity)
+    hv = hash_words(keys, group_capacity + 0x9E3779B9)
+
+    h_s, perm = torch.sort(hp, stable=True)
+    hv_s = hv[perm]
+    valid_s = h_s != I64_MAX  # validity is IN the sort word
+    seg, n_groups = segments_from_sorted([h_s], valid_s)
+    overflow = n_groups > group_capacity
+    nseg = group_capacity + 1
+    seg = torch.clamp(seg, max=nseg - 1)
+    ctx = make_segctx(seg, nseg)
+
+    # exact-grouping check: equal primary hash but different secondary hash
+    # anywhere inside a cluster => collision => overflow (salted retry)
+    same_prev = _zeros_bool(n, row_valid)
+    same_prev[1:] = h_s[1:] == h_s[:-1]
+    mism = _zeros_bool(n, row_valid)
+    mism[1:] = hv_s[1:] != hv_s[:-1]
+    pair_valid = valid_s.clone()
+    pair_valid[0] = False
+    pair_valid[1:] &= valid_s[:-1]
+    overflow = overflow | torch.any(same_prev & mism & pair_valid)
+
+    # earliest original row per group (deterministic oracle parity)
+    group_rep_full, _ = _first_match_idx(valid_s, perm, ctx, n)
+    group_rep = group_rep_full[:group_capacity]
+    gids = torch.arange(group_capacity, dtype=torch.int32, device=dev)
+    group_valid = gids < n_groups
+
+    sorted_cache: dict = {}
+
+    def resort(a: CompVal) -> CompVal:
+        key = (id(a.value), id(a.null))
+        if key not in sorted_cache:
+            sorted_cache[key] = CompVal(a.value[perm], a.null[perm], a.ft)
+        return sorted_cache[key]
+
+    # dry pass records every seg_sum request; resolve() batches them into
+    # one [A, N] cumsum; the replay pass below gets the real results
+    ctx.sums = SumBatch(ctx)
+    for desc, arg_vals in aggs:
+        if _needs_gather_state(desc, arg_vals):
+            continue
+        _agg_states_raw(desc, [resort(a) for a in arg_vals], valid_s, ctx)
+    ctx.sums.resolve()
+
+    states = []
+    for desc, arg_vals in aggs:
+        av_s = [resort(a) for a in arg_vals]
+        if _needs_gather_state(desc, arg_vals):
+            st = _gather_state_sorted(desc, av_s, valid_s, ctx, perm, n, merge)
+            states.append(GatherState(st.idx[:group_capacity], st.has[:group_capacity] & group_valid))
+            continue
+        st = _agg_states_raw(desc, av_s, valid_s, ctx)
+        states.append([(v[:group_capacity], nl[:group_capacity] | ~group_valid) for v, nl in st])
+    ctx.sums = None
+
+    # groups come out hash-ordered; reorder by earliest contributing row so
+    # the output order matches the oracle's first-encounter insertion order
+    order = torch.argsort(torch.where(group_valid, group_rep, n), stable=True)
+    group_rep = group_rep[order]
+    out_states: list = []
+    for st in states:
+        if isinstance(st, GatherState):
+            out_states.append(GatherState(st.idx[order], st.has[order]))
+        else:
+            out_states.append([(v[order], nl[order]) for v, nl in st])
+    return GroupAggResult(group_rep, group_valid, torch.clamp(n_groups, max=group_capacity), overflow,
+                          out_states, need=n_groups.to(torch.int64))
+
+
+def scalar_aggregate(aggs: list, row_valid: torch.Tensor, merge: bool = False, salt: int = 1):
+    """Aggregation without GROUP BY: always exactly one output row.
+
+    One segment spanning the batch. Returns (states, overflow); overflow
+    is always False here (it comes only from DISTINCT, not ported)."""
+    _check_supported(aggs, merge)
+    n = row_valid.shape[0]
+    dev = row_valid.device
+    ctx = SegCtx(
+        seg=torch.zeros(n, dtype=torch.int32, device=dev),
+        nseg=1,
+        starts=torch.zeros(1, dtype=torch.int32, device=dev),
+        ends=torch.full((1,), n - 1, dtype=torch.int32, device=dev),
+        counts=torch.full((1,), n, dtype=torch.int64, device=dev),
+    )
+    perm = torch.arange(n, dtype=torch.int32, device=dev)
+    states = []
+    for desc, arg_vals in aggs:
+        if _needs_gather_state(desc, arg_vals):
+            st = _gather_state_sorted(desc, arg_vals, row_valid, ctx, perm, n, merge)
+            states.append(GatherState(st.idx[:1], st.has[:1]))
+        else:
+            states.append(_agg_states_raw(desc, arg_vals, row_valid, ctx))
+    return states, torch.zeros((), dtype=torch.bool, device=dev)

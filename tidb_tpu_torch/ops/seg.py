@@ -1,0 +1,228 @@
+"""Segment machinery for group-by (port of tidb_tpu/ops/seg.py).
+
+  * group keys hash into ONE int64 word (splitmix64 over the normalized key
+    words from ops/keys.py), so grouping costs one single-key sort no matter
+    how many GROUP BY columns there are;
+  * segment reductions over the hash-sorted rows are cumsum passes plus
+    gathers at segment boundaries;
+  * hash collisions (different keys, equal hash) are detected by the caller
+    on an independently salted second hash and surface as the overflow flag.
+
+The hashes are bit-equal to the JAX package's: group order and overflow
+decisions follow from them. torch's `>>` on int64 is arithmetic, so the
+logical shift is the same mask form; int64 multiply wraps, as XLA's does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+I64_MAX = 0x7FFFFFFFFFFFFFFF
+# valid-hash space: top bit clear AND low bit clear — a masked hash is even,
+# so it can never equal the (odd) I64_MAX invalid sentinel
+MAX63 = 0x7FFFFFFFFFFFFFFE
+
+_M64 = (1 << 64) - 1
+# splitmix64 finalizer constants (public domain; two's-complement int64)
+_C1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_C2 = 0x94D049BB133111EB - (1 << 64)
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def _to_i64(x: int) -> int:
+    """Python int -> its two's-complement int64 value."""
+    x &= _M64
+    return x - (1 << 64) if x >> 63 else x
+
+
+def _lsr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical shift right on int64 (arithmetic shift + mask)."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    x = (x ^ _lsr(x, 30)) * _C1
+    x = (x ^ _lsr(x, 27)) * _C2
+    return x ^ _lsr(x, 31)
+
+
+def _mix64_int(x: int) -> int:
+    """_mix64 on a Python int (the salt's seed word), bit-equal."""
+    x &= _M64
+    x = ((x ^ (x >> 30)) * (_C1 & _M64)) & _M64
+    x = ((x ^ (x >> 27)) * (_C2 & _M64)) & _M64
+    return _to_i64(x ^ (x >> 31))
+
+
+def _word_as_i64(w: torch.Tensor) -> torch.Tensor:
+    """Key word -> int64 bit material. Float words are bit-cast, with the
+    two 32-bit halves swapped: the JAX package assembles the word from its
+    int32 halves in little-endian order, and the hashes must stay
+    bit-equal to it."""
+    if w.is_floating_point():
+        bits = w.to(torch.float64).contiguous().view(torch.int64)
+        return (bits << 32) | _lsr(bits, 32)
+    return w.to(torch.int64)
+
+
+def hash_words(words: list[torch.Tensor], salt: int) -> torch.Tensor:
+    """Mix a list of [N] key words into one well-distributed int64 [N]."""
+    h0 = _mix64_int(_to_i64(salt * _GOLDEN + 1))
+    if not words:
+        return torch.tensor(h0, dtype=torch.int64)
+    h = torch.full(words[0].shape, h0, dtype=torch.int64, device=words[0].device)
+    for w in words:
+        h = _mix64(h ^ _word_as_i64(w))
+    return h
+
+
+def group_hash(words: list[torch.Tensor], valid: torch.Tensor, salt: int) -> torch.Tensor:
+    """Single sortable grouping word: valid rows get their 63-bit hash
+    (top bit clear), invalid rows get I64_MAX — one sort then clusters
+    equal keys and pushes invalid rows to the tail."""
+    h = hash_words(words, salt) & MAX63
+    return torch.where(valid, h, I64_MAX)
+
+
+@dataclass
+class SegCtx:
+    """Boundary view of sorted segment ids.
+
+    seg: int32 [N] ascending; nseg static; starts/ends int32 [nseg]
+    (ends inclusive; empty segment has ends < starts); counts int64 [nseg].
+    sums: optional SumBatch — when set, seg_sum calls are recorded and later
+    resolved as ONE batched [A, N] cumsum instead of A separate ones.
+    """
+
+    seg: torch.Tensor
+    nseg: int
+    starts: torch.Tensor
+    ends: torch.Tensor
+    counts: torch.Tensor
+    sums: object = None
+
+
+class SumBatch:
+    """Record/replay batcher for seg_sum.
+
+    An aggregation needs many per-segment sums; stacked [A, N] they ride
+    ONE cumsum launch. Protocol: a dry pass records every requested tensor
+    (returning zeros), resolve() computes the batched result, then an
+    identical replay pass receives the real tensors in the same order."""
+
+    def __init__(self, ctx: "SegCtx"):
+        self.ctx = ctx
+        self.reqs: list = []
+        self.results: list | None = None
+        self.replay_i = 0
+
+    def add(self, v: torch.Tensor) -> torch.Tensor:
+        if self.results is None:
+            self.reqs.append(v)
+            return torch.zeros((self.ctx.nseg,), dtype=v.dtype, device=v.device)
+        r = self.results[self.replay_i]
+        self.replay_i += 1
+        return r
+
+    def resolve(self):
+        ctx = self.ctx
+        n = ctx.seg.shape[0]
+        lo = torch.clamp(ctx.starts, 0, n - 1).to(torch.int64)
+        hi = torch.clamp(ctx.ends, 0, n - 1).to(torch.int64)
+        by_dtype: dict = {}
+        for i, v in enumerate(self.reqs):
+            by_dtype.setdefault(v.dtype, []).append((i, v))
+        results: list = [None] * len(self.reqs)
+        for dt, items in by_dtype.items():
+            s = torch.stack([v for _, v in items], 0)  # [A, N]
+            c = torch.cumsum(s, dim=1)
+            out = c[:, hi] - c[:, lo] + s[:, lo]
+            out = torch.where(ctx.counts[None, :] > 0, out, torch.zeros((), dtype=dt, device=out.device))
+            for j, (i, _) in enumerate(items):
+                results[i] = out[j]
+        self.results = results
+        self.replay_i = 0
+
+
+def make_segctx(seg: torch.Tensor, nseg: int) -> SegCtx:
+    """seg must be DENSE ascending (consecutive ids 0..K then constant):
+    run k starts segment k. Small nseg: binary search; large: one stable
+    stream-compaction sort of the boundary rows."""
+    n = seg.shape[0]
+    dev = seg.device
+    if nseg <= 2048 or nseg < n // 64:
+        q = torch.arange(nseg, dtype=seg.dtype, device=dev)
+        starts = torch.searchsorted(seg.contiguous(), q).to(torch.int32)
+    else:
+        bnd = torch.ones(n, dtype=torch.bool, device=dev)
+        bnd[1:] = seg[1:] != seg[:-1]
+        pos = torch.argsort((~bnd).to(torch.int8), stable=True).to(torch.int32)
+        n_runs = seg[-1].to(torch.int32) + 1
+        if nseg > n:
+            pos = torch.cat([pos, torch.full((nseg - n,), n, dtype=torch.int32, device=dev)])
+        g = torch.arange(nseg, dtype=torch.int32, device=dev)
+        starts = torch.where(g < n_runs, pos[:nseg], n).to(torch.int32)
+    ends = torch.cat([starts[1:], torch.full((1,), n, dtype=torch.int32, device=dev)]) - 1
+    counts = torch.clamp((ends - starts + 1).to(torch.int64), min=0)
+    return SegCtx(seg, nseg, starts, ends, counts)
+
+
+def seg_sum(ctx: SegCtx, vals: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Per-segment sum via cumsum + boundary gathers (empty segments -> 0).
+    Callers pre-mask invalid lanes to 0. Routed through ctx.sums (one
+    batched cumsum) when a SumBatch is armed."""
+    v = vals if dtype is None else vals.to(dtype)
+    if ctx.nseg == 1:
+        return torch.sum(v, dim=0, keepdim=True, dtype=v.dtype)
+    if ctx.sums is not None:
+        return ctx.sums.add(v)
+    n = v.shape[0]
+    c = torch.cumsum(v, dim=0)
+    lo = torch.clamp(ctx.starts, 0, n - 1).to(torch.int64)
+    hi = torch.clamp(ctx.ends, 0, n - 1).to(torch.int64)
+    out = c[hi] - c[lo] + v[lo]
+    return torch.where(ctx.counts > 0, out, torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def _seg_reduce(ctx: SegCtx, vals: torch.Tensor, reduce: str, fill) -> torch.Tensor:
+    """Per-segment min/max: one scatter-reduce into nseg slots seeded with
+    the fill (empty segments keep it)."""
+    out = torch.full((ctx.nseg,), fill, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce(0, ctx.seg.to(torch.int64), vals, reduce=reduce, include_self=True)
+
+
+def _fill(vals: torch.Tensor, lowest: bool):
+    if vals.is_floating_point():
+        return float("-inf") if lowest else float("inf")
+    info = torch.iinfo(vals.dtype)
+    return info.min if lowest else info.max
+
+
+def seg_min(ctx: SegCtx, vals: torch.Tensor) -> torch.Tensor:
+    if ctx.nseg == 1:
+        return torch.amin(vals, dim=0, keepdim=True)
+    return _seg_reduce(ctx, vals, "amin", _fill(vals, lowest=False))
+
+
+def seg_max(ctx: SegCtx, vals: torch.Tensor) -> torch.Tensor:
+    if ctx.nseg == 1:
+        return torch.amax(vals, dim=0, keepdim=True)
+    return _seg_reduce(ctx, vals, "amax", _fill(vals, lowest=True))
+
+
+def seg_first_match(ctx: SegCtx, mask_s: torch.Tensor):
+    """Per-segment sorted position of the FIRST mask row (int32 [nseg]),
+    plus a has-any flag. A reverse cummin over (mask ? position : n) gives
+    every position its nearest masked position at-or-after; reading it at
+    the segment start yields the first masked row IN the segment — or a
+    leak into a later segment, rejected by the extent check. With a stable
+    sort, that is also the masked row with the smallest original index."""
+    n = mask_s.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=mask_s.device)
+    m = torch.where(mask_s, iota, n)
+    rcm = torch.flip(torch.cummin(torch.flip(m, (0,)), 0).values, (0,))
+    first = rcm[torch.clamp(ctx.starts, 0, n - 1).to(torch.int64)]
+    has = (ctx.counts > 0) & (first <= ctx.ends)
+    return torch.where(has, torch.clamp(first, 0, n - 1), 0).to(torch.int32), has

@@ -1,0 +1,142 @@
+"""TPC-H-shaped coprocessor workloads: the Q6, Q1 and scalar-agg DAGs and
+their generated columns (the builders of the JAX package's bench.py).
+
+Each DAG builder takes the package's `exec`, `expr` and `types` modules as
+arguments, so one definition builds the same DAG in this port and in the
+JAX package (the parity tests build both); nothing here imports either
+package. Columns are numpy, made from a seed, in the DeviceBatch numpy form
+(data, null, length | None) that interop.device_batch_from_numpy takes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def make_tables(n: int, seed: int = 0) -> dict:
+    """Columnar TPC-H lineitem-shaped arrays (bench.py _make_tables)."""
+    rng = np.random.default_rng(seed)
+    year = rng.integers(1992, 1999, n)
+    month = rng.integers(1, 13, n)
+    day = rng.integers(1, 29, n)
+    ymd = (year * 13 + month) << 5 | day
+    shipdate = (ymd << 17) << 24  # packed datetime (types/mytime.py layout)
+    return {
+        "shipdate": shipdate.astype(np.int64),
+        "qty": (rng.integers(1, 51, n) * 100).astype(np.int64),  # dec(15,2)
+        "price": rng.integers(90000, 9000000, n).astype(np.int64),  # cents
+        "disc": rng.integers(0, 11, n).astype(np.int64),  # dec(15,2) 0.00-0.10
+        "rflag": rng.integers(0, 3, n).astype(np.uint8),  # A/N/R
+        "lstat": rng.integers(0, 2, n).astype(np.uint8),  # O/F
+    }
+
+
+def fixed_col(a: np.ndarray):
+    return (a, np.zeros(len(a), bool), None)
+
+
+def str_col(codes: np.ndarray, alphabet: bytes):
+    """One-byte string column: code k -> alphabet[k]."""
+    data = np.frombuffer(alphabet, np.uint8)[codes][:, None]
+    return (data, np.zeros(len(codes), bool), np.ones(len(codes), np.int32))
+
+
+def make_chunk(chunk_mod, fts, cols):
+    """Host Chunk of the package `chunk_mod` over numpy columns in the
+    (data, null, length | None) form; strings take length bytes of data."""
+    out = []
+    for (data, null, length), ft in zip(cols, fts):
+        if length is None:
+            out.append(chunk_mod.Column(ft, np.asarray(data), np.asarray(null, bool)))
+            continue
+        offs = np.zeros(len(length) + 1, np.int64)
+        np.cumsum(length, out=offs[1:])
+        blob = np.concatenate([data[i, : length[i]] for i in range(len(length))]) if len(length) else np.zeros(0, np.uint8)
+        out.append(chunk_mod.Column(ft, None, np.asarray(null, bool), offs, blob.astype(np.uint8)))
+    return chunk_mod.Chunk(out)
+
+
+def scalar_agg_dag(exec_mod, expr_mod, types_mod, threshold: str = "120.00"):
+    """SELECT count(*), sum(qty), avg(qty) WHERE qty > threshold (bench.py
+    uses 120.00, which no generated row passes)."""
+    D15 = types_mod.new_decimal(15, 2)
+    BOOL = types_mod.new_longlong(notnull=True)
+    scan = exec_mod.TableScan(1, (exec_mod.ColumnInfo(1, D15),))
+    c = expr_mod.col(0, D15)
+    sel = exec_mod.Selection((expr_mod.func("gt", BOOL, c, expr_mod.lit(threshold, types_mod.new_decimal(6, 2))),))
+    AggDesc = expr_mod.AggDesc
+    agg = exec_mod.Aggregation(group_by=(), aggs=(AggDesc("count", ()), AggDesc("sum", (c,)), AggDesc("avg", (c,))))
+    return exec_mod.DAGRequest((scan, sel, agg), output_offsets=(0, 1, 2)), [D15]
+
+
+def scalar_agg_columns(t: dict) -> list:
+    return [fixed_col(t["qty"])]
+
+
+def q6_dag(exec_mod, expr_mod, types_mod):
+    """TPC-H Q6: fused date/discount/quantity filter + sum(price*disc)."""
+    T = types_mod
+    BOOL = T.new_longlong(notnull=True)
+    DT, D15 = T.new_datetime(), T.new_decimal(15, 2)
+    fts = [DT, D15, D15, D15]  # shipdate, qty, price, disc
+    func, lit = expr_mod.func, expr_mod.lit
+    scan = exec_mod.TableScan(1, tuple(exec_mod.ColumnInfo(i + 1, ft) for i, ft in enumerate(fts)))
+
+    def C(i):
+        return expr_mod.col(i, fts[i])
+
+    pred = func(
+        "and", BOOL,
+        func("ge", BOOL, C(0), lit("1994-01-01", DT)),
+        func(
+            "and", BOOL,
+            func("lt", BOOL, C(0), lit("1995-01-01", DT)),
+            func(
+                "and", BOOL,
+                func("between", BOOL, C(3), lit("0.05", T.new_decimal(3, 2)), lit("0.07", T.new_decimal(3, 2))),
+                func("lt", BOOL, C(1), lit(24, T.new_longlong())),
+            ),
+        ),
+    )
+    revenue = func("mul", T.new_decimal(31, 4), C(2), C(3))
+    AggDesc = expr_mod.AggDesc
+    agg = exec_mod.Aggregation(group_by=(), aggs=(AggDesc("sum", (revenue,)), AggDesc("count", ())))
+    return exec_mod.DAGRequest((scan, exec_mod.Selection((pred,)), agg), output_offsets=(0, 1)), fts
+
+
+def q6_columns(t: dict) -> list:
+    return [fixed_col(t["shipdate"]), fixed_col(t["qty"]), fixed_col(t["price"]), fixed_col(t["disc"])]
+
+
+def q1_dag(exec_mod, expr_mod, types_mod):
+    """TPC-H Q1: GROUP BY (returnflag, linestatus), six aggregates."""
+    T = types_mod
+    BOOL = T.new_longlong(notnull=True)
+    DT, D15, V1 = T.new_datetime(), T.new_decimal(15, 2), T.new_varchar(1)
+    fts = [V1, V1, D15, D15, D15, DT]  # rflag, lstat, qty, price, disc, shipdate
+    func, lit = expr_mod.func, expr_mod.lit
+    scan = exec_mod.TableScan(2, tuple(exec_mod.ColumnInfo(i + 1, ft) for i, ft in enumerate(fts)))
+
+    def C(i):
+        return expr_mod.col(i, fts[i])
+
+    sel = exec_mod.Selection((func("le", BOOL, C(5), lit("1998-09-02", DT)),))
+    disc_price = func("mul", T.new_decimal(31, 4), C(3), func("minus", T.new_decimal(16, 2), lit(1, T.new_longlong()), C(4)))
+    AggDesc = expr_mod.AggDesc
+    agg = exec_mod.Aggregation(
+        group_by=(C(0), C(1)),
+        aggs=(
+            AggDesc("sum", (C(2),)),
+            AggDesc("sum", (C(3),)),
+            AggDesc("sum", (disc_price,)),
+            AggDesc("avg", (C(2),)),
+            AggDesc("avg", (C(4),)),
+            AggDesc("count", ()),
+        ),
+    )
+    return exec_mod.DAGRequest((scan, sel, agg), output_offsets=tuple(range(8))), fts
+
+
+def q1_columns(t: dict) -> list:
+    return [str_col(t["rflag"], b"ANR"), str_col(t["lstat"], b"OF"),
+            fixed_col(t["qty"]), fixed_col(t["price"]), fixed_col(t["disc"]), fixed_col(t["shipdate"])]

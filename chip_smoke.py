@@ -6,19 +6,34 @@
 Phases, each of which exits non-zero on failure (nothing is caught):
   1. the device, and its name and power limit from nvidia-smi;
   2. build every CUDA kernel from csrc/ with nvcc (one process per source,
-     in parallel) and report the build seconds;
-  3. hold the one-pass GROUP BY kernel (ops/dense_agg.py) against its plain
-     torch version on the card, bit for bit, at TPC-H Q1's shape (2^22
-     rows, G = 16), with string keys carrying NULLs, with more than G keys
-     (overflow), and with a forced primary-hash collision (overflow);
-  4. drive the coprocessor program end to end — Q6 and Q1 (small-G hint 16)
-     at 2^22 rows through exec.executor.drive_program_info on `cuda` — with
-     every launch counter zeroed just before each path and read just after,
-     and check both results against an exact numpy ground truth;
-  5. time the kernel, its plain version, and Q6/Q1 end to end (median of
-     >= 10 runs) beside the kernel's bound; with --profile, also one
-     torch.profiler run of each path: device time by kernel and the
-     device's busy share of the path's wall time.
+     in parallel), report the build seconds and ptxas's register lines;
+  3. hold every kernel against its plain torch version on the card, bit
+     for bit, at the shapes the main paths give it:
+       K1 dense_agg (ops/dense_agg.py) at TPC-H Q1's shape (2^22 rows,
+          G = 16), with string keys carrying NULLs, with more than G keys
+          (overflow), and with a forced primary-hash collision (overflow);
+       K2 postsort_segscan and K3 membership_segscan (ops/joinscan.py) on
+          Q3's own inputs at 2^22 lineitem rows, then a nullable two-lane
+          case, a duplicate hay key (overflow), every row usable (the last
+          run's emission) and duplicate inner keys (K3 overflow);
+       K4 probe_tables (ops/join_probe.py) at the 1:32 radix join's plan
+          (4096 partitions x 128 build x 2048 probe slots), then NULL keys,
+          unmatched keys, a duplicate build key (dup flag), unsigned keys
+          and INT64 extremes;
+  4. drive the main paths end to end through exec.executor.
+     drive_program_info on `cuda`, every launch counter zeroed just before
+     each path and read just after, each result checked against an exact
+     numpy ground truth: Q6 and Q1 (small-G hint 16) at 2^22 rows; Q3 at
+     2^22 lineitem rows (K2 and K3 must launch); the join bench at 1:32
+     (2^22 probe rows, 2^17 build rows) uniform scalar, uniform grouped by
+     the build payload (700 groups) and skewed (40% on one key: the escape
+     hatch and one ladder retry) — K4 must launch on the uniform cases;
+  5. time each kernel beside its bound — its device time per call from
+     torch.profiler over 10 calls, and the median CUDA-event time of a
+     wrapper call (>= 10 runs) — and its plain version, and each path end
+     to end (host clock around a synchronised run); with --profile, also
+     one torch.profiler run of each path: device time by kernel and the
+     device's busy share.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits 2 and prints
@@ -37,6 +52,9 @@ import time
 N_ROWS = 1 << 22
 G = 16
 REPS = 10
+JOIN_RATIO = 32
+JOIN_GROUPS = 700
+DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 SIMT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 
@@ -81,52 +99,152 @@ def host_median_ms(fn, reps: int = REPS, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def q1_agg_inputs(dag, fts, batch):
-    """The Q1 aggregation's inputs as the main path builds them: the
-    selection mask, the group-key CompVals and the (AggDesc, args) pairs."""
-    from tidb_tpu_torch.exec.dag import Aggregation, Selection
-    from tidb_tpu_torch.expr.compile import ExprCompiler
-    from tidb_tpu_torch.ops.selection import apply_selection
+def device_ms(fn, kernel_names, reps: int = REPS) -> float:
+    """Device time per call of the hand kernels named in `kernel_names`
+    (substrings of their CUDA function names), from torch.profiler over
+    `reps` calls of fn: the kernels alone, without the wrapper's host work
+    and small torch ops that the CUDA-event time of a call includes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    sel = next(e for e in dag.executors if isinstance(e, Selection))
-    agg = next(e for e in dag.executors if isinstance(e, Aggregation))
-    comp = ExprCompiler(fts, device=batch.device)
-    valid = apply_selection(batch.row_valid, comp.run(list(sel.conditions), batch.cols))
-    gvals = comp.run(list(agg.group_by), batch.cols)
-    avals = comp.run([a for d in agg.aggs for a in d.args], batch.cols)
-    aggs, k = [], 0
-    for d in agg.aggs:
-        aggs.append((d, avals[k: k + len(d.args)]))
-        k += len(d.args)
-    return valid, gvals, aggs
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in kernel_names))
+    if us <= 0:
+        raise SystemExit(f"the profiler saw no device time for {kernel_names}")
+    return us / 1e3 / reps
 
 
-def compare_kernel(name, lanes, want_overflow: bool):
+def bound(in_bytes: int, out_bytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the 32-bit rate."""
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SIMT_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _flat(outs):
+    for o in outs:
+        if isinstance(o, (list, tuple)):
+            yield from o
+        else:
+            yield o
+
+
+def compare(kernel: str, case: str, got, want, names) -> int:
     """Kernel vs plain version on the same CUDA tensors, bit for bit.
     Returns the largest absolute difference over the integer outputs."""
     import torch
 
-    from tidb_tpu_torch.ops import dense_agg as K1
-
-    got = K1.dense_agg(*lanes)
-    torch.cuda.synchronize()
-    want = K1._dense_agg_plain(*lanes)
-    names = ("group_rep", "n_groups", "overflow", "counts", "sums", "nns")
     err = 0
-    for nm, a, b in zip(names, got, want):
-        if a.shape != b.shape or not torch.equal(a, b):
-            raise SystemExit(f"K1 {name}: {nm} differs: kernel {a.tolist()} plain {b.tolist()}")
+    got, want = list(_flat(got)), list(_flat(want))
+    if len(got) != len(want):
+        raise SystemExit(f"{kernel} {case}: {len(got)} outputs, plain gives {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        nm = names[i] if i < len(names) else f"out{i}"
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            bad = (a != b).nonzero()[:5].flatten().tolist() if a.shape == b.shape else "shape"
+            raise SystemExit(f"{kernel} {case}: {nm} differs (kernel {a.dtype}{tuple(a.shape)}, "
+                             f"plain {b.dtype}{tuple(b.shape)}, first at {bad})")
         if a.dtype != torch.bool and a.numel():
             err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
-    if bool(got[2]) != want_overflow:
-        raise SystemExit(f"K1 {name}: overflow {bool(got[2])}, expected {want_overflow}")
-    log(f"phase 3 K1 {name}: kernel == plain (n_groups={int(got[1])}, overflow={bool(got[2])})")
     return err
 
 
-def numpy_q6(t, T):
-    import numpy as np
+def agg_inputs(dag_exec, fts, batch):
+    """An aggregation's inputs as the main path builds them: the group-key
+    CompVals and the (AggDesc, args) pairs."""
+    from tidb_tpu_torch.expr.compile import ExprCompiler
 
+    comp = ExprCompiler(fts, device=batch.row_valid.device)
+    gvals = comp.run(list(dag_exec.group_by), batch.cols)
+    avals = comp.run([a for d in dag_exec.aggs for a in d.args], batch.cols)
+    aggs, k = [], 0
+    for d in dag_exec.aggs:
+        aggs.append((d, avals[k: k + len(d.args)]))
+        k += len(d.args)
+    return gvals, aggs
+
+
+def selected(batch, fts, sel):
+    from tidb_tpu_torch.expr.compile import ExprCompiler
+    from tidb_tpu_torch.ops.selection import apply_selection
+
+    comp = ExprCompiler(fts, device=batch.row_valid.device)
+    return apply_selection(batch.row_valid, comp.run(list(sel.conditions), batch.cols))
+
+
+def q1_agg_inputs(dag, fts, batch):
+    """The Q1 aggregation's inputs: the selection mask, the group-key
+    CompVals and the (AggDesc, args) pairs."""
+    from tidb_tpu_torch.exec.dag import Aggregation, Selection
+
+    sel = next(e for e in dag.executors if isinstance(e, Selection))
+    agg = next(e for e in dag.executors if isinstance(e, Aggregation))
+    gvals, aggs = agg_inputs(agg, fts, batch)
+    return selected(batch, fts, sel), gvals, aggs
+
+
+def q3_kernel_inputs(dag, fts, batches):
+    """K3's and K2's inputs as Q3's packed chain builds them (builder.py
+    _trace_packed_chain): ((spk, spay, wbad), (spk, lanes_s, bad_all, nw_s,
+    nn_bits, combo keys), and the K2 argument pieces (hay_key, hay_ok, pkv,
+    probe_ok, aggs) for the variants)."""
+    from tidb_tpu_torch.expr.compile import ExprCompiler
+    from tidb_tpu_torch.ops.joinagg import membership_chain, membership_lanes, packed_groupsum_lanes
+
+    _ls, lsel, outer, agg = dag.executors
+    _os, odate_sel, inner = outer.build
+    _cs, cust_sel = inner.build
+    (lf, of, cf), (lb, ob, cb) = fts, batches
+    dev = lb.row_valid.device
+    lvalid, ovalid, cvalid = selected(lb, lf, lsel), selected(ob, of, odate_sel), selected(cb, cf, cust_sel)
+    ocomp = ExprCompiler(of, device=dev)
+    okey = ocomp.run([inner.probe_keys[0]], ob.cols)[0]
+    payload = ocomp.run([outer.build_keys[0]], ob.cols)[0]
+    ckey = ExprCompiler(cf, device=dev).run([inner.build_keys[0]], cb.cols)[0]
+    o_ok = ovalid & ~okey.null & ~payload.null
+    i_ok = cvalid & ~ckey.null
+    k3 = membership_lanes(okey.value, o_ok, ckey.value, i_ok, payload.value)
+    hay_key, hay_ok, _ = membership_chain(okey.value, o_ok, ckey.value, i_ok, payload.value)
+    lcomp = ExprCompiler(lf, device=dev)
+    avals = lcomp.run([a for d in agg.aggs for a in d.args], lb.cols)
+    pkv = lcomp.run([outer.probe_keys[0]], lb.cols)[0]
+    aggs = [(agg.aggs[0], avals)]
+    probe_ok = lvalid & ~pkv.null
+    k2 = packed_groupsum_lanes(hay_key, hay_ok, pkv, probe_ok, aggs)
+    return k3, k2, (hay_key, hay_ok, pkv, probe_ok, aggs)
+
+
+def join_kernel_inputs(dag, fts, batches, join_capacity: int):
+    """K4's inputs as the radix join builds them at the join bench's plan:
+    (plan, (b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok))."""
+    from tidb_tpu_torch.expr.compile import ExprCompiler
+    from tidb_tpu_torch.ops.join import _key_matrix
+    from tidb_tpu_torch.ops.radix_join import probe_kernel_inputs, radix_plan
+
+    join = dag.executors[1]
+    (lf, of), (lb, ob) = fts, batches
+    dev = lb.row_valid.device
+    pk = ExprCompiler(lf, device=dev).run(list(join.probe_keys), lb.cols)
+    bk = ExprCompiler(of, device=dev).run(list(join.build_keys), ob.cols)
+    (bw,), bu = _key_matrix(bk, ob.row_valid)
+    (pw,), pu = _key_matrix(pk, lb.row_valid)
+    plan = radix_plan(bw.shape[0], pw.shape[0], join_capacity)
+    return plan, probe_kernel_inputs(bw, bu, pw, pu, plan, join_capacity)
+
+
+# ---------------------------------------------------------------------------
+# numpy ground truths
+# ---------------------------------------------------------------------------
+
+def numpy_q6(t, T):
     lo = T.MyTime.parse("1994-01-01", 0).packed
     hi = T.MyTime.parse("1995-01-01", 0).packed
     m = (t["shipdate"] >= lo) & (t["shipdate"] < hi) & (t["disc"] >= 5) & (t["disc"] <= 7) & (t["qty"] < 2400)
@@ -165,6 +283,50 @@ def decoded_q1(chunk):
     return out
 
 
+def _sum_by(keys, vals):
+    """{key: (int sum of vals, count)} in exact int64."""
+    import numpy as np
+
+    uniq, inv = np.unique(keys, return_inverse=True)
+    s = np.zeros(len(uniq), np.int64)
+    np.add.at(s, inv, vals)
+    c = np.bincount(inv, minlength=len(uniq))
+    return {int(k): (int(a), int(b)) for k, a, b in zip(uniq, s, c)}
+
+
+def numpy_q3(cols, T):
+    """{l_orderkey: revenue scaled 1e4} over lineitems shipped after
+    1995-03-15 whose order is dated before it and whose customer is in
+    segment 'B' (orders and customers are keyed 0..n-1)."""
+    (okey, price, disc, lship), (_ok, o_cust, o_date), (_ck, seg) = ([c[0] for c in s] for s in cols)
+    cut = T.MyTime.parse("1995-03-15", 0).packed
+    c_ok = seg[:, 0] == ord("B")
+    o_ok = (o_date < cut) & c_ok[o_cust]
+    l_ok = (lship > cut) & o_ok[okey]
+    return {k: s for k, (s, _c) in _sum_by(okey[l_ok], price[l_ok] * (100 - disc[l_ok])).items()}
+
+
+def decoded_q3(chunk):
+    return {int(chunk.columns[1].data[j]): int(chunk.columns[0].data[j]) for j in range(chunk.num_rows())}
+
+
+def numpy_join(cols, grouped: bool):
+    """sum(v), count(*) of lineitem JOIN orders (orders keyed 0..nb-1),
+    overall or per build payload: {payload | None: (sum, count)}."""
+    (okey, v), (o_okey, payload) = ([c[0] for c in s] for s in cols)
+    m = (okey >= 0) & (okey < len(o_okey))
+    if grouped:
+        return _sum_by(payload[okey[m]], v[m])
+    return {None: (int(v[m].sum()), int(m.sum()))}
+
+
+def decoded_join(chunk, grouped: bool):
+    cols = chunk.columns
+    if grouped:
+        return {int(cols[2].data[j]): (int(cols[0].data[j]), int(cols[1].data[j])) for j in range(chunk.num_rows())}
+    return {None: (int(cols[0].data[0]), int(cols[1].data[0]))}
+
+
 def profile_path(name, fn, wall_ms: float, top: int = 12):
     """One profiled run of fn: device time by kernel (torch.profiler) and
     the device's busy share of the path's median wall time."""
@@ -191,6 +353,40 @@ def profile_path(name, fn, wall_ms: float, top: int = 12):
         log(f"  {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
+class Counters:
+    """The kernels' launch counters: zeroed just before a main path runs,
+    read just after; timing and comparison launches are not counted."""
+
+    def __init__(self):
+        from tidb_tpu_torch.ops import dense_agg, join_probe, joinscan
+
+        self.fns = {"dense_agg": dense_agg.dense_agg, "postsort_segscan": joinscan.postsort_segscan,
+                    "membership_segscan": joinscan.membership_segscan, "probe_tables": join_probe.probe_tables}
+        self.main = {k: 0 for k in self.fns}
+
+    def zero(self):
+        for f in self.fns.values():
+            f.launches = 0
+
+    def read(self) -> dict:
+        return {k: f.launches for k, f in self.fns.items()}
+
+    def path(self, name, fn, need=()):
+        """Run one main path with the counters zeroed; require a launch of
+        each kernel in `need`; keep the counts for the record."""
+        self.zero()
+        out = fn()
+        got = self.read()
+        for k in need:
+            if got[k] < 1:
+                raise SystemExit(f"{name} did not launch the {k} kernel (launches {got})")
+        for k, v in got.items():
+            self.main[k] += v
+        self.zero()
+        log(f"phase 4 {name}: launches {got}")
+        return out
+
+
 def main() -> int:
     import torch
 
@@ -206,11 +402,16 @@ def main() -> int:
     from tidb_tpu_torch import kernels, workloads as W
     from tidb_tpu_torch.exec.builder import ProgramCache
     from tidb_tpu_torch.exec.executor import drive_program_info
+    from tidb_tpu_torch.exec.ladder import rung_for
     from tidb_tpu_torch.expr.compile import CompVal
     from tidb_tpu_torch.interop import device_batch_from_numpy
     from tidb_tpu_torch.ops import dense_agg as K1
+    from tidb_tpu_torch.ops import join_probe as K4
+    from tidb_tpu_torch.ops import joinscan as K23
+    from tidb_tpu_torch.ops.radix_join import probe_strategy
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
     # phase 1: the card
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -225,86 +426,269 @@ def main() -> int:
             if "registers" in line or "smem" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    # phase 3: K1 against its plain version at Q1's shape
     n = N_ROWS
+    gen = torch.Generator(device=dev).manual_seed(1)
+    counters = Counters()
+
+    def batches_of(cols_list, fts_list):
+        return [device_batch_from_numpy(c, np.ones(len(c[0][0]), bool), len(c[0][0]), f, device=dev)
+                for c, f in zip(cols_list, fts_list)]
+
+    # phase 3, K1: against its plain version at Q1's shape
     t = W.make_tables(n, seed=0)
     q1_dag, q1_fts = W.q1_dag(E, X, T)
     q1_batch = device_batch_from_numpy(W.q1_columns(t), np.ones(n, bool), n, q1_fts, device=dev)
     valid, gvals, aggs = q1_agg_inputs(q1_dag, q1_fts, q1_batch)
     q1_lanes = K1.dense_agg_lanes(gvals, aggs, valid, G)[:5]
-    err = compare_kernel("q1", (*q1_lanes, G), want_overflow=False)
+    k1_names = ("group_rep", "n_groups", "overflow", "counts", "sums", "nns")
 
-    gen = torch.Generator(device=dev).manual_seed(1)
+    def check_k1(case, lanes, want_overflow):
+        got = K1.dense_agg(*lanes, G)
+        torch.cuda.synchronize()
+        e = compare("K1", case, got, K1._dense_agg_plain(*lanes, G), k1_names)
+        if bool(got[2]) != want_overflow:
+            raise SystemExit(f"K1 {case}: overflow {bool(got[2])}, expected {want_overflow}")
+        log(f"phase 3 K1 {case}: kernel == plain (n_groups={int(got[1])}, overflow={bool(got[2])})")
+        return e
+
+    k1_err = check_k1("q1", q1_lanes, False)
     null_mask = torch.rand(n, generator=gen, device=dev) < 0.1
     rflag_nulls = CompVal(gvals[0].value, gvals[0].null | null_mask, gvals[0].ft, raw=gvals[0].raw)
-    lanes = K1.dense_agg_lanes([rflag_nulls, gvals[1]], aggs, valid, G)[:5]
-    err = max(err, compare_kernel("string keys with NULLs", (*lanes, G), want_overflow=False))
-
+    k1_err = max(k1_err, check_k1("string keys with NULLs", (*K1.dense_agg_lanes([rflag_nulls, gvals[1]], aggs, valid, G)[:5],), False))
     wide = torch.randint(0, 40, (n,), generator=gen, device=dev, dtype=torch.int64)
     wide_key = CompVal(wide, torch.zeros(n, dtype=torch.bool, device=dev), T.new_longlong())
-    lanes = K1.dense_agg_lanes([wide_key], aggs, valid, G)[:5]
-    err = max(err, compare_kernel("40 keys > G", (*lanes, G), want_overflow=True))
-
+    k1_err = max(k1_err, check_k1("40 keys > G", K1.dense_agg_lanes([wide_key], aggs, valid, G)[:5], True))
     hp_rflag_only = K1.dense_agg_lanes([gvals[0]], aggs, valid, G)[0]
-    lanes = (hp_rflag_only,) + tuple(q1_lanes[1:])
-    err = max(err, compare_kernel("forced hp collision", (*lanes, G), want_overflow=True))
+    k1_err = max(k1_err, check_k1("forced hp collision", (hp_rflag_only,) + tuple(q1_lanes[1:]), True))
 
-    # phase 4: the main path, end to end
+    # phase 3, K2 and K3: on Q3's own inputs at 2^22 lineitem rows
+    q3_dag, q3_fts = W.q3_dag(E, X, T)
+    q3_cols = W.q3_columns(n, seed=0)
+    q3_batches = batches_of(q3_cols, q3_fts)
+    k3_in, k2_in, (hay_key, hay_ok, pkv, probe_ok, q3_aggs) = q3_kernel_inputs(q3_dag, q3_fts, q3_batches)
+    k2_names = ("gv", "cnt", "key32", "sum0", "sum1", "nn0", "nn1", "overflow", "join_rows")
+
+    def check_k2(case, spk, lanes_s, bad, nw_s, nn_bits, want_overflow):
+        got = K23.postsort_segscan(spk, lanes_s, bad, nw_s, nn_bits)
+        torch.cuda.synchronize()
+        want = K23._postsort_segscan_plain(spk, lanes_s, bad, nw_s, nn_bits)
+        names = k2_names[:3] + k2_names[3:3 + len(lanes_s)] + k2_names[5:5 + len(lanes_s)] + k2_names[7:]
+        e = compare("K2", case, got, want, names)
+        if bool(got[5]) != want_overflow:
+            raise SystemExit(f"K2 {case}: overflow {bool(got[5])}, expected {want_overflow}")
+        log(f"phase 3 K2 {case}: kernel == plain ({spk.shape[0]} rows, {int(got[0].sum())} groups, "
+            f"{len(lanes_s)} lanes, overflow={bool(got[5])}, join rows {int(got[6])})")
+        return e
+
+    def check_k3(case, spk, bad, want_overflow):
+        got = K23.membership_segscan(spk, bad)
+        torch.cuda.synchronize()
+        e = compare("K3", case, got, K23._membership_segscan_plain(spk, bad), ("ok_out", "overflow"))
+        if bool(got[1]) != want_overflow:
+            raise SystemExit(f"K3 {case}: overflow {bool(got[1])}, expected {want_overflow}")
+        log(f"phase 3 K3 {case}: kernel == plain ({spk.shape[0]} rows, {int(got[0].sum())} ok, overflow={bool(got[1])})")
+        return e
+
+    from tidb_tpu_torch.ops.joinagg import membership_lanes, packed_groupsum_lanes
+
+    k2_spk, k2_lanes, k2_bad, k2_nw, k2_bits, _ = k2_in
+    k2_err = check_k2("q3", k2_spk, k2_lanes, k2_bad, k2_nw, k2_bits, False)
+    # a nullable second lane beside Q3's revenue
+    lcols = q3_batches[0].cols
+    price = CompVal(lcols[1].data, torch.rand(n, generator=gen, device=dev) < 0.2, T.new_decimal(15, 2))
+    two = [(q3_aggs[0][0], [q3_aggs[0][1][0]]), (q3_aggs[0][0], [price])]
+    spk, lanes_s, bad, nw_s, bits, _ = packed_groupsum_lanes(hay_key, hay_ok, pkv, probe_ok, two)
+    k2_err = max(k2_err, check_k2("nullable two lanes", spk, lanes_s, bad, nw_s, bits, False))
+    # a duplicate usable hay key
+    dup_key = hay_key.clone()
+    usable = torch.nonzero(hay_ok).flatten()[:2]
+    dup_key[usable[1]] = dup_key[usable[0]]
+    spk, lanes_s, bad, nw_s, bits, _ = packed_groupsum_lanes(dup_key, hay_ok, pkv, probe_ok, q3_aggs)
+    k2_err = max(k2_err, check_k2("duplicate hay key", spk, lanes_s, bad, nw_s, bits, True))
+    # every row usable: the max-key run ends at element n - 1
+    m = n // 8
+    all_hay = torch.arange(m, device=dev)
+    all_probe = CompVal(torch.randint(0, m, (n,), generator=gen, device=dev), torch.zeros(n, dtype=torch.bool, device=dev),
+                        pkv.ft)
+    all_probe.value[-1] = m - 1
+    ones_b, ones_p = torch.ones(m, dtype=torch.bool, device=dev), torch.ones(n, dtype=torch.bool, device=dev)
+    spk, lanes_s, bad, nw_s, bits, _ = packed_groupsum_lanes(all_hay, ones_b, all_probe, ones_p, q3_aggs)
+    k2_err = max(k2_err, check_k2("every row usable", spk, lanes_s, bad, nw_s, bits, False))
+    got_last = K23.postsort_segscan(spk, lanes_s, bad, nw_s, bits)[0][-1]
+    if not bool(got_last):
+        raise SystemExit("K2 every row usable: the last run was not emitted at n - 1")
+
+    k3_spk, _k3_pay, k3_bad = k3_in
+    k3_err = check_k3("q3", k3_spk, k3_bad, False)
+    okey_t, cust_t = q3_batches[1].cols[1].data, q3_batches[2].cols[0].data.clone()
+    cust_t[1] = cust_t[0]
+    spk, _sp, wbad = membership_lanes(okey_t, torch.ones_like(okey_t, dtype=torch.bool), cust_t,
+                                      torch.ones_like(cust_t, dtype=torch.bool), q3_batches[1].cols[0].data)
+    k3_err = max(k3_err, check_k3("duplicate inner keys", spk, wbad, True))
+
+    # phase 3, K4: at the 1:32 radix join's plan
+    jb_dag, jb_fts = W.join_bench_dag(E, X, T)
+    jb_cols = W.join_bench_columns(n, JOIN_RATIO, False)
+    jb_batches = batches_of(jb_cols, jb_fts)
+    jc = rung_for(n)
+    plan, k4_in = join_kernel_inputs(jb_dag, jb_fts, jb_batches, jc)
+    if probe_strategy(*plan[:3]) != "kernel":
+        raise SystemExit(f"radix plan {plan} is not the probe kernel's shape")
+    k4_names = ("bpos", "dup")
+
+    def check_k4(case, tables, want_dup):
+        got = K4.probe_tables(*tables)
+        torch.cuda.synchronize()
+        e = compare("K4", case, got, K4._probe_tables_plain(*tables), k4_names)
+        if bool(got[1]) != want_dup:
+            raise SystemExit(f"K4 {case}: dup {bool(got[1])}, expected {want_dup}")
+        hits = int((got[0] < tables[0].shape[1]).sum())
+        log(f"phase 3 K4 {case}: kernel == plain (plan {tuple(tables[0].shape)} x {tables[2].shape[1]}, "
+            f"{hits} matched slots, dup={bool(got[1])})")
+        return e
+
+    b_key, b_ok, p_key, p_ok = k4_in
+    k4_err = check_k4("join 1:32", k4_in, False)
+    k4_err = max(k4_err, check_k4("NULL keys", (b_key, b_ok & (torch.rand(b_ok.shape, generator=gen, device=dev) < 0.8),
+                                               p_key, p_ok & (torch.rand(p_ok.shape, generator=gen, device=dev) < 0.8)), False))
+    k4_err = max(k4_err, check_k4("unmatched keys", (b_key, b_ok, p_key + (1 << 40), p_ok), False))
+    b_dup = b_key.clone()
+    b_dup[:, 1] = b_dup[:, 0]
+    b_ok2 = b_ok.clone()
+    b_ok2[:, :2] = True
+    k4_err = max(k4_err, check_k4("duplicate build key", (b_dup, b_ok2, torch.where(p_ok, b_dup[:, :1].expand_as(p_key), p_key), p_ok), True))
+    top = -(1 << 63)
+    k4_err = max(k4_err, check_k4("unsigned keys", (b_key ^ top, b_ok, p_key ^ top, p_ok), False))
+    b_ext = b_key.clone()
+    b_ext[:, 0], b_ext[:, 1] = -(1 << 63), (1 << 63) - 1
+    p_ext = p_key.clone()
+    p_ext[:, 0::3], p_ext[:, 1::3] = -(1 << 63), (1 << 63) - 1
+    k4_err = max(k4_err, check_k4("INT64 extremes", (b_ext, b_ok2, p_ext, p_ok), False))
+
+    # phase 4: the main paths, end to end
     q6_dag, q6_fts = W.q6_dag(E, X, T)
     q6_batch = device_batch_from_numpy(W.q6_columns(t), np.ones(n, bool), n, q6_fts, device=dev)
     cache = ProgramCache()
 
-    K1.dense_agg.launches = 0
-    q6_chunk, _, _ = drive_program_info(cache, q6_dag, q6_batch, 64)
-    q6_launches = K1.dense_agg.launches
+    def run_q6():
+        return drive_program_info(cache, q6_dag, q6_batch, 64)
+
+    q6_chunk, _, _ = counters.path("Q6", run_q6)
     got = (int(q6_chunk.columns[0].data[0]), int(q6_chunk.columns[1].data[0]))
     want = numpy_q6(t, T)
     if got != want:
         raise SystemExit(f"Q6 mismatch: port {got}, numpy {want}")
-    log(f"phase 4 Q6 at {n} rows: revenue(scaled 1e4)={got[0]} count={got[1]} == numpy; K1 launches {q6_launches}")
+    log(f"phase 4 Q6 at {n} rows: revenue(scaled 1e4)={got[0]} count={got[1]} == numpy")
 
-    K1.dense_agg.launches = 0
-    q1_chunk, _, _ = drive_program_info(cache, q1_dag, q1_batch, 64, small_groups=G)
-    q1_launches = K1.dense_agg.launches
-    if q1_launches < 1:
-        raise SystemExit("Q1 did not launch the dense_agg kernel")
+    def run_q1():
+        return drive_program_info(cache, q1_dag, q1_batch, 64, small_groups=G)
+
+    q1_chunk, _, _ = counters.path("Q1", run_q1, need=("dense_agg",))
     avg_agg = next(e for e in q1_dag.executors if isinstance(e, E.Aggregation)).aggs[3]
     shift = avg_agg.ft.decimal - avg_agg.partial_fts()[1].decimal
-    got = decoded_q1(q1_chunk)
-    want = numpy_q1(t, T, shift)
+    got, want = decoded_q1(q1_chunk), numpy_q1(t, T, shift)
     if got != want:
         raise SystemExit(f"Q1 mismatch:\n port  {got}\n numpy {want}")
-    log(f"phase 4 Q1 at {n} rows: {len(got)} groups == numpy; K1 launches {q1_launches}")
+    log(f"phase 4 Q1 at {n} rows: {len(got)} groups == numpy")
 
-    # phase 5: times
-    nc = len(q1_lanes[3])
-    launches_saved = K1.dense_agg.launches
-    k_ms = median_ms(lambda: K1.dense_agg(*q1_lanes, G))
-    p_ms = median_ms(lambda: K1._dense_agg_plain(*q1_lanes, G))
-    K1.dense_agg.launches = launches_saved  # timing launches are not the main path's
-    in_bytes = n * (8 + 8 + 1) + nc * n * (8 + 1)
-    out_bytes = G * (4 + 8 * (1 + 2 * nc)) + 8
-    ops = n * (1 + 2 * nc)  # one int64 add per accumulator per row
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / SIMT_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    q6_ms = host_median_ms(lambda: drive_program_info(cache, q6_dag, q6_batch, 64))
-    q1_ms = host_median_ms(lambda: drive_program_info(cache, q1_dag, q1_batch, 64, small_groups=G))
-    log(f"phase 5 K1 dense_agg: {k_ms:.4f} ms (plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes: "
-        f"{in_bytes + out_bytes} B), {n} rows, NC={nc}, G={G}")
-    log(f"phase 5 Q6 end to end: {q6_ms:.3f} ms ({n / q6_ms / 1e3:.1f} Mrows/s); "
-        f"Q1 end to end: {q1_ms:.3f} ms ({n / q1_ms / 1e3:.1f} Mrows/s)")
+    q3_gc = rung_for(n // 4)
+
+    def run_q3():
+        return drive_program_info(cache, q3_dag, q3_batches, q3_gc)
+
+    q3_chunk, q3_counts, _ = counters.path("Q3", run_q3, need=("postsort_segscan", "membership_segscan"))
+    got, want = decoded_q3(q3_chunk), numpy_q3(q3_cols, T)
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))[:5]
+        raise SystemExit(f"Q3 mismatch: port {len(got)} groups, numpy {len(want)}; first differences {diff}")
+    log(f"phase 4 Q3 at {n} lineitem rows: {len(got)} groups == numpy; row counts {q3_counts}")
+
+    jg_dag, jg_fts = W.join_bench_dag(E, X, T, groups=JOIN_GROUPS)
+    jg_cols = W.join_bench_columns(n, JOIN_RATIO, False, JOIN_GROUPS)
+    jg_batches = batches_of(jg_cols, jg_fts)
+    js_cols = W.join_bench_columns(n, JOIN_RATIO, True)
+    js_batches = batches_of(js_cols, jb_fts)
+    join_cases = {
+        "join 1:32 uniform": (jb_dag, jb_batches, jb_cols, False, 128, ("probe_tables",)),
+        "join 1:32 uniform, 700 groups": (jg_dag, jg_batches, jg_cols, True, rung_for(JOIN_GROUPS), ("probe_tables",)),
+        "join 1:32 skewed": (jb_dag, js_batches, js_cols, False, 128, ()),
+    }
+    radix = {}
+    for name, (dag, batches, cols, grouped, gcap, need) in join_cases.items():
+        chunk, _counts, info = counters.path(name, lambda: drive_program_info(cache, dag, batches, gcap), need=need)
+        got, want = decoded_join(chunk, grouped), numpy_join(cols, grouped)
+        if got != want:
+            raise SystemExit(f"{name} mismatch: port {len(got)} rows, numpy {len(want)}")
+        radix[name] = info.get("radix")
+        log(f"phase 4 {name}: {len(got)} rows == numpy; radix {info.get('radix')}")
+    if radix["join 1:32 uniform"]["strategy"] != "kernel" or radix["join 1:32 skewed"]["escapes"] < 1:
+        raise SystemExit(f"radix attribution unexpected: {radix}")
+
+    # phase 5: times (the timing launches are not the main paths')
+    main_launches = dict(counters.main)
+    timing = {}
+
+    def time_kernel(name, cuda_names, kernel, plain, args, in_bytes, out_bytes, ops):
+        call_ms = median_ms(lambda: kernel(*args))
+        k_ms = device_ms(lambda: kernel(*args), cuda_names)
+        p_ms = median_ms(lambda: plain(*args))
+        b_ms, b_by = bound(in_bytes, out_bytes, ops)
+        timing[name] = (k_ms, p_ms, b_ms, b_by)
+        log(f"phase 5 {name}: kernel {k_ms:.4f} ms on the device, {call_ms:.4f} ms a wrapper call "
+            f"(plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: {in_bytes + out_bytes} B, {ops} ops)")
+
+    nc1 = len(q1_lanes[3])
+    time_kernel("dense_agg", ("discover_kernel", "order_kernel", "accumulate_kernel"), lambda *a: K1.dense_agg(*a, G), lambda *a: K1._dense_agg_plain(*a, G), q1_lanes,
+                n * (8 + 8 + 1) + nc1 * n * (8 + 1), G * (4 + 8 * (1 + 2 * nc1)) + 8, n * (1 + 2 * nc1))
+    n2, nl2 = k2_spk.shape[0], len(k2_lanes)
+    nn2 = sum(1 for b in k2_bits if b >= 0)
+    time_kernel("postsort_segscan", ("k2_reduce", "k2_scan_tiles", "k2_emit"), K23.postsort_segscan, K23._postsort_segscan_plain,
+                (k2_spk, k2_lanes, k2_bad, k2_nw, k2_bits),
+                n2 * (4 + 4 * nl2 + 1 + (1 if nn2 else 0)), n2 * (1 + 8 + 4 + 8 * nl2 + 8 * nn2) + 16,
+                n2 * (3 + nl2 + nn2))
+    n3 = k3_spk.shape[0]
+    outer_real = int(((k3_spk & 1) == 1).sum())
+    time_kernel("membership_segscan", ("k3_kernel",), K23.membership_segscan, K23._membership_segscan_plain, (k3_spk, k3_bad),
+                n3 * (4 + 1), n3 + 4, outer_real * max(1, n3.bit_length()))
+    P, part_cap = b_key.shape
+    probe_cap = p_key.shape[1]
+    compares = int((p_ok.sum(1) * b_ok.sum(1)).sum())
+    time_kernel("probe_tables", ("probe_kernel",), K4.probe_tables, K4._probe_tables_plain, k4_in,
+                P * probe_cap * (8 + 1) + P * part_cap * (8 + 1), P * probe_cap * 4 + 4, 2 * compares)
+    counters.zero()
+
+    paths = {
+        "Q6": (run_q6, n), "Q1": (run_q1, n),
+        "Q3": (run_q3, sum(int(b.n_rows) for b in q3_batches)),
+    }
+    for name, (dag, batches, _c, _g, gcap, _n) in join_cases.items():
+        paths[name] = ((lambda d=dag, b=batches, g=gcap: drive_program_info(cache, d, b, g)),
+                       sum(int(x.n_rows) for x in batches))
+    wall = {}
+    for name, (fn, rows) in paths.items():
+        ms = host_median_ms(fn)
+        wall[name] = ms
+        log(f"phase 5 {name} end to end: {ms:.3f} ms ({rows / ms / 1e3:.1f} Mrows/s, {rows} rows)")
     if "--profile" in sys.argv[1:]:
-        profile_path("q6", lambda: drive_program_info(cache, q6_dag, q6_batch, 64), q6_ms)
-        profile_path("q1", lambda: drive_program_info(cache, q1_dag, q1_batch, 64, small_groups=G), q1_ms)
-        K1.dense_agg.launches = launches_saved
+        for name, (fn, _rows) in paths.items():
+            profile_path(name, fn, wall[name])
+    counters.zero()
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
-    record = {"kernels": [{
-        "name": "dense_agg", "route": "cuda", "source": "tidb_tpu_torch/csrc/dense_agg.cu",
-        "replaces": "tidb_tpu/ops/dense_pallas.py:223", "launches": q1_launches,
-        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
-    }]}
+    sources = {
+        "dense_agg": ("tidb_tpu_torch/csrc/dense_agg.cu", "tidb_tpu/ops/dense_pallas.py:223", k1_err),
+        "postsort_segscan": ("tidb_tpu_torch/csrc/joinscan.cu", "tidb_tpu/ops/joinscan.py:198", k2_err),
+        "membership_segscan": ("tidb_tpu_torch/csrc/joinscan.cu", "tidb_tpu/ops/joinscan.py:344", k3_err),
+        "probe_tables": ("tidb_tpu_torch/csrc/join_probe.cu", "tidb_tpu/ops/join_pallas.py:103", k4_err),
+    }
+    record = {"kernels": []}
+    for name, (src, replaces, err) in sources.items():
+        k_ms, p_ms, b_ms, b_by = timing[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": main_launches[name], "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
     print(json.dumps(record), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -49,6 +49,8 @@ def test_import_leaves_jax_unloaded():
         "import sys\n"
         "import tidb_tpu_torch, tidb_tpu_torch.exec, tidb_tpu_torch.ops.dense_agg\n"
         "import tidb_tpu_torch.interop, tidb_tpu_torch.workloads, tidb_tpu_torch.kernels\n"
+        "import tidb_tpu_torch.ops.join, tidb_tpu_torch.ops.joinagg, tidb_tpu_torch.ops.joinscan\n"
+        "import tidb_tpu_torch.ops.join_probe, tidb_tpu_torch.ops.radix_join\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -88,3 +90,57 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert out.num_rows() == 1
     out = run_dag_on_chunks(dag, [chunk], device="cpu")
     assert out.num_rows() == 1
+
+
+@pytest.mark.parametrize("which", ["q3", "join_bench"])
+def test_join_workloads_default_to_cuda_and_raise_without_it(which, monkeypatch):
+    from tidb_tpu_torch import chunk as C
+    from tidb_tpu_torch import types as T
+    from tidb_tpu_torch import workloads as W
+    from tidb_tpu_torch.exec import run_dag_on_chunks
+    import tidb_tpu_torch.exec as E
+    import tidb_tpu_torch.expr as X
+    from tidb_tpu_torch.interop import device_batch_from_numpy
+
+    _no_cuda(monkeypatch)
+    if which == "q3":
+        dag, fts = W.q3_dag(E, X, T)
+        cols = W.q3_columns(256)
+    else:
+        dag, fts = W.join_bench_dag(E, X, T)
+        cols = W.join_bench_columns(256, 32, False)
+    chunks = [W.make_chunk(C, f, c) for c, f in zip(cols, fts)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_batch_from_numpy(cols[0], np.ones(len(cols[0][0][0]), bool), len(cols[0][0][0]), fts[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_dag_on_chunks(dag, chunks)
+    out = run_dag_on_chunks(dag, chunks, device="cpu")
+    assert out.num_rows() >= 1
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A wrapper runs its plain version only for CPU tensors; on any other
+    device it launches its kernel (CUDA) or raises."""
+    from tidb_tpu_torch.ops.join_probe import probe_tables
+    from tidb_tpu_torch.ops.joinscan import membership_segscan, postsort_segscan
+
+    m = torch.empty(8, dtype=torch.int32, device="meta")
+    b = torch.empty(8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        postsort_segscan(m, [m], b)
+    with pytest.raises(ValueError, match="unsupported device"):
+        membership_segscan(m, b)
+    k = torch.empty((2, 8), dtype=torch.int64, device="meta")
+    ok = torch.empty((2, 8), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        probe_tables(k, ok, k, ok)
+
+
+def test_kernel_builds_land_in_an_ignored_directory():
+    from tidb_tpu_torch import kernels
+
+    assert set(kernels.SOURCES) == {"dense_agg", "joinscan", "join_probe"}
+    for src in kernels.SOURCES.values():
+        assert (PKG / src).is_file()
+    assert kernels.BUILD_DIR.relative_to(REPO).parts[0] == "build"
+    assert "build/" in (REPO / ".gitignore").read_text().split()

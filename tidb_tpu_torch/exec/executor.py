@@ -3,8 +3,9 @@
 run_dag_on_chunk(s): pad host Chunks into DeviceBatches, run the program,
 decode outputs back to a host Chunk. drive_program_info handles the
 overflow contract: on overflow it retries on the capacity ladder
-(exec/ladder.py) and drops a wrong small-G hint. There is no spill and no
-row-at-a-time oracle in this port: exhausted retries raise
+(exec/ladder.py), drops a wrong small-G hint, and drops the unique-build
+and radix join hints when no rung can clear a join overflow. There is no
+spill and no row-at-a-time oracle in this port: exhausted retries raise
 OverflowRetryError, and host-only operators raise NotImplementedError.
 """
 
@@ -96,16 +97,29 @@ def drive_program(cache: ProgramCache, dag: DAGRequest, batches, group_capacity:
     return chunk, counts
 
 
+def _radix_attribution(prog, jc: int, radix_esc, info: dict):
+    """info["radix"]: what the first radix join of the program ran
+    (partitions, probe strategy), the join-capacity rung, and the escaped
+    row count, which arrived in the same fetch as the overflow flags."""
+    ri = prog.radix_info
+    if ri:
+        info["radix"] = {"partitions": ri.get("partitions", 0), "rung": jc,
+                         "escapes": int(radix_esc), "strategy": ri.get("strategy")}
+
+
 def drive_program_info(cache: ProgramCache, dag: DAGRequest, batches, group_capacity: int, max_retries: int = 3, join_capacity: int | None = None, small_groups: int | None = None):
     """Run the program, growing capacity on overflow; returns (chunk,
-    counts, {"cache_hit", "compile_ns"}). batches: one DeviceBatch per scan
-    in canonical order (a single batch for single-scan DAGs); the program
-    runs on their device.
+    counts, {"cache_hit", "compile_ns"[, "radix"]}). batches: one
+    DeviceBatch per scan in canonical order (a single batch for single-scan
+    DAGs); the program runs on their device.
 
     Capacities snap to the ladder rungs; an overflow retry consults the
     program's NEED hints to re-dispatch the exact rung. A group overflow
     also drops the small-G hint (`smg = None`): the driver cannot tell
-    whether the one-pass kernel ran, so doing both never wastes a retry."""
+    whether the one-pass kernel ran, so doing both never wastes a retry. A
+    join overflow that no rung can clear (a violated unique-build hint, a
+    hash collision) drops the unique-build and radix hints, so the retry
+    lands on the general kernel (ops/join.py)."""
     if not isinstance(batches, (list, tuple)):
         batches = [batches]
     device = batches[0].row_valid.device
@@ -113,21 +127,27 @@ def drive_program_info(cache: ProgramCache, dag: DAGRequest, batches, group_capa
     gc = rung_for(group_capacity)
     jc = rung_for(join_capacity or max(caps))
     smg = small_groups
+    uj = True
+    rj = True
     info = {"cache_hit": True, "compile_ns": 0}
     for _ in range(max_retries + 1):
-        prog, hit, build_ns = cache.get_info(dag, caps, gc, jc, smg, device=device)
+        prog, hit, build_ns = cache.get_info(dag, caps, gc, jc, smg, device=device, unique_joins=uj, radix_joins=rj)
         t0 = time.perf_counter_ns()
-        packed, valid, n, (g_ovf, j_ovf, t_ovf, g_need, j_need, _radix_esc), ex_rows = prog.fn(*batches)
+        packed, valid, n, (g_ovf, j_ovf, t_ovf, g_need, j_need, radix_esc), ex_rows = prog.fn(*batches)
         g_ovf, j_ovf, t_ovf = bool(g_ovf), bool(j_ovf), bool(t_ovf)
         if not hit:
             info["cache_hit"] = False
             info["compile_ns"] += build_ns + (time.perf_counter_ns() - t0)
         if not g_ovf and not j_ovf and not t_ovf:
             counts = [int(x) for x in _np(ex_rows)]
+            _radix_attribution(prog, jc, radix_esc, info)
             return decode_outputs(packed, valid, prog.out_fts), counts, info
         if g_ovf:
             smg = None
-        gc, jc, _drop_join_hints = overflow_step(gc, jc, g_ovf, j_ovf, int(g_need), int(j_need))
+        gc, jc, drop = overflow_step(gc, jc, g_ovf, j_ovf, int(g_need), int(j_need))
+        if drop:
+            uj = False
+            rj = False
     raise OverflowRetryError("DAG overflow not resolved after retries")
 
 

@@ -18,11 +18,17 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # kernel name -> source, relative to the package
-SOURCES = {"dense_agg": "csrc/dense_agg.cu"}
+SOURCES = {
+    "dense_agg": "csrc/dense_agg.cu",
+    "joinscan": "csrc/joinscan.cu",
+    "join_probe": "csrc/join_probe.cu",
+}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -79,6 +85,27 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas register / shared-memory report) of the build."""
     p = _lib_path(name).with_suffix(".log")
     return p.read_text() if p.exists() else ""
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device pointer for a C entry point (NULL for None)."""
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def stream(dev) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on `dev`, for a launch."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def check(t: torch.Tensor, shape, dtypes, what: str):
+    """Raise unless `t` is a contiguous CUDA tensor of `shape` whose dtype
+    is one of `dtypes` — what a kernel takes through a raw pointer."""
+    if not t.is_cuda:
+        raise ValueError(f"{what} must be a CUDA tensor")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what} has dtype {t.dtype}, want one of {dtypes}")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous {tuple(shape)}, got {tuple(t.shape)}")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -226,6 +226,64 @@ def _check_supported(aggs, merge: bool):
             raise NotImplementedError(f"{desc.name}(DISTINCT) not on device in this port")
 
 
+def _group_aggregate_stream(group_bys, aggs, row_valid, group_capacity: int, merge: bool, compact: bool = True):
+    """StreamAgg over input ALREADY sorted on the group keys: group
+    boundaries are neighbour compares over the key words — no sort, no
+    hash. Filtered rows stay inside their key run and are masked by the
+    states; with `compact`, runs whose rows are all filtered drop out
+    through the first-encounter reorder. compact=False returns the raw
+    per-run has-flags as group_valid, in key order (ops/joinagg.py
+    reorders itself)."""
+    _check_supported(aggs, merge)
+    n = row_valid.shape[0]
+    dev = row_valid.device
+    keys: list[torch.Tensor] = []
+    for g in group_bys:
+        keys.extend(sort_key_arrays(g))
+    diff = torch.ones(n, dtype=torch.bool, device=dev)
+    if keys:
+        diff[1:] = False
+        for k in keys:
+            diff[1:] |= k[1:] != k[:-1]
+    seg = torch.cumsum(diff.to(torch.int32), 0, dtype=torch.int32) - 1
+    # overflow only when a SURVIVING row lands past the capacity: key runs
+    # whose rows are all filtered do not affect any output
+    overflow = torch.any(row_valid & (seg >= group_capacity))
+    nseg = group_capacity + 1
+    seg = torch.clamp(seg, max=nseg - 1)
+    ctx = make_segctx(seg, nseg)
+    perm = torch.arange(n, dtype=torch.int32, device=dev)
+
+    group_rep_full, has_rep = _first_match_idx(row_valid, perm, ctx, n)
+    group_rep = group_rep_full[:group_capacity]
+    has_g = has_rep[:group_capacity]
+    n_groups = has_g.sum().to(torch.int32)
+
+    states = []
+    for desc, arg_vals in aggs:
+        if _needs_gather_state(desc, arg_vals):
+            st = _gather_state_sorted(desc, arg_vals, row_valid, ctx, perm, n, merge)
+            states.append(GatherState(st.idx[:group_capacity], st.has[:group_capacity] & has_g))
+            continue
+        st = _agg_states_raw(desc, arg_vals, row_valid, ctx)
+        states.append([(v[:group_capacity], nl[:group_capacity] | ~has_g) for v, nl in st])
+
+    if not compact:
+        return GroupAggResult(group_rep, has_g, n_groups, overflow, states)
+
+    # compact: runs with >= 1 surviving row first, in first-encounter order
+    order = torch.argsort(torch.where(has_g, group_rep, n), stable=True)
+    group_rep = group_rep[order]
+    group_valid = torch.arange(group_capacity, dtype=torch.int32, device=dev) < n_groups
+    out_states: list = []
+    for st in states:
+        if isinstance(st, GatherState):
+            out_states.append(GatherState(st.idx[order], st.has[order]))
+        else:
+            out_states.append([(v[order], nl[order]) for v, nl in st])
+    return GroupAggResult(group_rep, group_valid, n_groups, overflow, out_states)
+
+
 def group_aggregate(
     group_bys: list[CompVal],
     aggs: list,

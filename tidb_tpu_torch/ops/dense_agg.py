@@ -165,21 +165,8 @@ def _dense_agg_plain(hp, hv, row_valid, vals, nulls, g_cap: int):
     return group_rep, torch.tensor(ng, dtype=torch.int32, device=dev), overflow, counts, sums, nns
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _check_lane(t: torch.Tensor, n: int, dtypes, what: str):
-    if not t.is_cuda:
-        raise ValueError(f"{what} must be a CUDA tensor")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{what} has dtype {t.dtype}, want one of {dtypes}")
-    if t.shape != (n,) or not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous [{n}], got {tuple(t.shape)}")
-
-
 def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
-    from ..kernels import load
+    from ..kernels import check, load, ptr, stream
 
     n = hp.shape[0]
     G = int(g_cap)
@@ -191,12 +178,12 @@ def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
     if n >= 1 << 31:
         raise ValueError("row index must fit int32 (group_rep)")
     byte = (torch.bool, torch.uint8)
-    _check_lane(hp, n, (torch.int64,), "hp")
-    _check_lane(hv, n, (torch.int64,), "hv")
-    _check_lane(row_valid, n, byte, "row_valid")
+    check(hp, (n,), (torch.int64,), "hp")
+    check(hv, (n,), (torch.int64,), "hv")
+    check(row_valid, (n,), byte, "row_valid")
     for c in range(nc):
-        _check_lane(vals[c], n, (torch.int64,), f"vals[{c}]")
-        _check_lane(nulls[c], n, byte, f"nulls[{c}]")
+        check(vals[c], (n,), (torch.int64,), f"vals[{c}]")
+        check(nulls[c], (n,), byte, f"nulls[{c}]")
     dev = hp.device
     i64, i32 = torch.int64, torch.int32
     g_keys = torch.full((SLOTS,), -1, dtype=i64, device=dev)
@@ -215,11 +202,10 @@ def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
                    ctypes.c_int, ctypes.c_int] + [vp] * 9
     varr = (vp * max(nc, 1))(*[v.data_ptr() for v in vals])
     narr = (vp * max(nc, 1))(*[m.data_ptr() for m in nulls])
-    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(_ptr(hp), _ptr(hv), _ptr(row_valid), n, varr, narr, nc, G,
-                 _ptr(g_keys), _ptr(g_minrow), _ptr(slot_gid), _ptr(group_rep),
-                 _ptr(rep_hv), _ptr(n_groups), _ptr(acc), _ptr(flag), vp(stream))
+        err = fn(ptr(hp), ptr(hv), ptr(row_valid), n, varr, narr, nc, G,
+                 ptr(g_keys), ptr(g_minrow), ptr(slot_gid), ptr(group_rep),
+                 ptr(rep_hv), ptr(n_groups), ptr(acc), ptr(flag), stream(dev))
     if err != 0:
         raise RuntimeError(f"dense_agg kernel launch failed (CUDA error {err})")
     dense_agg.launches += 1

@@ -1,0 +1,100 @@
+"""Per-partition probe of the radix-partitioned join, as a CUDA kernel.
+
+Replaces the Pallas kernel `probe_tables_pallas`
+(tidb_tpu/ops/join_pallas.py:103, pallas_call at :130). The kernel is
+csrc/join_probe.cu (CUDA C++ for sm_90a, bound with ctypes); its design
+notes are there. For each radix partition it computes the first matching
+build slot of every usable probe slot (part_cap = no match, and for every
+unusable probe slot) and the unique-build fan-out flag (some usable probe
+slot matches more than one usable build slot). Keys compare as int64
+directly: the TPU kernel's hi/lo int32 split (_split32) was a Mosaic
+artifact, and unsigned keys are the same bit patterns.
+
+probe_kernel_eligible keeps the TPU kernel's shape gate exactly
+(join_pallas.py:56-61), so the kernel runs on the shapes where the TPU ran
+its own; other shapes take the "search" probe (ops/radix_join.py).
+
+`probe_tables` launches the kernel for CUDA tensors and runs the plain
+torch version `_probe_tables_plain` only for CPU tensors; on CUDA it
+launches or raises. `probe_tables.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MAX_PART_CAP = 256     # build slots per partition (one CTA of 256 threads)
+MAX_ROWS = 1 << 26     # probe-slot bound of the TPU kernel's gate
+_PLAIN_CHUNK = 1 << 24  # compare cells per step of the plain version
+
+
+def probe_kernel_eligible(n_parts: int, part_cap: int, probe_cap: int) -> bool:
+    """The TPU kernel's shape-only gate: decided from capacities, never
+    from data."""
+    return part_cap <= MAX_PART_CAP and probe_cap % 1024 == 0 and n_parts * probe_cap < MAX_ROWS
+
+
+def _probe_tables_plain(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
+    """Plain torch version of the kernel's function: (bpos int32 [P,
+    probe_cap], dup bool). The broadcast compare runs over blocks of
+    partitions so its [P, probe_cap, part_cap] mask stays bounded."""
+    P, part_cap = b_key_tbl.shape
+    probe_cap = p_key_tbl.shape[1]
+    dev = b_key_tbl.device
+    step = max(1, _PLAIN_CHUNK // max(1, probe_cap * part_cap))
+    slots = torch.arange(part_cap, dtype=torch.int32, device=dev)
+    bpos = torch.empty((P, probe_cap), dtype=torch.int32, device=dev)
+    dup = torch.zeros((), dtype=torch.bool, device=dev)
+    for p0 in range(0, P, step):
+        sl = slice(p0, min(P, p0 + step))
+        eq = (p_key_tbl[sl, :, None] == b_key_tbl[sl, None, :]) & b_slot_ok[sl, None, :] & p_slot_ok[sl, :, None]
+        bpos[sl] = torch.where(eq, slots, part_cap).amin(dim=-1).to(torch.int32)
+        dup = dup | torch.any(eq.sum(dim=-1) > 1)
+    return bpos, dup
+
+
+def _probe_tables_cuda(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
+    from ..kernels import check, load, ptr, stream
+
+    P, part_cap = b_key_tbl.shape
+    probe_cap = p_key_tbl.shape[1]
+    if not 1 <= part_cap <= MAX_PART_CAP:
+        raise ValueError(f"part_cap {part_cap} outside 1..{MAX_PART_CAP}")
+    if not 1 <= P < (1 << 31) or probe_cap < 1 or P * probe_cap >= (1 << 31):
+        raise ValueError(f"table shape {P} x {probe_cap} outside the kernel's range")
+    byte = (torch.bool, torch.uint8)
+    check(b_key_tbl, (P, part_cap), (torch.int64,), "b_key_tbl")
+    check(b_slot_ok, (P, part_cap), byte, "b_slot_ok")
+    check(p_key_tbl, (P, probe_cap), (torch.int64,), "p_key_tbl")
+    check(p_slot_ok, (P, probe_cap), byte, "p_slot_ok")
+    dev = b_key_tbl.device
+    bpos = torch.empty((P, probe_cap), dtype=torch.int32, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    vp = ctypes.c_void_p
+    fn = load("join_probe").probe_tables_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, vp, vp]
+    with torch.cuda.device(dev):
+        err = fn(ptr(b_key_tbl), ptr(b_slot_ok), ptr(p_key_tbl), ptr(p_slot_ok), P, part_cap, probe_cap,
+                 ptr(bpos), ptr(flag), stream(dev))
+    if err != 0:
+        raise RuntimeError(f"probe_tables kernel launch failed (CUDA error {err})")
+    probe_tables.launches += 1
+    return bpos, flag[0] != 0
+
+
+def probe_tables(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
+    """The kernel's function (see _probe_tables_plain): int64 key tables
+    [P, part_cap] / [P, probe_cap] with their bool slot masks -> (bpos
+    int32 [P, probe_cap], dup bool). The CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if b_key_tbl.device.type == "cuda":
+        return _probe_tables_cuda(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok)
+    if b_key_tbl.device.type == "cpu":
+        return _probe_tables_plain(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok)
+    raise ValueError(f"probe_tables: unsupported device {b_key_tbl.device}")
+
+
+probe_tables.launches = 0

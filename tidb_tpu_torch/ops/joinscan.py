@@ -1,0 +1,226 @@
+"""Post-sort passes of the packed join+group chain (TPC-H Q3), as CUDA
+kernels.
+
+Replaces the Pallas kernels of tidb_tpu/ops/joinscan.py:
+  * K2 `postsort_segscan` (:198, pallas_call at :231): one flagged
+    segmented scan over the sorted packed keys pk = key << 1 | side (hay
+    rows even, probe rows odd) that gives, per key run, the contributing
+    probe-row count, the matched flag, exact sums per value lane and
+    non-null counts per nullable lane, plus the overflow flag and the
+    join-row total;
+  * K3 `membership_segscan` (:344, pallas_call at :365): per element, an
+    outer (odd) real row whose key run starts with a usable inner row, plus
+    the overflow flag.
+The kernels are csrc/joinscan.cu (CUDA C++ for sm_90a, bound with ctypes);
+their design notes are there. The TPU kernel's 12/12/8-bit limbs, its
+0x80000000 bias and its run-length cap (_RUN_CAP, a limb-carry bound) are
+gone: Hopper adds int64 natively, so a run of any length stays on K2.
+
+Output contract of K2, identical to the JAX function's: every output is
+[n]-aligned; a run's results sit at the run's LAST element, where the run
+has a contributing probe row and a match (gv), and 0 everywhere else. key32
+is the run's last pk. Overflow: duplicate usable hay keys, or any set bit
+of the (unsorted) bad lane. join_rows counts every real probe row.
+
+`postsort_segscan` and `membership_segscan` launch the kernels for CUDA
+tensors and run the plain torch versions only for CPU tensors; on CUDA
+they launch or raise. `.launches` on each counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+PIN = (1 << 31) - 4    # joinagg._PIN_HAY: pk >= PIN is an unusable row
+_PREV0 = -(1 << 31)    # "previous pk" of element 0: below every real pk
+MAX_LANES = 2
+
+
+def _neighbours(spk: torch.Tensor):
+    """(prev_pk, run_start): element 0's predecessor is INT32_MIN."""
+    prev = torch.empty_like(spk)
+    prev[0:1] = _PREV0
+    prev[1:] = spk[:-1]
+    keydiff = (spk | 1) != (prev | 1)
+    return prev, keydiff
+
+
+def _run_totals(run_id: torch.Tensor, n_runs: int, x: torch.Tensor) -> torch.Tensor:
+    """Per-element total of x over the element's run (int64)."""
+    tot = torch.zeros(n_runs, dtype=torch.int64, device=x.device)
+    tot.index_add_(0, run_id, x.to(torch.int64))
+    return tot[run_id]
+
+
+# ---------------------------------------------------------------------------
+# K2: postsort_segscan
+# ---------------------------------------------------------------------------
+
+def _postsort_segscan_plain(spk, lanes_s, bad_lane, nw_s=None, nn_bits=()):
+    """Plain torch version of K2 (see the module docstring). Returns
+    (gv bool, cnt int64, key32 int32, [sum int64 per lane], [nn int64 per
+    lane], overflow bool, join_rows int64), all [n]-aligned."""
+    n = spk.shape[0]
+    dev = spk.device
+    prev, keydiff = _neighbours(spk)
+    is_hay = (spk & 1) == 0
+    is_real = spk < PIN
+    contrib = ~is_hay & is_real
+    dup = is_hay & is_real & (spk == prev) & ((prev & 1) == 0)
+    mb = contrib & ~keydiff & ((prev & 1) == 0) & (prev == spk - 1)
+    start = keydiff.clone()
+    start[0:1] = True
+    run_id = torch.cumsum(start.to(torch.int64), 0) - 1
+    n_runs = int(run_id[-1]) + 1 if n else 0
+    is_end = torch.ones(n, dtype=torch.bool, device=dev)
+    is_end[:-1] = start[1:]
+    cnt_run = _run_totals(run_id, n_runs, contrib)
+    gv = is_end & (cnt_run > 0) & (_run_totals(run_id, n_runs, mb) > 0)
+    cnt = torch.where(gv, cnt_run, 0)
+    key32 = torch.where(gv, spk, 0)
+    sums, nns = [], []
+    for c, lane in enumerate(lanes_s):
+        s = _run_totals(run_id, n_runs, torch.where(contrib, lane.to(torch.int64), 0))
+        sums.append(torch.where(gv, s, 0))
+        b = nn_bits[c] if c < len(nn_bits) else -1
+        if b < 0:
+            nns.append(cnt)
+        else:
+            nn = contrib & (((nw_s.to(torch.int32) >> b) & 1) == 0)
+            nns.append(torch.where(gv, _run_totals(run_id, n_runs, nn), 0))
+    overflow = torch.any(dup) | torch.any(bad_lane != 0)
+    join_rows = contrib.sum()
+    return gv, cnt, key32, sums, nns, overflow, join_rows
+
+
+def _postsort_segscan_cuda(spk, lanes_s, bad_lane, nw_s=None, nn_bits=()):
+    from ..kernels import check, load, ptr, stream
+
+    n = spk.shape[0]
+    nc = len(lanes_s)
+    bits = [nn_bits[c] if c < len(nn_bits) else -1 for c in range(nc)]
+    if nc > MAX_LANES:
+        raise ValueError(f"{nc} value lanes (the kernel takes <= {MAX_LANES})")
+    if not 1 <= n < (1 << 31):
+        raise ValueError(f"row count {n} outside 1..2^31-1")
+    if any(not -1 <= b < 8 for b in bits):
+        raise ValueError(f"null bits {bits} outside -1..7")
+    check(spk, (n,), (torch.int32,), "spk")
+    check(bad_lane, (n,), (torch.bool, torch.uint8), "bad_lane")
+    for c in range(nc):
+        check(lanes_s[c], (n,), (torch.int32,), f"lanes_s[{c}]")
+    if any(b >= 0 for b in bits):
+        check(nw_s, (n,), (torch.uint8,), "nw_s")
+    dev = spk.device
+    i64 = torch.int64
+    gv = torch.empty(n, dtype=torch.bool, device=dev)
+    cnt = torch.empty(n, dtype=i64, device=dev)
+    key32 = torch.empty(n, dtype=torch.int32, device=dev)
+    sums = [torch.empty(n, dtype=i64, device=dev) for _ in range(nc)]
+    nn_out = [torch.empty(n, dtype=i64, device=dev) if b >= 0 else None for b in bits]
+    lib = load("joinscan")
+    lib.postsort_segscan_tiles.restype = ctypes.c_longlong
+    lib.postsort_segscan_tiles.argtypes = [ctypes.c_longlong]
+    lib.postsort_segscan_carry_bytes.restype = ctypes.c_int
+    tiles = lib.postsort_segscan_tiles(n)
+    carries = torch.empty(tiles * lib.postsort_segscan_carry_bytes(), dtype=torch.uint8, device=dev)
+    meta = torch.zeros(2, dtype=i64, device=dev)  # [overflow, join rows]
+    vp = ctypes.c_void_p
+    fn = lib.postsort_segscan_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    pad = [None] * (MAX_LANES - nc)
+    lanes = list(lanes_s) + pad
+    sums_p = sums + pad
+    nns_p = nn_out + pad
+    bits_p = bits + [-1] * (MAX_LANES - nc)
+    with torch.cuda.device(dev):
+        err = fn(ptr(spk), ptr(lanes[0]), ptr(lanes[1]), ptr(bad_lane), ptr(nw_s),
+                 nc, bits_p[0], bits_p[1], n,
+                 ptr(gv), ptr(cnt), ptr(key32), ptr(sums_p[0]), ptr(sums_p[1]),
+                 ptr(nns_p[0]), ptr(nns_p[1]), ptr(carries), ptr(meta), stream(dev))
+    if err != 0:
+        raise RuntimeError(f"postsort_segscan kernel launch failed (CUDA error {err})")
+    postsort_segscan.launches += 1
+    nns = [cnt if nn is None else nn for nn in nn_out]
+    return gv, cnt, key32, sums, nns, meta[0] != 0, meta[1]
+
+
+def postsort_segscan(spk, lanes_s, bad_lane, nw_s=None, nn_bits=()):
+    """K2 (see _postsort_segscan_plain for the contract): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors.
+
+    spk int32 [n] sorted packed keys; lanes_s: 0-2 int32 [n] value lanes
+    in sorted order, pre-masked to 0 on null and hay rows; bad_lane bool
+    [n] (unsorted pre-sort overflow bits); nw_s uint8 [n] sorted null-bit
+    word, nn_bits[c] the bit of lane c (-1 = NOT NULL)."""
+    if spk.device.type == "cuda":
+        return _postsort_segscan_cuda(spk, lanes_s, bad_lane, nw_s, nn_bits)
+    if spk.device.type == "cpu":
+        return _postsort_segscan_plain(spk, lanes_s, bad_lane, nw_s, nn_bits)
+    raise ValueError(f"postsort_segscan: unsupported device {spk.device}")
+
+
+postsort_segscan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: membership_segscan
+# ---------------------------------------------------------------------------
+
+def _membership_segscan_plain(spk, bad_lane):
+    """Plain torch version of K3: (ok_out bool [n], overflow bool). ok_out
+    marks an outer (odd) real row whose key run's first element is a usable
+    inner (even) row; overflow is a duplicate usable inner key or any bad
+    bit."""
+    n = spk.shape[0]
+    prev, keydiff = _neighbours(spk)
+    is_inner = (spk & 1) == 0
+    is_real = spk < PIN
+    dup = is_inner & is_real & (spk == prev) & ((prev & 1) == 0)
+    head = is_inner & is_real & keydiff
+    start = keydiff.clone()
+    start[0:1] = True
+    run_id = torch.cumsum(start.to(torch.int64), 0) - 1
+    n_runs = int(run_id[-1]) + 1 if n else 0
+    ok_out = ~is_inner & is_real & (_run_totals(run_id, n_runs, head) > 0)
+    return ok_out, torch.any(dup) | torch.any(bad_lane != 0)
+
+
+def _membership_segscan_cuda(spk, bad_lane):
+    from ..kernels import check, load, ptr, stream
+
+    n = spk.shape[0]
+    if not 1 <= n < (1 << 31):
+        raise ValueError(f"row count {n} outside 1..2^31-1")
+    check(spk, (n,), (torch.int32,), "spk")
+    check(bad_lane, (n,), (torch.bool, torch.uint8), "bad_lane")
+    dev = spk.device
+    ok_out = torch.empty(n, dtype=torch.bool, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    vp = ctypes.c_void_p
+    fn = load("joinscan").membership_segscan_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [vp, vp, ctypes.c_longlong, vp, vp, vp]
+    with torch.cuda.device(dev):
+        err = fn(ptr(spk), ptr(bad_lane), n, ptr(ok_out), ptr(flag), stream(dev))
+    if err != 0:
+        raise RuntimeError(f"membership_segscan kernel launch failed (CUDA error {err})")
+    membership_segscan.launches += 1
+    return ok_out, flag[0] != 0
+
+
+def membership_segscan(spk, bad_lane):
+    """K3 (see _membership_segscan_plain for the contract): the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if spk.device.type == "cuda":
+        return _membership_segscan_cuda(spk, bad_lane)
+    if spk.device.type == "cpu":
+        return _membership_segscan_plain(spk, bad_lane)
+    raise ValueError(f"membership_segscan: unsupported device {spk.device}")
+
+
+membership_segscan.launches = 0

@@ -49,6 +49,22 @@ def sort_key_arrays(v: CompVal, desc: bool = False) -> list[torch.Tensor]:
     return arrs
 
 
+def lexsort(keys: list[torch.Tensor], extra_key: torch.Tensor | None = None) -> torch.Tensor:
+    """Stable lexicographic argsort (int64), most-significant key first;
+    `extra_key` is least significant. One stable sort pass per key, least
+    significant first, each carrying the permutation so far."""
+    order = list(reversed(keys))
+    if extra_key is not None:
+        order = [extra_key] + order
+    perm = None
+    for k in order:
+        if perm is None:
+            perm = torch.sort(k, stable=True).indices
+        else:
+            perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm
+
+
 def segments_from_sorted(sorted_keys: list[torch.Tensor], valid: torch.Tensor):
     """Given key tensors already in sorted row order plus a validity mask
     (invalid rows sorted to the end), return (segment_ids int32 [N],

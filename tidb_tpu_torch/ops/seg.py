@@ -86,6 +86,35 @@ def group_hash(words: list[torch.Tensor], valid: torch.Tensor, salt: int) -> tor
     return torch.where(valid, h, I64_MAX)
 
 
+def sort_by_word(word: torch.Tensor):
+    """(sorted_word, perm int32) via one stable sort: equal words keep
+    input order, so segment heads are the earliest original rows."""
+    sw, perm = torch.sort(word, stable=True)
+    return sw, perm.to(torch.int32)
+
+
+def merge_searchsorted(sorted_hay, queries, side: str = "left"):
+    """searchsorted, int32: side='left' counts hay strictly less than each
+    query, side='right' hay <= it (the JAX package computes the same
+    positions with two plain sorts, its TPU-shaped form)."""
+    dt = torch.promote_types(sorted_hay.dtype, queries.dtype)
+    hay = sorted_hay.to(dt).contiguous()
+    return torch.searchsorted(hay, queries.to(dt).contiguous(), side=side).to(torch.int32)
+
+
+def sorted_positions(sorted_hay, queries, side: str = "left"):
+    """searchsorted, int32 (the JAX package picks a binary search or its
+    two-sort merge by query count; both give these positions)."""
+    return merge_searchsorted(sorted_hay, queries, side)
+
+
+def run_head_pos(diff: torch.Tensor) -> torch.Tensor:
+    """Per-row position of the start of its equal-key run, given the
+    boundary mask (diff[0] must be True): a cummax over marked positions."""
+    pos = torch.arange(diff.shape[0], dtype=torch.int32, device=diff.device)
+    return torch.cummax(torch.where(diff, pos, 0), 0).values
+
+
 @dataclass
 class SegCtx:
     """Boundary view of sorted segment ids.

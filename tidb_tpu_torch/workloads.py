@@ -1,5 +1,7 @@
-"""TPC-H-shaped coprocessor workloads: the Q6, Q1 and scalar-agg DAGs and
-their generated columns (the builders of the JAX package's bench.py).
+"""TPC-H-shaped coprocessor workloads: the Q6, Q1, scalar-agg and Q3 DAGs,
+the join bench's lineitem x orders DAG, and their generated columns (the
+builders of the JAX package's bench.py, with its random draws in its order,
+so both packages get identical batches).
 
 Each DAG builder takes the package's `exec`, `expr` and `types` modules as
 arguments, so one definition builds the same DAG in this port and in the
@@ -140,3 +142,98 @@ def q1_dag(exec_mod, expr_mod, types_mod):
 def q1_columns(t: dict) -> list:
     return [str_col(t["rflag"], b"ANR"), str_col(t["lstat"], b"OF"),
             fixed_col(t["qty"]), fixed_col(t["price"]), fixed_col(t["disc"]), fixed_col(t["shipdate"])]
+
+
+def _notnull(types_mod, ft):
+    f = ft.clone()
+    f.flag |= types_mod.Flag.NotNull
+    return f
+
+
+def q3_dag(exec_mod, expr_mod, types_mod):
+    """TPC-H Q3's join+aggregate core (bench.py q3): lineitem JOIN (orders
+    JOIN customer), orders dated before 1995-03-15, customers of segment
+    'B', lineitems shipped after 1995-03-15, GROUP BY l_orderkey,
+    sum(price * (1 - disc)). Both build sides are primary keys (unique);
+    TPC-H declares every column NOT NULL. Returns (dag, [lineitem, orders,
+    customer field types]) — the scans in canonical order."""
+    T, E = types_mod, exec_mod
+    func, lit, col = expr_mod.func, expr_mod.lit, expr_mod.col
+    BOOL = T.new_longlong(notnull=True)
+    LL = T.new_longlong(notnull=True)
+    DT, D15, V1 = T.new_datetime(), T.new_decimal(15, 2), T.new_varchar(1)
+    lfts = [LL, _notnull(T, D15), _notnull(T, D15), _notnull(T, DT)]  # okey, price, disc, shipdate
+    ofts = [LL, LL, _notnull(T, DT)]                                   # okey, custkey, orderdate
+    cfts = [LL, _notnull(T, V1)]                                       # custkey, segment
+    ls = E.TableScan(1, tuple(E.ColumnInfo(i + 1, ft) for i, ft in enumerate(lfts)))
+    os_ = E.TableScan(2, tuple(E.ColumnInfo(i + 1, ft) for i, ft in enumerate(ofts)))
+    cs = E.TableScan(3, tuple(E.ColumnInfo(i + 1, ft) for i, ft in enumerate(cfts)))
+    cust_sel = E.Selection((func("eq", BOOL, col(1, cfts[1]), lit("B", V1)),))
+    inner = E.Join(build=(cs, cust_sel), probe_keys=(col(1, ofts[1]),), build_keys=(col(0, cfts[0]),),
+                   join_type="inner", build_unique=True)
+    odate_sel = E.Selection((func("lt", BOOL, col(2, ofts[2]), lit("1995-03-15", DT)),))
+    outer = E.Join(build=(os_, odate_sel, inner), probe_keys=(col(0, lfts[0]),), build_keys=(col(0, ofts[0]),),
+                   join_type="inner", build_unique=True)
+    lsel = E.Selection((func("gt", BOOL, col(3, lfts[3]), lit("1995-03-15", DT)),))
+    post = lfts + ofts + cfts
+    revenue = func("mul", T.new_decimal(31, 4), col(1, post[1]),
+                   func("minus", T.new_decimal(16, 2), lit(1, T.new_longlong()), col(2, post[2])))
+    agg = E.Aggregation(group_by=(col(0, post[0]),), aggs=(expr_mod.AggDesc("sum", (revenue,)),))
+    return E.DAGRequest((ls, lsel, outer, agg), output_offsets=(0, 1)), [lfts, ofts, cfts]
+
+
+def q3_columns(n: int, seed: int = 0) -> list:
+    """Q3's per-scan column lists (lineitem, orders, customer) at n
+    lineitem rows (bench.py q3): n // 8 orders, n // 32 customers,
+    l_orderkey uniform over the orders, segment codes into b"BAS"."""
+    no, nc = max(n // 8, 16), max(n // 32, 8)
+    t = make_tables(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    okey = rng.integers(0, no, n).astype(np.int64)
+    custkey = rng.integers(0, nc, no).astype(np.int64)
+    odate = make_tables(no, seed + 2)["shipdate"]
+    segment = rng.integers(0, 3, nc)
+    return [
+        [fixed_col(okey), fixed_col(t["price"]), fixed_col(t["disc"]), fixed_col(t["shipdate"])],
+        [fixed_col(np.arange(no, dtype=np.int64)), fixed_col(custkey), fixed_col(odate)],
+        [fixed_col(np.arange(nc, dtype=np.int64)), str_col(segment, b"BAS")],
+    ]
+
+
+def join_bench_dag(exec_mod, expr_mod, types_mod, groups: int | None = None):
+    """The join bench's DAG (bench.py BENCH_JOIN): lineitem(okey, v) JOIN
+    orders(okey, payload) on okey, unique build, feeding sum(v), count(*) —
+    scalar, or grouped by the build payload when `groups` is set. The
+    aggregate's arguments are not the probe key, so the join is not fused
+    with it. Returns (dag, [lineitem, orders field types])."""
+    E, X = exec_mod, expr_mod
+    LL = types_mod.new_longlong(notnull=True)
+    ls = E.TableScan(1, (E.ColumnInfo(1, LL), E.ColumnInfo(2, LL)))
+    os_ = E.TableScan(2, (E.ColumnInfo(1, LL), E.ColumnInfo(2, LL)))
+    join = E.Join(build=(os_,), probe_keys=(X.col(0, LL),), build_keys=(X.col(0, LL),),
+                  join_type="inner", build_unique=True)
+    aggs = (X.AggDesc("sum", (X.col(1, LL),)), X.AggDesc("count", ()))
+    if groups is None:
+        agg = E.Aggregation(group_by=(), aggs=aggs)
+        offsets = (0, 1)
+    else:
+        agg = E.Aggregation(group_by=(X.col(3, LL),), aggs=aggs)
+        offsets = (0, 1, 2)
+    return E.DAGRequest((ls, join, agg), output_offsets=offsets), [[LL, LL], [LL, LL]]
+
+
+def join_bench_columns(n: int, ratio: int, skewed: bool, groups: int | None = None, seed: int = 7) -> list:
+    """The join bench's per-scan column lists (lineitem, orders) (bench.py
+    BENCH_JOIN make): n lineitem rows over n // ratio orders; `skewed`
+    puts 40% of the probes on one key; the payload takes `groups` values
+    (64 when None)."""
+    rng = np.random.default_rng(seed)
+    nb = max(n // ratio, 16)
+    okey = rng.integers(0, nb, n).astype(np.int64)
+    if skewed:
+        hot = rng.random(n) < 0.4
+        okey = np.where(hot, np.int64(nb // 2), okey)
+    v = rng.integers(0, 1000, n).astype(np.int64)
+    payload = rng.integers(0, groups or 64, nb).astype(np.int64)
+    return [[fixed_col(okey), fixed_col(v)],
+            [fixed_col(np.arange(nb, dtype=np.int64)), fixed_col(payload)]]

@@ -15,7 +15,12 @@ Phases, each of which exits non-zero on failure (nothing is caught):
        K2 postsort_segscan and K3 membership_segscan (ops/joinscan.py) on
           Q3's own inputs at 2^22 lineitem rows, then a nullable two-lane
           case, a duplicate hay key (overflow), every row usable (the last
-          run's emission) and duplicate inner keys (K3 overflow);
+          run's emission) and duplicate inner keys (K3 overflow); K2's
+          look-back edges: runs over 9 and 12 whole tiles, runs ending on
+          tile boundaries, n = 1, TILE - 1, TILE, TILE + 1, no value lane,
+          a small call whose sums look like the next call's tile status
+          words then a large call on the same scratch, and two calls in a
+          row (its scratch is reused) equal;
        K4 probe_tables (ops/join_probe.py) at the 1:32 radix join's plan
           (4096 partitions x 128 build x 2048 probe slots), then NULL keys,
           unmatched keys, a duplicate build key (dup flag), unsigned keys
@@ -155,6 +160,36 @@ def compare(kernel: str, case: str, got, want, names) -> int:
         if a.dtype != torch.bool and a.numel():
             err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
     return err
+
+
+def k2_runs(n: int, seed: int, dev, fixed=(), lanes: int = 2):
+    """K2 inputs over n sorted rows made of key runs: the `fixed` runs
+    first, each (headed by a hay row, rows), then random runs of 1-16 rows,
+    3 in 4 headed by a hay row, cut at n; the last rows pinned (unusable
+    hay, then probe rows). `lanes` int32 value lanes over the whole int32
+    range, the second nullable (bit 0 of a random null word)."""
+    import torch
+
+    from tidb_tpu_torch.ops.joinagg import _PIN_HAY, _PIN_PROBE
+
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(1, 17, (n,), generator=g)
+    heads = torch.rand(n, generator=g) < 0.75
+    if fixed:
+        lens = torch.cat([torch.tensor([r for _h, r in fixed]), lens])
+        heads = torch.cat([torch.tensor([h for h, _r in fixed]), heads])
+    run = torch.repeat_interleave(torch.arange(lens.numel()), lens)[:n]
+    first = torch.ones(n, dtype=torch.bool)
+    first[1:] = run[1:] != run[:-1]
+    pk = 2 * (run + 1) + 1 - (first & heads[run]).to(torch.int64)
+    pins = min(4, n // 4)
+    pk[n - pins:n - pins // 2] = _PIN_HAY
+    pk[n - pins // 2:] = _PIN_PROBE
+    vals = [torch.randint(-(1 << 31), 1 << 31, (n,), generator=g).to(torch.int32) for _ in range(lanes)]
+    nw = torch.randint(0, 256, (n,), generator=g).to(torch.uint8)
+    bits = [-1, 0][:lanes]
+    return (pk.to(torch.int32).to(dev), [v.to(dev) for v in vals], torch.zeros(n, dtype=torch.bool, device=dev),
+            nw.to(dev) if lanes > 1 else None, bits)
 
 
 def agg_inputs(dag_exec, fts, batch):
@@ -423,7 +458,7 @@ def main() -> int:
     for name, s in secs.items():
         log(f"phase 2 built {name} in {s:.2f}s")
         for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "smem" in line:
+            if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
 
     n = N_ROWS
@@ -517,6 +552,40 @@ def main() -> int:
     got_last = K23.postsort_segscan(spk, lanes_s, bad, nw_s, bits)[0][-1]
     if not bool(got_last):
         raise SystemExit("K2 every row usable: the last run was not emitted at n - 1")
+    # the look-back's edges, at the kernel's own tile size
+    tile = K23._fn("postsort_segscan_tile")()
+    if tile != K23.K2_TILE:
+        raise SystemExit(f"K2 tile: the kernel has {tile}, ops/joinscan.py says {K23.K2_TILE}")
+    edges = {
+        "runs over 12 and 9 whole tiles": (24 * tile, [(True, 5), (True, 12 * tile + 100), (False, 9 * tile)], 2),
+        "runs ending on tile boundaries": (6 * tile + 37, [(True, tile), (True, tile), (False, tile), (True, 2 * tile)], 2),
+        "n = 1": (1, [], 2), "n = TILE - 1": (tile - 1, [], 2), "n = TILE": (tile, [], 2),
+        "n = TILE + 1": (tile + 1, [], 2), "no value lane": (3 * tile + 5, [], 0),
+    }
+    for seed, (case, (rows, fixed, nl)) in enumerate(edges.items()):
+        k2_err = max(k2_err, check_k2(case, *k2_runs(rows, seed, dev, fixed, nl), False))
+    # a small call, then a large one on the same scratch: the small call's
+    # payload sums equal the status words the large call will publish
+    # ((epoch << 2) | 1 or 2, with the epoch the kernel keeps at byte 32 of
+    # the scratch), and the large call looks back across 44 tiles
+    big = k2_runs(48 * tile, 7, dev, [(True, 5), (True, 44 * tile)], 2)
+    e1 = int(K23._k2_scratch_for(dev, 48 * tile)[32:40].view(torch.int64)) + 1
+    small = 3 * tile
+    s_pk = torch.full((small,), 3, dtype=torch.int32, device=dev)
+    s_pk[0] = 2
+    s_lanes = [torch.zeros(small, dtype=torch.int32, device=dev) for _ in range(2)]
+    for t_, st in enumerate((2, 1, 2)):
+        s_lanes[0][t_ * tile + 1] = e1 << 2 | st
+        s_lanes[1][t_ * tile + 1] = e1 << 2 | (3 - st)
+    s_nw = torch.zeros(small, dtype=torch.uint8, device=dev)
+    k2_err = max(k2_err, check_k2("small call, status-like sums", s_pk, s_lanes,
+                                  torch.zeros(small, dtype=torch.bool, device=dev), s_nw, [-1, 0], False))
+    k2_err = max(k2_err, check_k2("then a large call", *big, False))
+    first =K23.postsort_segscan(k2_spk, k2_lanes, k2_bad, k2_nw, k2_bits)
+    again = K23.postsort_segscan(k2_spk, k2_lanes, k2_bad, k2_nw, k2_bits)
+    torch.cuda.synchronize()
+    compare("K2", "two calls in a row", again, first, k2_names[:4] + k2_names[5:6] + k2_names[7:])
+    log("phase 3 K2 two calls in a row on Q3's inputs: equal")
 
     k3_spk, _k3_pay, k3_bad = k3_in
     k3_err = check_k3("q3", k3_spk, k3_bad, False)
@@ -642,7 +711,7 @@ def main() -> int:
                 n * (8 + 8 + 1) + nc1 * n * (8 + 1), G * (4 + 8 * (1 + 2 * nc1)) + 8, n * (1 + 2 * nc1))
     n2, nl2 = k2_spk.shape[0], len(k2_lanes)
     nn2 = sum(1 for b in k2_bits if b >= 0)
-    time_kernel("postsort_segscan", ("k2_reduce", "k2_scan_tiles", "k2_emit"), K23.postsort_segscan, K23._postsort_segscan_plain,
+    time_kernel("postsort_segscan", ("k2_",), K23.postsort_segscan, K23._postsort_segscan_plain,
                 (k2_spk, k2_lanes, k2_bad, k2_nw, k2_bits),
                 n2 * (4 + 4 * nl2 + 1 + (1 if nn2 else 0)), n2 * (1 + 8 + 4 + 8 * nl2 + 8 * nn2) + 16,
                 n2 * (3 + nl2 + nn2))

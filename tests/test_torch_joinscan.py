@@ -64,6 +64,11 @@ def _case(name):
         return np.arange(20), list(rng.integers(-40, 40, 900))
     if name == "dup_build":
         return np.array([1, 1, 2, 3]), list(rng.integers(0, 8, 200))
+    T = TSC.K2_TILE
+    if name == "long_run":  # key 3's run crosses two of the CUDA kernel's tile boundaries
+        return np.arange(10), [3] * (2 * T + 900) + list(rng.integers(0, 12, 400))
+    if name == "tile_end":  # runs end at T - 1 and 2T - 1; key 7's unmatched run crosses 3T
+        return np.arange(6), [0] * (T - 1) + [1] * (T - 1) + [7] * T + list(rng.integers(3, 7, 300))
     return np.array([0, 1, 7]), [-1, 0, 1, 7, 7]  # min key, no pins
 
 
@@ -79,6 +84,8 @@ def _inputs(name, lanes, seed=1):
     hay = np.asarray(hay, np.int64)
     hay_ok = np.ones(len(hay), bool)
     pvalid = rng.random(np_) < 0.95
+    if name == "tile_end":
+        pvalid[:] = True  # no pinned rows: the run ends stay where the case puts them
     v_nn = rng.integers(-10**6, 10**6, np_)
     v_null = rng.integers(-1000, 1000, np_)
     null_mask = rng.random(np_) < 0.2
@@ -104,7 +111,7 @@ def _eq(a, b, what):
     assert (a.astype(np.int64) == b.astype(np.int64)).all(), what
 
 
-CASES = ["basic", "null_probe", "unmatched_negative", "dup_build", "min_key_no_pins"]
+CASES = ["basic", "null_probe", "unmatched_negative", "dup_build", "min_key_no_pins", "long_run", "tile_end"]
 
 
 K2_MATRIX = [(c, lanes) for c in CASES for lanes in ("nn", "two")] + [("basic", "count"), ("basic", "null")]
@@ -126,6 +133,9 @@ def test_k2_plain_bit_equal_to_pallas(name, lanes):
     assert bool(want[5]) == bool(got[5]) == (name == "dup_build")
     assert int(want[6]) == int(got[6])
     assert bool(got[0].any())
+    if name == "tile_end":
+        T = TSC.K2_TILE
+        assert bool(got[0][T - 1]) and bool(got[0][2 * T - 1]) and not bool(got[0][T:2 * T - 1].any())
 
 
 def test_k2_all_rows_usable_emits_the_last_run():

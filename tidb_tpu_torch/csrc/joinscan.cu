@@ -16,35 +16,68 @@
 // carry in scalar memory, emits each run one element late (and shifts the
 // outputs back by one), and sums 12/12/8-bit limbs of the bias-flipped
 // value under a run-length cap, because Mosaic has no 64-bit vectors.
-// Hopper's blocks run in no order and it adds int64 natively, so this is a
-// reduce-then-scan segmented scan in three launches:
-//   1. reduce: each block reduces its tile of TILE elements to one
-//      segmented carry (a run start was seen; the open run's totals), and
-//      ORs the overflow conditions and adds the join rows with one atomic
-//      each;
-//   2. scan:   one block turns the tile carries into exclusive carry-ins;
-//   3. emit:   each block rescans its tile from its carry-in and writes
-//      every output element: the run totals where the run ends (the next
-//      element starts a new run, or it is element n - 1) and emits.
+// Hopper's blocks run in no order and it adds int64 natively, so K2 is a
+// segmented scan over the associative (reset flag, totals) operator
+// `combine`, in ONE launch of k2_scan, a single-pass decoupled look-back
+// scan (Merrill and Garland's, written here, no library):
+//   * a block takes its tile id (TILE = 2048 elements) from a counter, so
+//     it only ever waits on tiles already running;
+//   * it loads the tile with coalesced 16-B loads into shared memory, plus
+//     one halo element at each edge (spk[start - 1], spk[end]): every input
+//     element is read from device memory once;
+//   * each thread reduces its 8 consecutive elements, the block scans the
+//     thread totals and publishes the tile's aggregate (payload, then
+//     __threadfence, then a release store of the status word). A tile
+//     whose aggregate holds a run start is its own inclusive prefix
+//     (combine(x, b) = b when b starts a run), so it publishes that at
+//     once: in Q3 nearly every tile does, and look-back is one step;
+//   * warp 0 looks back over up to 32 predecessors at a time (acquire
+//     loads of the status words, then the payloads from L2) until the
+//     nearest inclusive prefix, and the tile publishes its own;
+//   * each warp writes its 256 elements of every output through a
+//     swizzled shared-memory stage, so a warp store instruction writes
+//     contiguous memory, 16 B a thread (gv: 16 B a thread, 16 threads).
+// The overflow flag and the join rows are one block reduction and one
+// atomic each per block; the last block to finish moves them into the
+// call's outputs.
+//
+// Scratch and reset: the wrapper keeps one zeroed scratch buffer per
+// device and stream: a header {counter, done, flag, rows, epoch}, then one
+// 88-B record per tile: its status word ((epoch << 2) | 1 aggregate, | 2
+// inclusive prefix; 0 never published) and its two 40-B payloads. A tile's
+// status word sits at the same offset whatever n is, so a word there only
+// ever holds a status word, of this launch or of an earlier one. The epoch
+// lives on the device: every block reads it when it starts, and the last
+// block of a launch (a block counts itself done only after it has read the
+// epoch, taken its tile id, finished its look-back and added its flag and
+// rows) bumps it and resets the counter, done, flag and rows. So stale
+// status words of an earlier call never match, no reset launch runs, two
+// calls in a row give the same results, and the epoch stays right for
+// callers on several threads sharing a stream and for graph replays.
+//
 // The limbs, the bias and the run cap are gone: a run of any length stays
 // here. Sums of int32 lanes in int64 are exact, so the result does not
 // depend on the order of the additions.
+//
+// Bound on an H100 SXM (3.35 TB/s): memory. K2 reads spk (4 B), each lane
+// (4 B), the bad byte and the null word (1 B), and writes gv (1 B), cnt
+// (8 B), key (4 B), each sum (8 B) and each nullable lane's count (8 B):
+// 39 B a row for Q3's one nullable lane, 189,136,912 B over its 4,849,664
+// sorted rows (2^22 lineitem rows + 655,360 hay rows), 0.056 ms.
+// Resources (ptxas -v, sm_90a): k2_scan runs 256 threads a block, capped
+// at 64 registers (__launch_bounds__(256, 4): four blocks, 32 warps, per
+// SM), 64 bytes of stack and no spills, 43,768 B of static shared memory (spk 8 KB,
+// lanes 16 KB, null word 2 KB, output stages 16 KB, scan scratch). Its
+// times on the card are in PERF.md.
 //
 // K3 membership_segscan replaces the Pallas kernel of the same name
 // (tidb_tpu/ops/joinscan.py:344, pallas_call at :365). Inner rows (even pk)
 // sort before outer rows (odd pk) of their key, so an outer real row is ok
 // iff the element holding pk - 1 exists: one elementwise kernel with a
 // binary search, no scan. Duplicate inner keys come from an adjacent-equal
-// test, and the overflow flag is one atomicOr per block.
-//
-// Bound on an H100 SXM (3.35 TB/s): memory. K2 must read spk (4 B), each
-// lane (4 B) and the bad byte, and write gv (1 B), cnt (8 B), key (4 B)
-// and each sum (8 B): ~30 B a row with one lane, ~0.14 GB and ~42 us for
-// Q3's 4.72M sorted rows at 2^22 lineitem rows. This version reads the
-// inputs twice (reduce and emit) and stores with a per-thread stride of
-// ITEMS elements; a single-pass decoupled look-back is later work. K3 reads
-// ~5 B and writes 1 B a row: ~4 MB and ~1.2 us for Q3's 655K rows, so it
-// is launch-bound.
+// test, and the overflow flag is one atomicOr per block. K3 reads ~5 B and
+// writes 1 B a row: ~4 MB and ~1.2 us for Q3's 655K rows, so it is
+// launch-bound.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -55,9 +88,12 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ITEMS = 8;
-constexpr int TILE = THREADS * ITEMS;
-constexpr int PIN = 0x7FFFFFFC;  // pk >= PIN: an unusable (pinned) row
+constexpr int TILE = THREADS * ITEMS;  // elements per tile (and per block)
+constexpr int WTILE = 32 * ITEMS;      // a warp's consecutive elements
+constexpr int PIN = 0x7FFFFFFC;        // pk >= PIN: an unusable (pinned) row
 constexpr int MAXL = 2;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned long long ST_AGG = 1, ST_PRE = 2;  // status = epoch << 2 | state
 
 // Segmented-scan state of a run prefix: f = a run start lies inside.
 struct Run {
@@ -84,7 +120,25 @@ struct Outs {
   int* key;
   long long* sum[MAXL];
   long long* nn[MAXL];
+  unsigned char* ovf;
+  long long* rows;
 };
+
+// Head of the scratch buffer; one TileRec per tile follows.
+struct Scratch {
+  unsigned long long counter;  // next tile id
+  unsigned long long done;     // blocks past their flag and rows
+  unsigned long long ovf;
+  unsigned long long rows;
+  unsigned long long epoch;    // this launch's; the last block bumps it
+};
+
+struct TileRec {
+  unsigned long long status;  // epoch << 2 | ST_AGG or ST_PRE
+  Run agg;
+  Run pre;
+};
+static_assert(sizeof(Run) == 40 && sizeof(TileRec) == 88, "the record sizes the notes state");
 
 __device__ __forceinline__ Run identity() {
   Run r;
@@ -114,43 +168,118 @@ __device__ __forceinline__ Run combine(const Run& a, const Run& b) {
   return r;
 }
 
-__device__ __forceinline__ Run shfl_up(const Run& x, int d) {
+template <typename F>
+__device__ __forceinline__ Run shfl_run(const Run& x, F sh) {
   Run r;
-  r.f = __shfl_up_sync(0xffffffffu, x.f, d);
-  r.cnt = __shfl_up_sync(0xffffffffu, x.cnt, d);
-  r.mb = __shfl_up_sync(0xffffffffu, x.mb, d);
+  r.f = sh(x.f);
+  r.cnt = sh(x.cnt);
+  r.mb = sh(x.mb);
 #pragma unroll
   for (int c = 0; c < MAXL; ++c) {
-    r.nn[c] = __shfl_up_sync(0xffffffffu, x.nn[c], d);
-    r.s[c] = __shfl_up_sync(0xffffffffu, x.s[c], d);
+    r.nn[c] = sh(x.nn[c]);
+    r.s[c] = sh(x.s[c]);
   }
   return r;
 }
 
+__device__ __forceinline__ Run shfl_up(const Run& x, int d) {
+  return shfl_run(x, [d](auto v) { return __shfl_up_sync(FULL, v, d); });
+}
+
+__device__ __forceinline__ Run shfl_down(const Run& x, int d) {
+  return shfl_run(x, [d](auto v) { return __shfl_down_sync(FULL, v, d); });
+}
+
+__device__ __forceinline__ Run shfl_lane0(const Run& x) {
+  return shfl_run(x, [](auto v) { return __shfl_sync(FULL, v, 0); });
+}
+
 __device__ __forceinline__ bool run_start(int v, int pv) { return (v | 1) != (pv | 1); }
 
-// Element i's scan value and its overflow / join-row contributions.
-__device__ __forceinline__ Run element(const Params& p, long long i, int& dup, int& contrib) {
-  const int v = p.spk[i];
-  const int pv = i ? p.spk[i - 1] : INT_MIN;  // below every real pk
-  const bool hay = (v & 1) == 0;
-  const bool real = v < PIN;
-  const bool phay = (pv & 1) == 0;
-  const bool kd = run_start(v, pv);
-  const bool ct = !hay && real;
+// Shared-memory swizzle of 16-B chunks: chunk c moves within its 128-B row
+// (c ^ row), so a thread's consecutive chunks and a warp's striped chunks
+// both fall on distinct banks.
+__device__ __forceinline__ int swz(int c) { return c ^ ((c >> 3) & 7); }
+__device__ __forceinline__ int sw32(int e) { return (swz(e >> 2) << 2) | (e & 3); }
+__device__ __forceinline__ int sw64(int e) { return (swz(e >> 1) << 1) | (e & 1); }
+
+__device__ __forceinline__ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// m int32 elements of g into the swizzled tile sm: 16 B a thread,
+// neighbouring threads on neighbouring addresses, where the tile is whole.
+__device__ __forceinline__ void load_i32(int* sm, const int* g, int m) {
+  if (m == TILE && aligned16(g)) {
+    const int4* g4 = reinterpret_cast<const int4*>(g);
+    int4* s4 = reinterpret_cast<int4*>(sm);
+#pragma unroll
+    for (int k = 0; k < TILE / 4 / THREADS; ++k) {
+      const int q = threadIdx.x + k * THREADS;
+      s4[swz(q)] = __ldcs(g4 + q);
+    }
+  } else {
+    for (int e = threadIdx.x; e < m; e += THREADS) sm[sw32(e)] = g[e];
+  }
+}
+
+__device__ __forceinline__ void load_u8(unsigned char* sm, const unsigned char* g, int m) {
+  if (m == TILE && aligned16(g)) {
+    if (threadIdx.x < TILE / 16)
+      reinterpret_cast<uint4*>(sm)[threadIdx.x] = __ldcs(reinterpret_cast<const uint4*>(g) + threadIdx.x);
+  } else {
+    for (int e = threadIdx.x; e < m; e += THREADS) sm[e] = g[e];
+  }
+}
+
+// Any set byte among g[0..m), this thread's share.
+__device__ __forceinline__ int any_byte(const unsigned char* g, int m) {
+  if (m == TILE && aligned16(g)) {
+    if (threadIdx.x >= TILE / 16) return 0;
+    const uint4 x = __ldcs(reinterpret_cast<const uint4*>(g) + threadIdx.x);
+    return (x.x | x.y | x.z | x.w) != 0;
+  }
+  int a = 0;
+  for (int e = threadIdx.x; e < m; e += THREADS) a |= g[e] != 0;
+  return a;
+}
+
+// This thread's 8 consecutive int32 elements of a swizzled tile.
+__device__ __forceinline__ void read8(const int* sm, int t, int (&v)[ITEMS]) {
+  const int4* s4 = reinterpret_cast<const int4*>(sm);
+  const int4 a = s4[swz(2 * t)], b = s4[swz(2 * t + 1)];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// Payloads are read from L2 (they were written by other SMs).
+__device__ __forceinline__ Run load_run(const Run* p) {
   Run r;
-  r.f = kd || i == 0;
-  r.cnt = ct;
-  r.mb = ct && !kd && phay && pv == (int)((unsigned)v - 1u);
+  r.f = __ldcg(&p->f);
+  r.cnt = __ldcg(&p->cnt);
+  r.mb = __ldcg(&p->mb);
 #pragma unroll
   for (int c = 0; c < MAXL; ++c) {
-    const bool on = c < p.nc && ct;
-    r.s[c] = on ? (long long)p.lane[c][i] : 0ll;
-    r.nn[c] = on && p.bit[c] >= 0 && !((p.nw[i] >> p.bit[c]) & 1);
+    r.nn[c] = __ldcg(&p->nn[c]);
+    r.s[c] = __ldcg(&p->s[c]);
   }
-  dup = hay && real && v == pv && phay;
-  contrib = ct;
   return r;
+}
+
+// Payload, fence, then the status word.
+__device__ __forceinline__ void publish(unsigned long long* status, Run* slot, const Run& r,
+                                        unsigned long long word) {
+  *slot = r;
+  __threadfence();
+  store_release(status, word);
 }
 
 // Block-wide scan of one value per thread, in thread order: incl / excl
@@ -184,77 +313,262 @@ __device__ void block_scan(const Run& x, Run& incl, Run& excl, Run& total) {
   __syncthreads();  // the shared arrays are reused by the next call
 }
 
-__global__ void k2_reduce(Params p, Run* carries, unsigned long long* meta) {
-  const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
-  Run agg = identity();
-  int dup = 0, bad = 0, rows = 0;
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + j;
-    if (i >= p.n) break;
-    int d, ct;
-    agg = combine(agg, element(p, i, d, ct));
-    dup |= d;
-    rows += ct;
-    bad |= p.bad[i] != 0;
-  }
-  Run incl, excl, total;
-  block_scan(agg, incl, excl, total);
-  __shared__ int block_rows;
-  if (threadIdx.x == 0) block_rows = 0;
-  const int any = __syncthreads_or(dup | bad);
-  if (rows) atomicAdd(&block_rows, rows);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    carries[blockIdx.x] = total;
-    if (any) atomicOr(&meta[0], 1ull);
-    if (block_rows) atomicAdd(&meta[1], (unsigned long long)block_rows);
-  }
-}
-
-// One block: carries[t] <- the combination of tiles 0..t-1 (identity for 0).
-__global__ void k2_scan_tiles(Run* carries, long long tiles) {
-  __shared__ Run running;
-  if (threadIdx.x == 0) running = identity();
-  __syncthreads();
-  for (long long c0 = 0; c0 < tiles; c0 += THREADS) {
-    const long long t = c0 + threadIdx.x;
-    const Run x = t < tiles ? carries[t] : identity();
-    Run incl, excl, total;
-    block_scan(x, incl, excl, total);
-    const Run before = running;
-    __syncthreads();
-    if (t < tiles) carries[t] = combine(before, excl);
-    if (threadIdx.x == 0) running = combine(before, total);
-    __syncthreads();
-  }
-}
-
-__global__ void k2_emit(Params p, const Run* carries, Outs o) {
-  const long long base = (long long)blockIdx.x * TILE + (long long)threadIdx.x * ITEMS;
-  Run agg = identity();
-  int d, ct;
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + j;
-    if (i >= p.n) break;
-    agg = combine(agg, element(p, i, d, ct));
-  }
-  Run incl, excl, total;
-  block_scan(agg, incl, excl, total);
-  Run st = combine(carries[blockIdx.x], excl);
-  for (int j = 0; j < ITEMS; ++j) {
-    const long long i = base + j;
-    if (i >= p.n) break;
-    st = combine(st, element(p, i, d, ct));
-    const int v = p.spk[i];
-    const bool end = i == p.n - 1 || run_start(p.spk[i + 1], v);
-    const bool emit = end && st.cnt > 0 && st.mb > 0;
-    o.gv[i] = emit;
-    o.cnt[i] = emit ? (long long)st.cnt : 0ll;
-    o.key[i] = emit ? v : 0;
+// Warp 0: the combination of tiles 0..tile-1, walking back 32 tiles at a
+// time until the nearest one that has published its inclusive prefix.
+__device__ Run look_back(const TileRec* rec, long long tile, unsigned long long epoch) {
+  const int lane = threadIdx.x & 31;
+  Run acc = identity();  // the tiles after the current window
+  for (long long w = tile - 1;; w -= 32) {
+    const long long pt = w - lane;  // lane 0 is the nearest predecessor
+    int state = pt < 0 ? (int)ST_PRE : 0;  // before tile 0: the identity
+    unsigned pm, upto;
+    for (;;) {
+      if (state == 0) {
+        const unsigned long long s = load_acquire(&rec[pt].status);
+        if ((s >> 2) == epoch) state = (int)(s & 3);
+      }
+      const unsigned ready = __ballot_sync(FULL, state != 0);
+      pm = __ballot_sync(FULL, state == (int)ST_PRE);
+      upto = pm ? (pm ^ (pm - 1)) : FULL;  // lanes up to the nearest prefix
+      if ((ready & upto) == upto) break;
+      __nanosleep(32);
+    }
+    Run x = identity();
+    if (((upto >> lane) & 1) && pt >= 0) x = load_run(state == (int)ST_PRE ? &rec[pt].pre : &rec[pt].agg);
 #pragma unroll
-    for (int c = 0; c < MAXL; ++c) {
-      if (c < p.nc) o.sum[c][i] = emit ? st.s[c] : 0ll;
-      if (o.nn[c]) o.nn[c][i] = emit ? (long long)st.nn[c] : 0ll;
+    for (int d = 1; d < 32; d <<= 1) {
+      const Run o = shfl_down(x, d);  // lane + d is the earlier tile
+      if (lane + d < 32) x = combine(o, x);
+    }
+    acc = combine(shfl_lane0(x), acc);
+    if (pm) return acc;
+  }
+}
+
+// A warp's output staging (2 KB): each thread puts its 8 values, then the
+// warp stores its 256 elements contiguously, 16 B a thread, as streaming
+// stores (the outputs are not read again by this kernel).
+__device__ __forceinline__ void store64(long long* stg, long long* g, int wm, const long long (&out)[ITEMS]) {
+  const int lane = threadIdx.x & 31;
+  longlong2* s2 = reinterpret_cast<longlong2*>(stg);
+#pragma unroll
+  for (int k = 0; k < ITEMS / 2; ++k) s2[swz(lane * (ITEMS / 2) + k)] = make_longlong2(out[2 * k], out[2 * k + 1]);
+  __syncwarp();
+  if (wm == WTILE && aligned16(g)) {
+    longlong2* g2 = reinterpret_cast<longlong2*>(g);
+#pragma unroll
+    for (int k = 0; k < WTILE / 2 / 32; ++k) __stcs(g2 + lane + 32 * k, s2[swz(lane + 32 * k)]);
+  } else {
+    for (int e = lane; e < wm; e += 32) g[e] = stg[sw64(e)];
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ void store32(long long* stg, int* g, int wm, const int (&out)[ITEMS]) {
+  const int lane = threadIdx.x & 31;
+  int4* s4 = reinterpret_cast<int4*>(stg);
+  s4[swz(2 * lane)] = make_int4(out[0], out[1], out[2], out[3]);
+  s4[swz(2 * lane + 1)] = make_int4(out[4], out[5], out[6], out[7]);
+  __syncwarp();
+  if (wm == WTILE && aligned16(g)) {
+    int4* g4 = reinterpret_cast<int4*>(g);
+#pragma unroll
+    for (int k = 0; k < WTILE / 4 / 32; ++k) __stcs(g4 + lane + 32 * k, s4[swz(lane + 32 * k)]);
+  } else {
+    const int* s = reinterpret_cast<const int*>(stg);
+    for (int e = lane; e < wm; e += 32) g[e] = s[sw32(e)];
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ void store8(long long* stg, unsigned char* g, int wm, unsigned long long bytes) {
+  const int lane = threadIdx.x & 31;
+  reinterpret_cast<unsigned long long*>(stg)[lane] = bytes;
+  __syncwarp();
+  if (wm == WTILE && aligned16(g)) {
+    if (lane < WTILE / 16) __stcs(reinterpret_cast<uint4*>(g) + lane, reinterpret_cast<const uint4*>(stg)[lane]);
+  } else {
+    const unsigned char* s = reinterpret_cast<const unsigned char*>(stg);
+    for (int e = lane; e < wm; e += 32) g[e] = s[e];
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(THREADS, 4) k2_scan(Params p, Outs o, unsigned char* scratch) {
+  __shared__ __align__(16) int s_spk[TILE];
+  __shared__ __align__(16) int s_lane[MAXL][TILE];
+  __shared__ __align__(16) unsigned char s_nw[TILE];
+  __shared__ __align__(16) long long s_stage[WARPS][WTILE];
+  __shared__ int s_halo[2];
+  __shared__ long long s_tile;
+  __shared__ unsigned long long s_epoch;
+  __shared__ int s_rows;
+  __shared__ Run s_carry;
+
+  Scratch* sc = reinterpret_cast<Scratch*>(scratch);
+  TileRec* rec = reinterpret_cast<TileRec*>(sc + 1);
+
+  if (threadIdx.x == 0) {
+    s_epoch = __ldcg(&sc->epoch);
+    s_tile = (long long)atomicAdd(&sc->counter, 1ull);
+    s_rows = 0;
+  }
+  __syncthreads();
+  const long long tile = s_tile;
+  const unsigned long long epoch = s_epoch;
+  const long long start = tile * TILE;
+  const int m = (int)min((long long)TILE, p.n - start);  // < TILE only for the last tile
+
+  // 1. the tile's inputs, read once
+  load_i32(s_spk, p.spk + start, m);
+  for (int c = 0; c < p.nc; ++c) load_i32(s_lane[c], p.lane[c] + start, m);
+  const bool nullable = p.bit[0] >= 0 || p.bit[1] >= 0;
+  if (nullable) load_u8(s_nw, p.nw + start, m);
+  int flag = any_byte(p.bad + start, m);
+  if (threadIdx.x == 0) s_halo[0] = start ? p.spk[start - 1] : INT_MIN;  // below every real pk
+  if (threadIdx.x == 32) s_halo[1] = start + m < p.n ? p.spk[start + m] : 0;
+  __syncthreads();
+
+  // 2. this thread's elements e0..e0+7: per-element bits and their reduction
+  const int t = threadIdx.x, e0 = t * ITEMS;
+  const int mt = max(0, min(ITEMS, m - e0));
+  int v[ITEMS], lv[MAXL][ITEMS];
+  read8(s_spk, t, v);
+#pragma unroll
+  for (int c = 0; c < MAXL; ++c) {
+    if (c < p.nc) read8(s_lane[c], t, lv[c]);
+  }
+  unsigned long long nwv = 0;
+  if (nullable) nwv = *reinterpret_cast<const unsigned long long*>(s_nw + e0);
+  const int pv0 = t ? s_spk[sw32(e0 - 1)] : s_halo[0];
+  const int nx = e0 + ITEMS < m ? s_spk[sw32(e0 + ITEMS)] : s_halo[1];
+  unsigned fm = 0, ctm = 0, mbm = 0, endm = 0, nnm[MAXL] = {0, 0};
+  int dup = 0, rows = 0;
+  Run a = identity();
+#pragma unroll
+  for (int j = 0; j < ITEMS; ++j) {
+    if (j < mt) {
+      const int x = v[j], px = j ? v[j - 1] : pv0, nxx = j + 1 < ITEMS ? v[j + 1] : nx;
+      const long long i = start + e0 + j;
+      const bool hay = (x & 1) == 0, real = x < PIN, phay = (px & 1) == 0;
+      const bool kd = run_start(x, px);
+      const bool ct = !hay && real;
+      Run r;
+      r.f = kd || i == 0;
+      r.cnt = ct;
+      r.mb = ct && !kd && phay && px == (int)((unsigned)x - 1u);
+#pragma unroll
+      for (int c = 0; c < MAXL; ++c) {
+        const bool on = c < p.nc && ct;
+        r.s[c] = on ? (long long)lv[c][j] : 0ll;
+        r.nn[c] = on && p.bit[c] >= 0 && !((nwv >> (8 * j + p.bit[c])) & 1);
+        nnm[c] |= (unsigned)r.nn[c] << j;
+      }
+      fm |= (unsigned)r.f << j;
+      ctm |= (unsigned)ct << j;
+      mbm |= (unsigned)r.mb << j;
+      endm |= (unsigned)(i == p.n - 1 || run_start(nxx, x)) << j;
+      dup |= hay && real && x == px && phay;
+      rows += ct;
+      a = combine(a, r);
+    }
+  }
+
+  // 3. the tile's scan, its aggregate published, the carry-in looked up
+  Run incl, excl, total;
+  block_scan(a, incl, excl, total);
+  flag = __syncthreads_or(flag | dup);
+  if (rows) atomicAdd(&s_rows, rows);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      if (total.f)
+        publish(&rec[tile].status, &rec[tile].pre, total, epoch << 2 | ST_PRE);
+      else
+        publish(&rec[tile].status, &rec[tile].agg, total, epoch << 2 | ST_AGG);
+    }
+    Run x = identity();
+    if (tile > 0) x = look_back(rec, tile, epoch);
+    if (threadIdx.x == 0) {
+      s_carry = x;
+      if (!total.f) publish(&rec[tile].status, &rec[tile].pre, combine(x, total), epoch << 2 | ST_PRE);
+    }
+  }
+  __syncthreads();
+  const Run st = combine(s_carry, excl);  // the state before element e0
+
+  // 4. every output, staged per warp and stored contiguously
+  const int w = threadIdx.x >> 5;
+  const long long wb = start + (long long)w * WTILE;
+  const int wm = max(0, min(WTILE, m - w * WTILE));
+  long long* stg = s_stage[w];
+  unsigned em = 0;  // the elements that emit their run's totals
+  {
+    int cr = st.cnt, mr = st.mb;
+    long long out[ITEMS];
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      if ((fm >> j) & 1) cr = mr = 0;
+      cr += (ctm >> j) & 1;
+      mr += (mbm >> j) & 1;
+      const bool e = ((endm >> j) & 1) && cr > 0 && mr > 0;
+      em |= (unsigned)e << j;
+      out[j] = e ? (long long)cr : 0ll;
+    }
+    store64(stg, o.cnt + wb, wm, out);
+  }
+  {
+    int out[ITEMS];
+    unsigned long long bytes = 0;
+    read8(s_spk, t, v);
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      out[j] = ((em >> j) & 1) ? v[j] : 0;
+      bytes |= (unsigned long long)((em >> j) & 1) << (8 * j);
+    }
+    store32(stg, o.key + wb, wm, out);
+    store8(stg, o.gv + wb, wm, bytes);
+  }
+#pragma unroll
+  for (int c = 0; c < MAXL; ++c) {
+    if (c < p.nc) {
+      long long run = st.s[c], out[ITEMS];
+      read8(s_lane[c], t, v);
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j) {
+        const long long xv = ((ctm >> j) & 1) ? (long long)v[j] : 0ll;
+        run = ((fm >> j) & 1) ? xv : run + xv;
+        out[j] = ((em >> j) & 1) ? run : 0ll;
+      }
+      store64(stg, o.sum[c] + wb, wm, out);
+    }
+    if (o.nn[c]) {
+      int run = st.nn[c];
+      long long out[ITEMS];
+#pragma unroll
+      for (int j = 0; j < ITEMS; ++j) {
+        const int xv = (nnm[c] >> j) & 1;
+        run = ((fm >> j) & 1) ? xv : run + xv;
+        out[j] = ((em >> j) & 1) ? (long long)run : 0ll;
+      }
+      store64(stg, o.nn[c] + wb, wm, out);
+    }
+  }
+
+  // 5. the flag and the join rows, off the look-back's path
+  if (threadIdx.x == 0) {
+    if (flag) atomicOr(&sc->ovf, 1ull);
+    if (s_rows) atomicAdd(&sc->rows, (unsigned long long)s_rows);
+    __threadfence();
+    if (atomicAdd(&sc->done, 1ull) == gridDim.x - 1ull) {
+      // every block has read the epoch, taken its tile id, looked back and
+      // added its flag and rows
+      __threadfence();
+      *o.ovf = atomicExch(&sc->ovf, 0ull) != 0;
+      *o.rows = (long long)atomicExch(&sc->rows, 0ull);
+      atomicAdd(&sc->epoch, 1ull);
+      atomicExch(&sc->counter, 0ull);
+      atomicExch(&sc->done, 0ull);
     }
   }
 }
@@ -292,21 +606,27 @@ __global__ void k3_kernel(const int* __restrict__ spk, const unsigned char* __re
 
 }  // namespace
 
-extern "C" long long postsort_segscan_tiles(long long n) { return (n + TILE - 1) / TILE; }
+extern "C" int postsort_segscan_tile() { return TILE; }
 
-extern "C" int postsort_segscan_carry_bytes() { return (int)sizeof(Run); }
+// Bytes of K2's scratch for n rows; it must be zeroed once when allocated.
+extern "C" long long postsort_segscan_scratch_bytes(long long n) {
+  const long long tiles = (n + TILE - 1) / TILE;
+  return (long long)sizeof(Scratch) + tiles * (long long)sizeof(TileRec);
+}
 
-// K2. Outputs are written in full (no initialisation needed) except
-// meta int64[2] = {0, 0} (overflow, join rows). carries: tiles * carry_bytes
-// of scratch. sum1 / nn0 / nn1 may be null when unused; nn_c is written
-// only for a lane with bit_c >= 0. Returns cudaGetLastError(), -1 for bad
-// arguments.
+// K2. Every output is written in full (no initialisation needed): gv,
+// cnt, key, sum_c for c < nc, nn_c for a lane with bit_c >= 0, ovf (one
+// byte) and rows (one int64). sum1 / nn0 / nn1 may be null when unused.
+// scratch: at least postsort_segscan_scratch_bytes(n) bytes, zeroed when
+// allocated and then kept for every later call on the same stream, of any
+// n it fits. Returns cudaGetLastError(), -1 for bad arguments.
 extern "C" int postsort_segscan_launch(const void* spk, const void* lane0, const void* lane1,
                                        const void* bad, const void* nw, int nc, int bit0, int bit1,
                                        long long n, void* gv, void* cnt, void* key, void* sum0,
-                                       void* sum1, void* nn0, void* nn1, void* carries, void* meta,
-                                       void* stream) {
+                                       void* sum1, void* nn0, void* nn1, void* ovf, void* rows,
+                                       void* scratch, void* stream) {
   if (nc < 0 || nc > MAXL || n < 1 || n >= (1ll << 31)) return -1;
+  if (!scratch || ((uintptr_t)scratch & 15)) return -1;
   Params p;
   p.spk = (const int*)spk;
   p.lane[0] = (const int*)lane0;
@@ -326,17 +646,13 @@ extern "C" int postsort_segscan_launch(const void* spk, const void* lane0, const
   o.sum[1] = (long long*)sum1;
   o.nn[0] = p.bit[0] >= 0 ? (long long*)nn0 : nullptr;
   o.nn[1] = p.bit[1] >= 0 ? (long long*)nn1 : nullptr;
-  const long long tiles = postsort_segscan_tiles(n);
-  cudaStream_t st = (cudaStream_t)stream;
-  Run* cr = (Run*)carries;
-
-  k2_reduce<<<(unsigned)tiles, THREADS, 0, st>>>(p, cr, (unsigned long long*)meta);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  k2_scan_tiles<<<1, THREADS, 0, st>>>(cr, tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  k2_emit<<<(unsigned)tiles, THREADS, 0, st>>>(p, cr, o);
+  o.ovf = (unsigned char*)ovf;
+  o.rows = (long long*)rows;
+  if (!spk || !bad || !gv || !cnt || !key || !ovf || !rows) return -1;
+  for (int c = 0; c < nc; ++c)
+    if (!p.lane[c] || !o.sum[c] || (p.bit[c] >= 0 && !o.nn[c])) return -1;
+  const long long tiles = (n + TILE - 1) / TILE;
+  k2_scan<<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(p, o, (unsigned char*)scratch);
   return (int)cudaGetLastError();
 }
 

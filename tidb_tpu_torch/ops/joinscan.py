@@ -95,8 +95,50 @@ def _postsort_segscan_plain(spk, lanes_s, bad_lane, nw_s=None, nn_bits=()):
     return gv, cnt, key32, sums, nns, overflow, join_rows
 
 
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# csrc/joinscan.cu's entry points: (restype, argtypes)
+_SIGNATURES = {
+    "postsort_segscan_tile": (_i32, []),
+    "postsort_segscan_scratch_bytes": (_i64, [_i64]),
+    "postsort_segscan_launch": (_i32, [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i64, _vp, _vp, _vp,
+                                       _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
+    "membership_segscan_launch": (_i32, [_vp, _vp, _i64, _vp, _vp, _vp]),
+}
+_typed: dict = {}
+
+
+def _fn(name: str):
+    """An entry point of the joinscan library, its ctypes signature set once
+    per loaded library."""
+    from ..kernels import load
+
+    lib = load("joinscan")
+    got = _typed.get(name)
+    if got is None or got[0] is not lib:
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = _SIGNATURES[name]
+        got = _typed[name] = (lib, fn)
+    return got[1]
+
+
+K2_TILE = 2048  # csrc/joinscan.cu TILE: the rows of one look-back tile
+# (device index, stream) -> zeroed scratch: K2 tags its tile status words
+# with an epoch that the kernel keeps in the buffer, so it is never reset
+_k2_scratch: dict = {}
+
+
+def _k2_scratch_for(dev, n: int):
+    """K2's scratch on dev's current stream, large enough for n rows."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    need = _fn("postsort_segscan_scratch_bytes")(n)
+    buf = _k2_scratch.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _k2_scratch[key] = torch.zeros(need, dtype=torch.uint8, device=dev)
+    return buf
+
+
 def _postsort_segscan_cuda(spk, lanes_s, bad_lane, nw_s=None, nn_bits=()):
-    from ..kernels import check, load, ptr, stream
+    from ..kernels import check, ptr, stream
 
     n = spk.shape[0]
     nc = len(lanes_s)
@@ -120,33 +162,22 @@ def _postsort_segscan_cuda(spk, lanes_s, bad_lane, nw_s=None, nn_bits=()):
     key32 = torch.empty(n, dtype=torch.int32, device=dev)
     sums = [torch.empty(n, dtype=i64, device=dev) for _ in range(nc)]
     nn_out = [torch.empty(n, dtype=i64, device=dev) if b >= 0 else None for b in bits]
-    lib = load("joinscan")
-    lib.postsort_segscan_tiles.restype = ctypes.c_longlong
-    lib.postsort_segscan_tiles.argtypes = [ctypes.c_longlong]
-    lib.postsort_segscan_carry_bytes.restype = ctypes.c_int
-    tiles = lib.postsort_segscan_tiles(n)
-    carries = torch.empty(tiles * lib.postsort_segscan_carry_bytes(), dtype=torch.uint8, device=dev)
-    meta = torch.zeros(2, dtype=i64, device=dev)  # [overflow, join rows]
-    vp = ctypes.c_void_p
-    fn = lib.postsort_segscan_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    join_rows = torch.empty((), dtype=i64, device=dev)
     pad = [None] * (MAX_LANES - nc)
-    lanes = list(lanes_s) + pad
-    sums_p = sums + pad
-    nns_p = nn_out + pad
+    lanes, sums_p, nns_p = list(lanes_s) + pad, sums + pad, nn_out + pad
     bits_p = bits + [-1] * (MAX_LANES - nc)
     with torch.cuda.device(dev):
-        err = fn(ptr(spk), ptr(lanes[0]), ptr(lanes[1]), ptr(bad_lane), ptr(nw_s),
-                 nc, bits_p[0], bits_p[1], n,
-                 ptr(gv), ptr(cnt), ptr(key32), ptr(sums_p[0]), ptr(sums_p[1]),
-                 ptr(nns_p[0]), ptr(nns_p[1]), ptr(carries), ptr(meta), stream(dev))
+        scratch = _k2_scratch_for(dev, n)
+        err = _fn("postsort_segscan_launch")(
+            ptr(spk), ptr(lanes[0]), ptr(lanes[1]), ptr(bad_lane), ptr(nw_s), nc, bits_p[0], bits_p[1], n,
+            ptr(gv), ptr(cnt), ptr(key32), ptr(sums_p[0]), ptr(sums_p[1]), ptr(nns_p[0]), ptr(nns_p[1]),
+            ptr(overflow), ptr(join_rows), ptr(scratch), stream(dev))
     if err != 0:
         raise RuntimeError(f"postsort_segscan kernel launch failed (CUDA error {err})")
     postsort_segscan.launches += 1
     nns = [cnt if nn is None else nn for nn in nn_out]
-    return gv, cnt, key32, sums, nns, meta[0] != 0, meta[1]
+    return gv, cnt, key32, sums, nns, overflow, join_rows
 
 
 def postsort_segscan(spk, lanes_s, bad_lane, nw_s=None, nn_bits=()):
@@ -191,7 +222,7 @@ def _membership_segscan_plain(spk, bad_lane):
 
 
 def _membership_segscan_cuda(spk, bad_lane):
-    from ..kernels import check, load, ptr, stream
+    from ..kernels import check, ptr, stream
 
     n = spk.shape[0]
     if not 1 <= n < (1 << 31):
@@ -201,12 +232,8 @@ def _membership_segscan_cuda(spk, bad_lane):
     dev = spk.device
     ok_out = torch.empty(n, dtype=torch.bool, device=dev)
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    vp = ctypes.c_void_p
-    fn = load("joinscan").membership_segscan_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [vp, vp, ctypes.c_longlong, vp, vp, vp]
     with torch.cuda.device(dev):
-        err = fn(ptr(spk), ptr(bad_lane), n, ptr(ok_out), ptr(flag), stream(dev))
+        err = _fn("membership_segscan_launch")(ptr(spk), ptr(bad_lane), n, ptr(ok_out), ptr(flag), stream(dev))
     if err != 0:
         raise RuntimeError(f"membership_segscan kernel launch failed (CUDA error {err})")
     membership_segscan.launches += 1

@@ -12,6 +12,12 @@ Phases, each of which exits non-zero on failure (nothing is caught):
        K1 dense_agg (ops/dense_agg.py) at TPC-H Q1's shape (2^22 rows,
           G = 16), with string keys carrying NULLs, with more than G keys
           (overflow), and with a forced primary-hash collision (overflow);
+          its one-pass edges: n = 2^22 - 37, 1000, 129, 127, 1, no valid
+          row, G = 1 and 32, NC = 0 and 6, sums that wrap near +-2^63,
+          lanes at a 1-element offset, two calls in a row, a small call
+          after a large one, a call after an overflow call, a second
+          stream; and more than 64 keys (the flag alone: rows of keys that
+          found no slot are dropped, and the executor keeps only the flag);
        K2 postsort_segscan and K3 membership_segscan (ops/joinscan.py) on
           Q3's own inputs at 2^22 lineitem rows, then a nullable two-lane
           case, a duplicate hay key (overflow), every row usable (the last
@@ -34,11 +40,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      the build payload (700 groups) and skewed (40% on one key: the escape
      hatch and one ladder retry) — K4 must launch on the uniform cases;
   5. time each kernel beside its bound — its device time per call from
-     torch.profiler over 10 calls, and the median CUDA-event time of a
-     wrapper call (>= 10 runs) — and its plain version, and each path end
-     to end (host clock around a synchronised run); with --profile, also
-     one torch.profiler run of each path: device time by kernel and the
-     device's busy share.
+     torch.profiler over 10 calls, the median CUDA-event time of a
+     wrapper call (>= 10 runs) and its host time (100 calls back to
+     back, no synchronisation between them); K1's call must run its one
+     kernel and no other device operation — and its plain version, and
+     each path end to end (host clock around a synchronised run); with
+     --profile, also one torch.profiler run of each path: device time by
+     kernel and the device's busy share.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script exits 2 and prints
@@ -62,6 +70,8 @@ JOIN_GROUPS = 700
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 SIMT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
+I64_MAX = (1 << 63) - 1
+HAND_KERNELS = ("k1_kernel", "k2_scan", "k3_kernel", "probe_kernel")  # CUDA names of K1-K4
 
 
 def log(*a):
@@ -88,6 +98,22 @@ def median_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def host_us_per_call(fn, calls: int = 100) -> float:
+    """Host time of one call of fn, from `calls` back-to-back calls with no
+    synchronisation between them: the wrapper's own work and its launch
+    (the device runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def host_median_ms(fn, reps: int = REPS, warmup: int = 1) -> float:
     """Median host-clock time of fn() ending in a synchronize."""
     import torch
@@ -104,11 +130,13 @@ def host_median_ms(fn, reps: int = REPS, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel_names, reps: int = REPS) -> float:
-    """Device time per call of the hand kernels named in `kernel_names`
-    (substrings of their CUDA function names), from torch.profiler over
-    `reps` calls of fn: the kernels alone, without the wrapper's host work
-    and small torch ops that the CUDA-event time of a call includes."""
+def device_ms(fn, kernel_names, reps: int = REPS):
+    """(ms, ops): the device time per call of the hand kernels named in
+    `kernel_names` (substrings of their CUDA function names), from
+    torch.profiler over `reps` calls of fn: the kernels alone, without the
+    wrapper's host work and small torch ops that the CUDA-event time of a
+    call includes; and the device operations (kernels, fills, copies) a
+    call runs in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -119,11 +147,11 @@ def device_ms(fn, kernel_names, reps: int = REPS) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in kernel_names))
+    dev_events = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    us = sum(ev.self_device_time_total for ev in dev_events if any(k in ev.key for k in kernel_names))
     if us <= 0:
         raise SystemExit(f"the profiler saw no device time for {kernel_names}")
-    return us / 1e3 / reps
+    return us / 1e3 / reps, sum(ev.count for ev in dev_events) / reps
 
 
 def bound(in_bytes: int, out_bytes: int, ops: int):
@@ -363,8 +391,9 @@ def decoded_join(chunk, grouped: bool):
 
 
 def profile_path(name, fn, wall_ms: float, top: int = 12):
-    """One profiled run of fn: device time by kernel (torch.profiler) and
-    the device's busy share of the path's median wall time."""
+    """One profiled run of fn: device time by kernel (torch.profiler), the
+    `top` longest and every hand kernel, and the device's busy share of the
+    path's median wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -384,7 +413,8 @@ def profile_path(name, fn, wall_ms: float, top: int = 12):
     busy_ms = sum(r[0] for r in rows) / 1e3
     log(f"profile {name}: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
         f"({100 * busy_ms / wall_ms:.1f}% busy), {sum(r[1] for r in rows)} kernel launches")
-    for us, count, key in rows[:top]:
+    hand = [r for r in rows[top:] if any(k in r[2] for k in HAND_KERNELS)]
+    for us, count, key in rows[:top] + hand:
         log(f"  {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
@@ -477,14 +507,28 @@ def main() -> int:
     q1_lanes = K1.dense_agg_lanes(gvals, aggs, valid, G)[:5]
     k1_names = ("group_rep", "n_groups", "overflow", "counts", "sums", "nns")
 
-    def check_k1(case, lanes, want_overflow):
-        got = K1.dense_agg(*lanes, G)
+    def check_k1(case, lanes, want_overflow, g=G, flag_only=False):
+        got = K1.dense_agg(*lanes, g)
         torch.cuda.synchronize()
-        e = compare("K1", case, got, K1._dense_agg_plain(*lanes, G), k1_names)
         if bool(got[2]) != want_overflow:
             raise SystemExit(f"K1 {case}: overflow {bool(got[2])}, expected {want_overflow}")
-        log(f"phase 3 K1 {case}: kernel == plain (n_groups={int(got[1])}, overflow={bool(got[2])})")
+        if flag_only:
+            log(f"phase 3 K1 {case}: overflow={bool(got[2])} (the flag alone is compared)")
+            return 0
+        e = compare("K1", case, got, K1._dense_agg_plain(*lanes, g), k1_names)
+        log(f"phase 3 K1 {case}: kernel == plain ({lanes[0].shape[0]} rows, G={g}, {len(lanes[3])} combos, "
+            f"n_groups={int(got[1])}, overflow={bool(got[2])})")
         return e
+
+    def cut(lanes, m):
+        hp_, hv_, va_, vs_, ns_ = lanes
+        return hp_[:m], hv_[:m], va_[:m], [v[:m] for v in vs_], [x[:m] for x in ns_]
+
+    def shifted(x):
+        """x as a view at a 1-element offset (no 16-B or 2-B alignment)."""
+        y = torch.empty(x.shape[0] + 1, dtype=x.dtype, device=x.device)
+        y[1:] = x
+        return y[1:]
 
     k1_err = check_k1("q1", q1_lanes, False)
     null_mask = torch.rand(n, generator=gen, device=dev) < 0.1
@@ -495,6 +539,42 @@ def main() -> int:
     k1_err = max(k1_err, check_k1("40 keys > G", K1.dense_agg_lanes([wide_key], aggs, valid, G)[:5], True))
     hp_rflag_only = K1.dense_agg_lanes([gvals[0]], aggs, valid, G)[0]
     k1_err = max(k1_err, check_k1("forced hp collision", (hp_rflag_only,) + tuple(q1_lanes[1:]), True))
+    # the one-pass kernel's edges: ragged and short inputs (128-row warp
+    # chunks, 2048-row block steps), no valid row, G = 1 and 32, NC = 0 and
+    # 6, wrapping sums, misaligned lanes, the last block's reset of the
+    # scratch (two calls in a row, small after large, after an overflow) and
+    # a second stream
+    for m in (n - 37, 1000, 129, 127, 1):
+        k1_err = max(k1_err, check_k1(f"n = {m}", cut(q1_lanes, m), False))
+    hp1, hv1, va1, vs1, ns1 = q1_lanes
+    k1_err = max(k1_err, check_k1("no valid row", (hp1, hv1, torch.zeros_like(va1), vs1, ns1), False))
+    k1_err = max(k1_err, check_k1("G = 1", q1_lanes, True, g=1))
+    k1_err = max(k1_err, check_k1("G = 32", q1_lanes, False, g=32))
+    key32 = CompVal(torch.randint(0, 32, (n,), generator=gen, device=dev), wide_key.null, T.new_longlong())
+    k1_err = max(k1_err, check_k1("32 keys, G = 32", K1.dense_agg_lanes([key32], aggs, valid, 32)[:5], False, g=32))
+    k1_err = max(k1_err, check_k1("NC = 0", (hp1, hv1, va1, [], []), False))
+    full = [torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen, device=dev) * 2 + 1 for _ in range(2)]
+    rnd_nulls = [torch.rand(n, generator=gen, device=dev) < 0.2 for _ in range(2)]
+    k1_err = max(k1_err, check_k1("NC = 6", (hp1, hv1, va1, vs1 + full, ns1 + rnd_nulls), False))
+    near = torch.randint(0, 1 << 40, (n,), generator=gen, device=dev)
+    edge = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, I64_MAX - near, -I64_MAX - 1 + near)
+    k1_err = max(k1_err, check_k1("values near +-2^63", (hp1, hv1, va1, [edge, vs1[1]], [ns1[0], rnd_nulls[0]]), False))
+    k1_err = max(k1_err, check_k1("misaligned lanes", (shifted(hp1), shifted(hv1), shifted(va1), [shifted(vs1[0])] + vs1[1:],
+                                                       [shifted(ns1[0])] + ns1[1:]), False))
+    first = K1.dense_agg(*q1_lanes, G)
+    again = K1.dense_agg(*q1_lanes, G)
+    torch.cuda.synchronize()
+    compare("K1", "two calls in a row", again, first, k1_names)
+    log("phase 3 K1 two calls in a row on Q1's inputs: equal")
+    k1_err = max(k1_err, check_k1("a small call after a large one", cut(q1_lanes, 1000), False))
+    check_k1("40 keys > G, again", K1.dense_agg_lanes([wide_key], aggs, valid, G)[:5], True)
+    k1_err = max(k1_err, check_k1("right after an overflow call", q1_lanes, False))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k1_err = max(k1_err, check_k1("on a second stream", q1_lanes, False))
+    key100 = CompVal(torch.randint(0, 100, (n,), generator=gen, device=dev), wide_key.null, T.new_longlong())
+    check_k1("100 keys > 64 slots", K1.dense_agg_lanes([key100], aggs, valid, G)[:5], True, flag_only=True)
 
     # phase 3, K2 and K3: on Q3's own inputs at 2^22 lineitem rows
     q3_dag, q3_fts = W.q3_dag(E, X, T)
@@ -697,18 +777,23 @@ def main() -> int:
     main_launches = dict(counters.main)
     timing = {}
 
-    def time_kernel(name, cuda_names, kernel, plain, args, in_bytes, out_bytes, ops):
+    def time_kernel(name, cuda_names, kernel, plain, args, in_bytes, out_bytes, ops, one_op=False):
         call_ms = median_ms(lambda: kernel(*args))
-        k_ms = device_ms(lambda: kernel(*args), cuda_names)
+        host_us = host_us_per_call(lambda: kernel(*args))
+        k_ms, dev_ops = device_ms(lambda: kernel(*args), cuda_names)
+        if one_op and dev_ops != 1:
+            raise SystemExit(f"{name}: a wrapper call ran {dev_ops} device operations, not its one kernel")
         p_ms = median_ms(lambda: plain(*args))
         b_ms, b_by = bound(in_bytes, out_bytes, ops)
         timing[name] = (k_ms, p_ms, b_ms, b_by)
         log(f"phase 5 {name}: kernel {k_ms:.4f} ms on the device, {call_ms:.4f} ms a wrapper call "
-            f"(plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: {in_bytes + out_bytes} B, {ops} ops)")
+            f"({host_us:.1f} us of it on the host), {dev_ops:g} device ops a call (plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
+            f"{in_bytes + out_bytes} B, {ops} ops)")
 
     nc1 = len(q1_lanes[3])
-    time_kernel("dense_agg", ("discover_kernel", "order_kernel", "accumulate_kernel"), lambda *a: K1.dense_agg(*a, G), lambda *a: K1._dense_agg_plain(*a, G), q1_lanes,
-                n * (8 + 8 + 1) + nc1 * n * (8 + 1), G * (4 + 8 * (1 + 2 * nc1)) + 8, n * (1 + 2 * nc1))
+    time_kernel("dense_agg", ("k1_kernel",), lambda *a: K1.dense_agg(*a, G), lambda *a: K1._dense_agg_plain(*a, G), q1_lanes,
+                n * (8 + 8 + 1) + nc1 * n * (8 + 1), G * (4 + 8 * (1 + 2 * nc1)) + 8, n * (1 + 2 * nc1),
+                one_op=True)
     n2, nl2 = k2_spk.shape[0], len(k2_lanes)
     nn2 = sum(1 for b in k2_bits if b >= 0)
     time_kernel("postsort_segscan", ("k2_",), K23.postsort_segscan, K23._postsort_segscan_plain,

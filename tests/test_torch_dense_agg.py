@@ -208,3 +208,156 @@ def test_cuda_tensors_launch_or_raise():
     hp = torch.zeros(4, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         K1.dense_agg(hp, hp, hp.bool(), [], [], 4)
+
+
+# ---------------------------------------------------------------------------
+# the one-pass kernel's edge shapes: the plain version (what the card's
+# kernel is held to, bit for bit, in chip_smoke.py) against the Pallas kernel
+# in interpret mode where that kernel takes the case, else a numpy oracle
+# ---------------------------------------------------------------------------
+
+# name -> (rows, key cardinality, G, value columns, share of valid rows)
+EDGE_SHAPES = {
+    "n=127": (127, 5, 8, 2, 0.9),
+    "n=129": (129, 5, 8, 2, 0.9),
+    "n=1000": (1000, 6, 16, 4, 0.8),
+    "n=2049": (2049, 6, 16, 2, 0.8),
+    "no valid row": (300, 5, 8, 2, 0.0),
+    "G=1": (200, 1, 1, 2, 0.9),
+    "G=32": (600, 31, 32, 2, 0.9),
+    "NC=0": (300, 5, 8, 0, 0.9),
+    "NC=6": (300, 5, 8, 6, 0.9),
+}
+
+
+def _edge_chunk(n, k, nc, seed):
+    """An int64 key column (10 % NULL, k values) and nc int64 value columns
+    (15 % NULL, |v| < 2^40: inside the Pallas kernel's range gate)."""
+    rng = np.random.default_rng(seed)
+    ft = JT.new_longlong()
+    rows = []
+    for _ in range(n):
+        key = JT.Datum.NULL if k > 1 and rng.random() < 0.1 else JT.Datum.i64(int(rng.integers(0, k)))
+        vals = [JT.Datum.NULL if rng.random() < 0.15 else JT.Datum.i64(int(rng.integers(-(1 << 40), 1 << 40)))
+                for _ in range(nc)]
+        rows.append([key] + vals)
+    return [ft] * (1 + nc), JChunk.from_rows([ft] * (1 + nc), rows)
+
+
+@pytest.mark.parametrize("case", list(EDGE_SHAPES))
+def test_edge_shapes_against_pallas(case):
+    n, k, G, nc, share = EDGE_SHAPES[case]
+    fts, ch = _edge_chunk(n, k, nc, seed=len(case))
+    valid = np.random.default_rng(7).random(n) < share
+    spec = [("count", None, None)] + [("sum", 1 + c, 1 + c) for c in range(nc)]
+    spec += [("avg", 1, 1)] if nc else []
+    engaged, ref, got, _ = _run(fts, ch, list(range(1 + nc)), [0], spec, G, valid)
+    assert engaged
+    assert not bool(ref.overflow)
+    assert int(ref.n_groups) == (0 if share == 0 else min(k + (k > 1), G))
+    _assert_same(ref, got)
+
+
+def _numpy_dense_agg(hp, hv, valid, vals, nulls, G):
+    """The kernel's function row by row: first-encounter groups, wrapping
+    int64 sums (Python ints mod 2^64), overflow on a (G+1)-th key or a
+    verify-hash mismatch."""
+    order, first = [], {}
+    over = False
+    for i in np.flatnonzero(valid):
+        h = int(hp[i])
+        if h not in first:
+            first[h] = i
+            order.append(h)
+        over |= int(hv[i]) != int(hv[first[h]])
+    over |= len(order) > G
+    gid = {h: g for g, h in enumerate(order[:G])}
+    counts = np.zeros(G, np.int64)
+    sums = [[0] * G for _ in vals]
+    nns = np.zeros((len(vals), G), np.int64)
+    for i in np.flatnonzero(valid):
+        g = gid.get(int(hp[i]))
+        if g is None:
+            continue
+        counts[g] += 1
+        for c in range(len(vals)):
+            if not nulls[c][i]:
+                sums[c][g] += int(vals[c][i])
+                nns[c, g] += 1
+    wrap = np.array([[(s + (1 << 63)) % (1 << 64) - (1 << 63) for s in row] for row in sums], np.int64)
+    rep = np.zeros(G, np.int32)
+    rep[:min(len(order), G)] = [first[h] for h in order[:G]]
+    return rep, min(len(order), G), over, counts, wrap.reshape(len(vals), G), nns
+
+
+# the edge shapes again, plus sums that wrap near +-2^63 (outside the
+# Pallas kernel's 2^46 gate) and a forced verify-hash mismatch
+KERNEL_CASES = {name: (n, k, G, nc, share, False) for name, (n, k, G, nc, share) in EDGE_SHAPES.items()}
+KERNEL_CASES["values near +-2^63"] = (3000, 6, 16, 3, 0.9, True)
+KERNEL_CASES["40 keys, G=32"] = (3000, 40, 32, 2, 0.9, False)
+
+
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_kernel_function_against_numpy(case):
+    n, k, G, nc, share, near = KERNEL_CASES[case]
+    rng = np.random.default_rng(len(case) + 100)
+    keys = rng.integers(0, k, n)
+    salt = rng.integers(0, 1 << 62, k)                 # hp: bit 63 clear
+    hp, hv = salt[keys], salt[keys] ^ 0x5A5A
+    if case == "n=2049":
+        hv[n // 2] ^= 1                                 # a primary-hash collision
+    valid = rng.random(n) < share
+    if near:
+        edge = rng.integers(0, 1 << 40, (nc, n))
+        vals = np.where(rng.random((nc, n)) < 0.5, np.int64((1 << 63) - 1) - edge, np.int64(-(1 << 63)) + edge)
+    else:
+        vals = rng.integers(-(1 << 62), 1 << 62, (nc, n))
+    nulls = rng.random((nc, n)) < 0.2
+    want = _numpy_dense_agg(hp, hv, valid, vals, nulls, G)
+    T = torch.from_numpy
+    got = K1.dense_agg(T(hp), T(hv), T(valid), [T(v) for v in vals], [T(m) for m in nulls], G)
+    rep, ng, ovf, counts, sums, nns = got
+    assert bool(ovf) == want[2]
+    assert int(ng) == want[1]
+    assert np.array_equal(rep.numpy(), want[0])
+    assert np.array_equal(counts.numpy(), want[3])
+    assert np.array_equal(sums.numpy(), want[4])
+    assert np.array_equal(nns.numpy(), want[5])
+    assert sums.shape == nns.shape == (nc, G)
+
+
+def _c_signatures(src: str) -> dict:
+    """{name: (restype, [argtypes])} of every `extern "C"` function in a
+    CUDA source, mapped to the ctypes a caller must declare."""
+    import ctypes
+    import re
+
+    ctype = {"void*": ctypes.c_void_p, "const void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong, "const void* const*": ctypes.POINTER(ctypes.c_void_p)}
+    out = {}
+    for m in re.finditer(r'extern "C"\s+([\w ]+?)\s+(\w+)\(([^)]*)\)', src):
+        params = [p.strip() for p in m.group(3).split(",") if p.strip()]
+        args = [ctype[re.sub(r"\s+", " ", p.rsplit(" ", 1)[0].replace("*", "* ")).replace("* *", "**")
+                      .replace(" *", "*").strip()] for p in params]
+        out[m.group(2)] = (ctype[m.group(1).strip()], args)
+    return out
+
+
+@pytest.mark.parametrize("lib", ["dense_agg", "joinscan"])
+def test_ctypes_signatures_match_the_source(lib):
+    """A wrapper's ctypes table against its source's extern "C"
+    declarations: a pointer declared as a 32-bit int would be cut on the
+    card, so the two must agree argument by argument."""
+    import importlib
+
+    from tidb_tpu_torch import kernels
+
+    mod = importlib.import_module(f"tidb_tpu_torch.ops.{lib}")
+    declared = _c_signatures((kernels._PKG / kernels.SOURCES[lib]).read_text())
+    assert set(declared) == set(mod._SIGNATURES)
+    for name, (res, args) in mod._SIGNATURES.items():
+        want_res, want_args = declared[name]
+        assert res is want_res, name
+        assert len(args) == len(want_args), name
+        for i, (a, b) in enumerate(zip(args, want_args)):
+            assert a is b, (name, i, a, b)

@@ -108,6 +108,21 @@ def check(t: torch.Tensor, shape, dtypes, what: str):
         raise ValueError(f"{what} must be contiguous {tuple(shape)}, got {tuple(t.shape)}")
 
 
+_typed: dict = {}
+
+
+def entry(lib_name: str, name: str, signature):
+    """Entry point `name` of a kernel library, its ctypes (restype,
+    argtypes) `signature` set once per loaded library."""
+    lib = load(lib_name)
+    got = _typed.get((lib_name, name))
+    if got is None or got[0] is not lib:
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = signature
+        got = _typed[(lib_name, name)] = (lib, fn)
+    return got[1]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel library, built first if needed."""
     with _lock:

@@ -2,15 +2,15 @@
 
 Replaces the Pallas kernel `group_aggregate_dense_pallas`
 (tidb_tpu/ops/dense_pallas.py:223, pallas_call at :415). The kernel itself
-is csrc/dense_agg.cu (CUDA C++ for sm_90a, bound with ctypes); its design
-notes are there. This module keeps what surrounds it, as the JAX package
+is csrc/dense_agg.cu (CUDA C++ for sm_90a, bound with ctypes), one launch
+per call; its design notes are there. This module keeps what surrounds it, as the JAX package
 keeps it outside the pallas_call: the eligibility gate, the key folds
 (_key_words), the two hashes, the combo lanes, and the epilogue that turns
 the kernel's accumulators into a GroupAggResult laid out exactly as
 dense_pallas.py:452-467 does.
 
 Group identity is the engine's double-hash contract (ops/seg.py): rows
-match on the 62-bit primary hash hp; a row whose independently salted
+match on the primary hash hp (bit 63 clear on valid rows); a row whose independently salted
 verify hash hv differs from its group's first row raises the overflow flag
 (the retry driver then takes the sort path), as does a (G+1)-th key.
 
@@ -37,7 +37,6 @@ SLOTS = 64            # hash-table slots per block and globally
 MAX_G = 32            # largest small-G hint the kernel takes
 MAX_COMBOS = 6        # distinct (value, null) argument combos
 _ALLOWED = frozenset({"count", "sum", "avg"})
-I64_MAX = 0x7FFFFFFFFFFFFFFF
 
 
 def _rotl64(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -165,8 +164,42 @@ def _dense_agg_plain(hp, hv, row_valid, vals, nulls, g_cap: int):
     return group_rep, torch.tensor(ng, dtype=torch.int32, device=dev), overflow, counts, sums, nns
 
 
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_vpp = ctypes.POINTER(ctypes.c_void_p)
+# csrc/dense_agg.cu's entry points: (restype, argtypes)
+_SIGNATURES = {
+    "dense_agg_scratch_bytes": (_i64, []),
+    "dense_agg_launch": (_i32, [_vp, _vp, _vp, _i64, _vpp, _vpp, _i32, _i32,
+                                _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
+}
+
+
+def _fn(name: str):
+    """An entry point of the dense_agg library, with its ctypes signature."""
+    from ..kernels import entry
+
+    return entry("dense_agg", name, _SIGNATURES[name])
+
+
+# (device index, stream) -> zeroed scratch: the 64-slot table the blocks
+# merge into, which the kernel's last block leaves zeroed for the next call
+_k1_scratch: dict = {}
+
+
+def _k1_scratch_for(dev, stream: int):
+    """K1's scratch on the CUDA stream `stream` (a handle) of dev."""
+    key = (dev.index, stream)
+    buf = _k1_scratch.get(key)
+    if buf is None:
+        buf = _k1_scratch[key] = torch.zeros(_fn("dense_agg_scratch_bytes")(), dtype=torch.uint8, device=dev)
+    return buf
+
+
 def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
-    from ..kernels import check, load, ptr, stream
+    """One launch of the kernel and no other device operation; valid rows'
+    hp must have bit 63 clear (as group_hash gives them). The kernel writes
+    every output in full, so they are allocated empty."""
+    from ..kernels import check
 
     n = hp.shape[0]
     G = int(g_cap)
@@ -185,35 +218,28 @@ def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
         check(vals[c], (n,), (torch.int64,), f"vals[{c}]")
         check(nulls[c], (n,), byte, f"nulls[{c}]")
     dev = hp.device
+    # six allocations cost the host less than views of one buffer would
     i64, i32 = torch.int64, torch.int32
-    g_keys = torch.full((SLOTS,), -1, dtype=i64, device=dev)
-    g_minrow = torch.full((SLOTS,), I64_MAX, dtype=i64, device=dev)
-    slot_gid = torch.empty(SLOTS, dtype=i32, device=dev)
-    group_rep = torch.zeros(G, dtype=i32, device=dev)
-    rep_hv = torch.zeros(G, dtype=i64, device=dev)
-    n_groups = torch.zeros(1, dtype=i32, device=dev)
-    acc = torch.zeros(G * (1 + 2 * nc), dtype=i64, device=dev)
-    flag = torch.zeros(1, dtype=i32, device=dev)
-    lib = load("dense_agg")
-    fn = lib.dense_agg_launch
-    fn.restype = ctypes.c_int
-    vp = ctypes.c_void_p
-    fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.POINTER(vp), ctypes.POINTER(vp),
-                   ctypes.c_int, ctypes.c_int] + [vp] * 9
-    varr = (vp * max(nc, 1))(*[v.data_ptr() for v in vals])
-    narr = (vp * max(nc, 1))(*[m.data_ptr() for m in nulls])
+    group_rep = torch.empty(G, dtype=i32, device=dev)
+    n_groups = torch.empty((), dtype=i32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    counts = torch.empty(G, dtype=i64, device=dev)
+    sums = torch.empty((nc, G), dtype=i64, device=dev)
+    nns = torch.empty((nc, G), dtype=i64, device=dev)
+    varr = (_vp * MAX_COMBOS)(*[v.data_ptr() for v in vals])
+    narr = (_vp * MAX_COMBOS)(*[m.data_ptr() for m in nulls])
     with torch.cuda.device(dev):
-        err = fn(ptr(hp), ptr(hv), ptr(row_valid), n, varr, narr, nc, G,
-                 ptr(g_keys), ptr(g_minrow), ptr(slot_gid), ptr(group_rep),
-                 ptr(rep_hv), ptr(n_groups), ptr(acc), ptr(flag), stream(dev))
+        st = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn("dense_agg_launch")(hp.data_ptr(), hv.data_ptr(), row_valid.data_ptr(), n, varr, narr, nc, G,
+                                      group_rep.data_ptr(), n_groups.data_ptr(), overflow.data_ptr(),
+                                      counts.data_ptr(), sums.data_ptr(), nns.data_ptr(),
+                                      _k1_scratch_for(dev, st).data_ptr(), st)
     if err != 0:
+        # a launch that failed may leave the table dirty: never reuse it
+        _k1_scratch.pop((dev.index, st), None)
         raise RuntimeError(f"dense_agg kernel launch failed (CUDA error {err})")
     dense_agg.launches += 1
-    per_g = acc.view(G, 1 + 2 * nc)
-    counts = per_g[:, 0]
-    sums = per_g[:, 1::2].t().contiguous()
-    nns = per_g[:, 2::2].t().contiguous()
-    return group_rep, n_groups[0], flag[0] != 0, counts, sums, nns
+    return group_rep, n_groups, overflow, counts, sums, nns
 
 
 def dense_agg(hp, hv, row_valid, vals, nulls, g_cap: int):

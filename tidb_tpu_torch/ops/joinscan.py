@@ -104,21 +104,13 @@ _SIGNATURES = {
                                        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
     "membership_segscan_launch": (_i32, [_vp, _vp, _i64, _vp, _vp, _vp]),
 }
-_typed: dict = {}
 
 
 def _fn(name: str):
-    """An entry point of the joinscan library, its ctypes signature set once
-    per loaded library."""
-    from ..kernels import load
+    """An entry point of the joinscan library, with its ctypes signature."""
+    from ..kernels import entry
 
-    lib = load("joinscan")
-    got = _typed.get(name)
-    if got is None or got[0] is not lib:
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = _SIGNATURES[name]
-        got = _typed[name] = (lib, fn)
-    return got[1]
+    return entry("joinscan", name, _SIGNATURES[name])
 
 
 K2_TILE = 2048  # csrc/joinscan.cu TILE: the rows of one look-back tile

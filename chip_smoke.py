@@ -30,7 +30,14 @@ Phases, each of which exits non-zero on failure (nothing is caught):
        K4 probe_tables (ops/join_probe.py) at the 1:32 radix join's plan
           (4096 partitions x 128 build x 2048 probe slots), then NULL keys,
           unmatched keys, a duplicate build key (dup flag), unsigned keys
-          and INT64 extremes;
+          and INT64 extremes; its hash-table edges: every build slot usable
+          with distinct keys (the table's highest load factor), build keys
+          that all share one home entry of the kernel's table hash (one
+          chain, wrapping past the table's end), duplicates spread over
+          warps (a later slot may be found first; the smallest must win),
+          part_cap 256, part_cap 100 with probe_cap 1001 and 1 (the
+          scalar-load copy), tables at a 1-element offset, two calls in a
+          row after a dup (its scratch resets) and a second stream;
   4. drive the main paths end to end through exec.executor.
      drive_program_info on `cuda`, every launch counter zeroed just before
      each path and read just after, each result checked against an exact
@@ -42,8 +49,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   5. time each kernel beside its bound — its device time per call from
      torch.profiler over 10 calls, the median CUDA-event time of a
      wrapper call (>= 10 runs) and its host time (100 calls back to
-     back, no synchronisation between them); K1's call must run its one
-     kernel and no other device operation — and its plain version, and
+     back, no synchronisation between them); K1's and K4's calls must run
+     their one kernel and no other device operation — and its plain
+     version (and, for K4, a device copy that moves as many bytes), and
      each path end to end (host clock around a synchronised run); with
      --profile, also one torch.profiler run of each path: device time by
      kernel and the device's busy share.
@@ -218,6 +226,26 @@ def k2_runs(n: int, seed: int, dev, fixed=(), lanes: int = 2):
     bits = [-1, 0][:lanes]
     return (pk.to(torch.int32).to(dev), [v.to(dev) for v in vals], torch.zeros(n, dtype=torch.bool, device=dev),
             nw.to(dev) if lanes > 1 else None, bits)
+
+
+def table_bits(part_cap: int) -> int:
+    """log2 of K4's shared hash table size, 2 * pow2(part_cap), as
+    csrc/join_probe.cu's launcher computes it."""
+    bits = 1
+    while (1 << bits) < 2 * part_cap:
+        bits += 1
+    return bits
+
+
+def table_home(keys, part_cap: int):
+    """numpy copy of csrc/join_probe.cu table_home: the home entry of each
+    int64 key in K4's table for part_cap."""
+    import numpy as np
+
+    x = keys.astype(np.int64).view(np.uint64)
+    x = x ^ (x >> np.uint64(32))
+    x = x * np.uint64(0x9E3779B97F4A7C15)
+    return (x >> np.uint64(64 - table_bits(part_cap))).astype(np.int64)
 
 
 def agg_inputs(dag_exec, fts, batch):
@@ -713,6 +741,66 @@ def main() -> int:
     p_ext = p_key.clone()
     p_ext[:, 0::3], p_ext[:, 1::3] = -(1 << 63), (1 << 63) - 1
     k4_err = max(k4_err, check_k4("INT64 extremes", (b_ext, b_ok2, p_ext, p_ok), False))
+    # the hash table's edges. Every build slot usable, distinct keys (an odd
+    # multiplier is a bijection of int64), the probe keys drawn from the
+    # partition's own build keys, one in 8 left unmatched
+    P, part_cap = b_key.shape
+    probe_cap = p_key.shape[1]
+    all_b = torch.ones_like(b_ok)
+    b_full = torch.arange(P * part_cap, device=dev).view(P, part_cap) * 0x3C6EF372FE94F82B
+    pick = torch.randint(0, part_cap, (P, probe_cap), generator=gen, device=dev)
+    miss = torch.rand(p_key.shape, generator=gen, device=dev) < 0.125
+    p_full = torch.where(miss, b_full.gather(1, pick) ^ (1 << 62), b_full.gather(1, pick))
+    k4_err = max(k4_err, check_k4("full partitions", (b_full, all_b, p_full, p_ok), False))
+    # one chain: partition 0's build keys all share one home entry, 3 before
+    # the table's end, so the chain wraps; its probes walk that chain
+    size = 1 << table_bits(part_cap)
+    cand = np.arange(1, 1 << 18, dtype=np.int64) * 7919
+    chain = torch.from_numpy(cand[table_home(cand, part_cap) == size - 3][:part_cap + 64]).to(dev)
+    if chain.numel() < part_cap + 64:
+        raise SystemExit(f"K4 one hash chain: only {chain.numel()} keys found for one home entry")
+    b_chain = b_full.clone()
+    b_chain[0] = chain[:part_cap]
+    p_chain = p_full.clone()
+    p_chain[0] = chain[torch.randint(0, part_cap + 64, (probe_cap,), generator=gen, device=dev)]
+    k4_err = max(k4_err, check_k4("one hash chain", (b_chain, all_b, p_chain, p_ok), False))
+    # one key at slots 3, 5, 40, 77 and 120 (two warps' lanes, three more
+    # warps): inserts race, so a later slot may sit first in the chain
+    b_many = b_full.clone()
+    for s_ in (5, 40, 77, 120):
+        b_many[:, s_] = b_many[:, 3]
+    p_many = p_full.clone()
+    p_many[:, 0::2] = b_many[:, 3:4]
+    k4_err = max(k4_err, check_k4("duplicate at a later slot found first", (b_many, all_b, p_many, p_ok), True))
+    # part_cap 256 (two partitions' rows side by side) with every slot usable
+    wide = (P // 2, 2 * part_cap), (P // 2, 2 * probe_cap)
+    k4_err = max(k4_err, check_k4("part_cap 256", (b_full.view(wide[0]), all_b.view(wide[0]),
+                                                   p_full.view(wide[1]), p_ok.view(wide[1])), False))
+    # the wrapper's range beyond the gate: rows that are not a multiple of 4
+    # (the scalar-load copy), a part_cap that is not a power of two
+    for pc, qc in ((100, 1001), (100, 1)):
+        rb = torch.arange(64 * pc, device=dev).view(64, pc) * 0x3C6EF372FE94F82B
+        rk = rb.gather(1, torch.randint(0, pc, (64, qc), generator=gen, device=dev))
+        rk = torch.where(torch.rand(rk.shape, generator=gen, device=dev) < 0.2, rk + 1, rk)
+        k4_err = max(k4_err, check_k4(f"part_cap {pc}, probe_cap {qc}", (
+            rb, torch.rand(rb.shape, generator=gen, device=dev) < 0.7, rk,
+            torch.rand(rk.shape, generator=gen, device=dev) < 0.6), False))
+
+    def shifted2d(x):
+        """x as a view at a 1-element offset (the scalar-load copy)."""
+        return shifted(x.reshape(-1)).view(x.shape)
+
+    k4_err = max(k4_err, check_k4("misaligned tables", tuple(shifted2d(x) for x in k4_in), False))
+    dup_in = (b_dup, b_ok2, torch.where(p_ok, b_dup[:, :1].expand_as(p_key), p_key), p_ok)
+    check_k4("duplicate build key, again", dup_in, True)
+    k4_err = max(k4_err, check_k4("two calls in a row after a dup", k4_in, False))
+    first = K4.probe_tables(*k4_in)
+    again = K4.probe_tables(*k4_in)
+    torch.cuda.synchronize()
+    compare("K4", "two calls in a row", again, first, k4_names)
+    with torch.cuda.stream(side):
+        k4_err = max(k4_err, check_k4("on a second stream", k4_in, False))
+        check_k4("on a second stream, a dup", dup_in, True)
 
     # phase 4: the main paths, end to end
     q6_dag, q6_fts = W.q6_dag(E, X, T)
@@ -804,11 +892,18 @@ def main() -> int:
     outer_real = int(((k3_spk & 1) == 1).sum())
     time_kernel("membership_segscan", ("k3_kernel",), K23.membership_segscan, K23._membership_segscan_plain, (k3_spk, k3_bad),
                 n3 * (4 + 1), n3 + 4, outer_real * max(1, n3.bit_length()))
-    P, part_cap = b_key.shape
-    probe_cap = p_key.shape[1]
     compares = int((p_ok.sum(1) * b_ok.sum(1)).sum())
+    k4_bytes = K4.probe_tables_bytes(b_ok, p_ok)
     time_kernel("probe_tables", ("probe_kernel",), K4.probe_tables, K4._probe_tables_plain, k4_in,
-                P * probe_cap * (8 + 1) + P * part_cap * (8 + 1), P * probe_cap * 4 + 4, 2 * compares)
+                *k4_bytes, 2 * compares, one_op=True)
+    # what the card streams: one device copy (8-byte elements) that moves
+    # K4's bytes, half read and half written
+    words = sum(k4_bytes) // 16
+    src, dst = torch.ones(words, dtype=torch.int64, device=dev), torch.empty(words, dtype=torch.int64, device=dev)
+    copy_ms = median_ms(lambda: dst.copy_(src), reps=50)
+    log(f"phase 5 probe_tables yardstick: a device copy moving the same {16 * words} B takes {copy_ms:.4f} ms "
+        f"({16 * words / copy_ms / 1e9:.2f} TB/s)")
+    del src, dst
     counters.zero()
 
     paths = {

@@ -343,7 +343,7 @@ def _c_signatures(src: str) -> dict:
     return out
 
 
-@pytest.mark.parametrize("lib", ["dense_agg", "joinscan"])
+@pytest.mark.parametrize("lib", ["dense_agg", "joinscan", "join_probe"])
 def test_ctypes_signatures_match_the_source(lib):
     """A wrapper's ctypes table against its source's extern "C"
     declarations: a pointer declared as a 32-bit int would be cut on the

@@ -4,7 +4,8 @@
 version is bit-equal to the Pallas kernel in interpret mode and to the XLA
 dense probe over the key matrix of tests/test_radix_join.py (signed with
 INT64 extremes, INT32_MIN, unsigned bit patterns, NULL slots, a duplicate
-build key); the partitioned probe equals JAX's dense route on every
+build key, every build slot usable); the byte count of the kernel's bound
+against a hand count; the partitioned probe equals JAX's dense route on every
 returned field, escapes and need included; radix_plan and the probe
 strategy gate agree."""
 
@@ -37,13 +38,13 @@ def _interpret(monkeypatch):
     monkeypatch.setenv("TIDB_TPU_PALLAS", "interpret")
 
 
-KEY_CASES = ["signed", "int32_min", "unsigned", "nulls", "dup"]
+KEY_CASES = ["signed", "int32_min", "unsigned", "nulls", "dup", "full"]
 
 
 def _tables(case, P=2, part_cap=128, probe_cap=1024, seed=5):
     """(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok) numpy tables."""
     rng = np.random.default_rng(seed)
-    nb = 64
+    nb = part_cap if case == "full" else 64  # "full": every build slot usable
     if case == "signed":
         keys = (rng.permutation(P * nb).astype(np.int64) - 32) * (1 << 37)
         keys[0], keys[1] = np.iinfo(np.int64).min, np.iinfo(np.int64).max
@@ -53,6 +54,8 @@ def _tables(case, P=2, part_cap=128, probe_cap=1024, seed=5):
     elif case == "unsigned":
         keys = rng.permutation(P * nb).astype(np.int64) * (1 << 40)
         keys[0] = -1  # the u64 max bit pattern
+    elif case == "full":
+        keys = rng.permutation(P * nb).astype(np.int64) * 7919 - (1 << 40)
     else:
         keys = np.arange(P * nb, dtype=np.int64)
     bk = np.zeros((P, part_cap), np.int64)
@@ -88,6 +91,38 @@ def test_k4_plain_bit_equal_to_pallas_and_xla(case):
     assert (np.asarray(xla_pos)[pok] == got[pok]).all()
     assert bool(pal_dup) == bool(xla_dup) == bool(got_dup) == (case == "dup")
     assert (got[pok] < bk.shape[1]).any()
+
+
+@pytest.mark.parametrize("case", ["prefix", "random", "empty_partition"])
+def test_probe_tables_bytes_counts_what_the_inputs_need(case):
+    """Every ok byte, 32 B per key sector (4 slots from the table's start)
+    holding a usable slot on either side, bpos in full and the dup byte."""
+    P, part_cap, probe_cap = 3, 8, 12
+    rng = np.random.default_rng(11)
+    bok = np.zeros((P, part_cap), bool)
+    pok = np.zeros((P, probe_cap), bool)
+    if case == "prefix":  # the radix join's layout: usable slots lead each row
+        bok[0, :5], bok[1, :1], bok[2, :8] = True, True, True
+        pok[0, :9], pok[1, :4], pok[2, :1] = True, True, True
+        b_sectors, p_sectors = 2 + 1 + 2, 3 + 1 + 1
+    elif case == "random":
+        bok[:] = rng.random(bok.shape) < 0.3
+        pok[:] = rng.random(pok.shape) < 0.3
+        b_sectors = sum(bool(bok.reshape(-1)[i:i + 4].any()) for i in range(0, P * part_cap, 4))
+        p_sectors = sum(bool(pok.reshape(-1)[i:i + 4].any()) for i in range(0, P * probe_cap, 4))
+    else:  # partition 1 is empty on both sides (an escaped partition)
+        bok[0, :3], bok[2, 6] = True, True
+        pok[0, :2], pok[2, 11] = True, True
+        b_sectors, p_sectors = 1 + 1, 1 + 1
+    got_in, got_out = TP.probe_tables_bytes(torch.from_numpy(bok), torch.from_numpy(pok))
+    assert got_in == P * part_cap + P * probe_cap + 32 * (b_sectors + p_sectors)
+    assert got_out == 4 * P * probe_cap + 1
+    # uint8 masks count the same, and a row length that is not a multiple
+    # of 4 lets a sector span two partitions' rows
+    assert TP.probe_tables_bytes(torch.from_numpy(bok.astype(np.uint8)), torch.from_numpy(pok))[0] == got_in
+    odd = np.zeros((2, 3), bool)
+    odd[0, 2], odd[1, 0] = True, True  # flat slots 2 and 3: one sector
+    assert TP.probe_tables_bytes(torch.from_numpy(odd), torch.from_numpy(odd)) == (12 + 2 * 32, 4 * 6 + 1)
 
 
 def _cv(vals, nulls, types_mod, val_cls, arr):

@@ -16,7 +16,10 @@ its own; other shapes take the "search" probe (ops/radix_join.py).
 
 `probe_tables` launches the kernel for CUDA tensors and runs the plain
 torch version `_probe_tables_plain` only for CPU tensors; on CUDA it
-launches or raises. `probe_tables.launches` counts kernel launches.
+launches or raises; a CUDA call is that one launch and no other device
+operation. `probe_tables.launches` counts kernel launches.
+`probe_tables_bytes` counts the bytes a probe of given tables must move
+(the kernel's bound).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import ctypes
 
 import torch
 
-MAX_PART_CAP = 256     # build slots per partition (one CTA of 256 threads)
+MAX_PART_CAP = 256     # build slots per partition (a 512-entry shared hash table)
 MAX_ROWS = 1 << 26     # probe-slot bound of the TPU kernel's gate
 _PLAIN_CHUNK = 1 << 24  # compare cells per step of the plain version
 
@@ -55,8 +58,57 @@ def _probe_tables_plain(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
     return bpos, dup
 
 
+def probe_tables_bytes(b_slot_ok, p_slot_ok) -> tuple[int, int]:
+    """(bytes in, bytes out) that a probe of these tables must move: every
+    ok byte of both sides, 32 B for each key sector (4 int64 slots, from
+    the table's start) that holds a usable slot, on both sides; out, bpos
+    in full (4 B a slot) and the dup flag. The keys of unusable slots are
+    don't-cares, so a probe never needs to read a sector without one."""
+
+    def used_sectors(ok) -> int:
+        flat = ok.reshape(-1).to(torch.bool)
+        pad = -flat.numel() % 4
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        return int(flat.view(-1, 4).any(dim=1).sum())
+
+    in_bytes = b_slot_ok.numel() + p_slot_ok.numel() + 32 * (used_sectors(b_slot_ok) + used_sectors(p_slot_ok))
+    return in_bytes, 4 * p_slot_ok.numel() + 1
+
+
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# csrc/join_probe.cu's entry points: (restype, argtypes)
+_SIGNATURES = {
+    "probe_tables_scratch_bytes": (_i64, []),
+    "probe_tables_launch": (_i32, [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp, _vp, _vp]),
+}
+
+
+def _fn(name: str):
+    """An entry point of the join_probe library, with its ctypes signature."""
+    from ..kernels import entry
+
+    return entry("join_probe", name, _SIGNATURES[name])
+
+
+# (device index, stream) -> zeroed scratch: the dup word and the CTA
+# ticket, which the kernel's last CTA leaves zeroed for the next call
+_k4_scratch: dict = {}
+
+
+def _k4_scratch_for(dev, stream: int):
+    """K4's scratch on the CUDA stream `stream` (a handle) of dev."""
+    key = (dev.index, stream)
+    buf = _k4_scratch.get(key)
+    if buf is None:
+        buf = _k4_scratch[key] = torch.zeros(_fn("probe_tables_scratch_bytes")(), dtype=torch.uint8, device=dev)
+    return buf
+
+
 def _probe_tables_cuda(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
-    from ..kernels import check, load, ptr, stream
+    """One launch of the kernel and no other device operation: it writes
+    bpos and dup in full, so both are allocated empty."""
+    from ..kernels import check
 
     P, part_cap = b_key_tbl.shape
     probe_cap = p_key_tbl.shape[1]
@@ -71,18 +123,18 @@ def _probe_tables_cuda(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
     check(p_slot_ok, (P, probe_cap), byte, "p_slot_ok")
     dev = b_key_tbl.device
     bpos = torch.empty((P, probe_cap), dtype=torch.int32, device=dev)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    vp = ctypes.c_void_p
-    fn = load("join_probe").probe_tables_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, vp, vp]
+    dup = torch.empty((), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        err = fn(ptr(b_key_tbl), ptr(b_slot_ok), ptr(p_key_tbl), ptr(p_slot_ok), P, part_cap, probe_cap,
-                 ptr(bpos), ptr(flag), stream(dev))
+        st = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn("probe_tables_launch")(b_key_tbl.data_ptr(), b_slot_ok.data_ptr(), p_key_tbl.data_ptr(),
+                                         p_slot_ok.data_ptr(), P, part_cap, probe_cap, bpos.data_ptr(),
+                                         dup.data_ptr(), _k4_scratch_for(dev, st).data_ptr(), st)
     if err != 0:
+        # a launch that failed may leave the scratch dirty: never reuse it
+        _k4_scratch.pop((dev.index, st), None)
         raise RuntimeError(f"probe_tables kernel launch failed (CUDA error {err})")
     probe_tables.launches += 1
-    return bpos, flag[0] != 0
+    return bpos, dup
 
 
 def probe_tables(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):

@@ -26,7 +26,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
           tile boundaries, n = 1, TILE - 1, TILE, TILE + 1, no value lane,
           a small call whose sums look like the next call's tile status
           words then a large call on the same scratch, and two calls in a
-          row (its scratch is reused) equal;
+          row (its scratch is reused) equal; K3's tile edges at its own
+          tile size: real outer runs over two tile boundaries (headed by an
+          inner row and not), runs starting at a tile's last row, leading
+          runs of 40 rows and of 5 whole tiles (the 32-ary search), a
+          duplicate inner key straddling a boundary, an INT32_MIN inner row
+          at element 0 before INT32_MIN + 1 outer rows, all rows pinned,
+          n = 1, TILE - 1, TILE, TILE + 1, a bad bit only on the last row,
+          views at a 1-element offset, two calls in a row after an
+          overflow (its scratch resets) and a second stream;
        K4 probe_tables (ops/join_probe.py) at the 1:32 radix join's plan
           (4096 partitions x 128 build x 2048 probe slots), then NULL keys,
           unmatched keys, a duplicate build key (dup flag), unsigned keys
@@ -49,9 +57,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   5. time each kernel beside its bound — its device time per call from
      torch.profiler over 10 calls, the median CUDA-event time of a
      wrapper call (>= 10 runs) and its host time (100 calls back to
-     back, no synchronisation between them); K1's and K4's calls must run
-     their one kernel and no other device operation — and its plain
-     version (and, for K4, a device copy that moves as many bytes), and
+     back, no synchronisation between them); K1's, K3's and K4's calls
+     must run their one kernel and no other device operation — and its
+     plain version (for K4, a device copy that moves as many bytes; for
+     K3, the floor under a kernel that small: a one-element fill and a
+     device copy that moves K3's bytes, timed as K3 is), and
      each path end to end (host clock around a synchronised run); with
      --profile, also one torch.profiler run of each path: device time by
      kernel and the device's busy share.
@@ -80,6 +90,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 SIMT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 I64_MAX = (1 << 63) - 1
 HAND_KERNELS = ("k1_kernel", "k2_scan", "k3_kernel", "probe_kernel")  # CUDA names of K1-K4
+# K3's operations a row for its bound, whatever the design: the key-run
+# test, inner, real, the duplicate test, the bad byte, the head and ok
+K3_OPS_PER_ROW = 8
 
 
 def log(*a):
@@ -138,25 +151,32 @@ def host_median_ms(fn, reps: int = REPS, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel_names, reps: int = REPS):
+def device_ms(fn, kernel_names, reps: int = REPS, tries: int = 3):
     """(ms, ops): the device time per call of the hand kernels named in
     `kernel_names` (substrings of their CUDA function names), from
     torch.profiler over `reps` calls of fn: the kernels alone, without the
     wrapper's host work and small torch ops that the CUDA-event time of a
     call includes; and the device operations (kernels, fills, copies) a
-    call runs in all."""
+    call runs in all. A profile that recorded fewer launches of the kernels
+    than calls (the profiler dropped a record) is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_events = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
-    us = sum(ev.self_device_time_total for ev in dev_events if any(k in ev.key for k in kernel_names))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_events = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+        mine = [ev for ev in dev_events if any(k in ev.key for k in kernel_names)]
+        if sum(ev.count for ev in mine) >= reps:
+            break
+    else:
+        raise SystemExit(f"the profiler saw fewer than {reps} launches of {kernel_names} in {tries} tries")
+    us = sum(ev.self_device_time_total for ev in mine)
     if us <= 0:
         raise SystemExit(f"the profiler saw no device time for {kernel_names}")
     return us / 1e3 / reps, sum(ev.count for ev in dev_events) / reps
@@ -516,7 +536,7 @@ def main() -> int:
     for name, s in secs.items():
         log(f"phase 2 built {name} in {s:.2f}s")
         for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(k in line for k in ("Compiling entry function", "registers", "smem", "spill")):
                 log(f"  ptxas: {line.strip()}")
 
     n = N_ROWS
@@ -699,9 +719,58 @@ def main() -> int:
     k3_err = check_k3("q3", k3_spk, k3_bad, False)
     okey_t, cust_t = q3_batches[1].cols[1].data, q3_batches[2].cols[0].data.clone()
     cust_t[1] = cust_t[0]
-    spk, _sp, wbad = membership_lanes(okey_t, torch.ones_like(okey_t, dtype=torch.bool), cust_t,
-                                      torch.ones_like(cust_t, dtype=torch.bool), q3_batches[1].cols[0].data)
-    k3_err = max(k3_err, check_k3("duplicate inner keys", spk, wbad, True))
+    dup3 = membership_lanes(okey_t, torch.ones_like(okey_t, dtype=torch.bool), cust_t,
+                            torch.ones_like(cust_t, dtype=torch.bool), q3_batches[1].cols[0].data)
+    dup3 = (dup3[0], dup3[2])
+    k3_err = max(k3_err, check_k3("duplicate inner keys", *dup3, True))
+    # the tiled pass's edges, at the kernel's own tile size: sorted keys of
+    # runs (k2_runs: one inner row heading a run, outer rows after it)
+    k3_tile = K23._fn("membership_segscan_tile")()
+    if k3_tile != K23.K3_TILE:
+        raise SystemExit(f"K3 tile: the kernel has {k3_tile}, ops/joinscan.py says {K23.K3_TILE}")
+
+    def runs3(rows, seed, fixed=()):
+        return k2_runs(rows, seed, dev, fixed, 0)[0]
+
+    def i32(*parts):
+        return torch.cat([torch.as_tensor(p_, dtype=torch.int32, device=dev).reshape(-1) for p_ in parts])
+
+    T3, i32min = k3_tile, -(1 << 31)
+    dup_edge = runs3(3 * T3, 24, [(True, T3 - 1), (True, 60)])
+    dup_edge[T3] = dup_edge[T3 - 1]  # the inner row at T3 - 1, again at T3
+    last_bad = torch.zeros_like(k3_bad)
+    last_bad[-1] = True
+    k3_edges = {
+        "a real outer run over two tile boundaries, headed": (runs3(4 * T3, 21, [(True, T3 - 100), (True, 2 * T3 + 300)]), False),
+        "a real outer run over two tile boundaries, not headed": (runs3(4 * T3, 22, [(True, T3 - 100), (False, 2 * T3 + 300)]), False),
+        "runs starting at a tile's last row": (runs3(3 * T3, 23, [(True, T3 - 1), (True, 50), (True, T3 - 50), (False, 40)]), False),
+        "a 40-row leading run, headed": (runs3(2 * T3 + 9, 25, [(True, T3 - 40), (True, 80)]), False),
+        "a 40-row leading run, not headed": (runs3(2 * T3 + 9, 26, [(True, T3 - 40), (False, 80)]), False),
+        "a run over 5 whole tiles": (runs3(7 * T3, 27, [(True, 7), (True, 5 * T3 + 11)]), False),
+        "a duplicate inner key straddling a boundary": (dup_edge, True),
+        # the plain version's element 0 has the predecessor INT32_MIN: an
+        # INT32_MIN inner row there is no run head (and is a duplicate)
+        "INT32_MIN inner at element 0, then INT32_MIN + 1 outer rows": (
+            i32([i32min], [i32min + 1] * (T3 + 50), runs3(2 * T3, 28)), True),
+        "all rows pinned": (i32([K23.PIN] * (3 * T3 // 2), [K23.PIN + 1] * (3 * T3 // 2 + 5)), False),
+    }
+    for i, m_ in enumerate((1, T3 - 1, T3, T3 + 1)):
+        k3_edges[f"n = {m_}"] = (runs3(m_, 30 + i), False)
+    for case, (spk, want) in k3_edges.items():
+        k3_err = max(k3_err, check_k3(case, spk, torch.zeros(spk.shape[0], dtype=torch.bool, device=dev), want))
+    k3_err = max(k3_err, check_k3("a bad bit on the last row only", k3_spk, last_bad, True))
+    k3_err = max(k3_err, check_k3("misaligned views", shifted(k3_spk), shifted(k3_bad), False))
+    check_k3("duplicate inner keys, again", *dup3, True)
+    k3_err = max(k3_err, check_k3("right after an overflow call", k3_spk, k3_bad, False))
+    first = K23.membership_segscan(k3_spk, k3_bad)
+    again = K23.membership_segscan(k3_spk, k3_bad)
+    torch.cuda.synchronize()
+    compare("K3", "two calls in a row", again, first, ("ok_out", "overflow"))
+    log("phase 3 K3 two calls in a row on Q3's inputs: equal")
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k3_err = max(k3_err, check_k3("on a second stream", k3_spk, k3_bad, False))
+        check_k3("on a second stream, a duplicate", *dup3, True)
 
     # phase 3, K4: at the 1:32 radix join's plan
     jb_dag, jb_fts = W.join_bench_dag(E, X, T)
@@ -874,7 +943,7 @@ def main() -> int:
         p_ms = median_ms(lambda: plain(*args))
         b_ms, b_by = bound(in_bytes, out_bytes, ops)
         timing[name] = (k_ms, p_ms, b_ms, b_by)
-        log(f"phase 5 {name}: kernel {k_ms:.4f} ms on the device, {call_ms:.4f} ms a wrapper call "
+        log(f"phase 5 {name}: kernel {k_ms:.5f} ms on the device, {call_ms:.4f} ms a wrapper call "
             f"({host_us:.1f} us of it on the host), {dev_ops:g} device ops a call (plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}: "
             f"{in_bytes + out_bytes} B, {ops} ops)")
 
@@ -889,9 +958,19 @@ def main() -> int:
                 n2 * (4 + 4 * nl2 + 1 + (1 if nn2 else 0)), n2 * (1 + 8 + 4 + 8 * nl2 + 8 * nn2) + 16,
                 n2 * (3 + nl2 + nn2))
     n3 = k3_spk.shape[0]
-    outer_real = int(((k3_spk & 1) == 1).sum())
+    k3_bytes = n3 * (4 + 1) + n3 + 1
     time_kernel("membership_segscan", ("k3_kernel",), K23.membership_segscan, K23._membership_segscan_plain, (k3_spk, k3_bad),
-                n3 * (4 + 1), n3 + 4, outer_real * max(1, n3.bit_length()))
+                n3 * (4 + 1), n3 + 1, n3 * K3_OPS_PER_ROW, one_op=True)
+    # the floor under a kernel this small, timed as K3 is: the card's
+    # smallest kernel (a one-element fill) and a device copy that moves
+    # K3's bytes, half read and half written
+    one = torch.empty(1, dtype=torch.int32, device=dev)
+    fill_ms, _ = device_ms(lambda: one.fill_(0), ("",))
+    src, dst = torch.ones(k3_bytes // 2, dtype=torch.uint8, device=dev), torch.empty(k3_bytes // 2, dtype=torch.uint8, device=dev)
+    copy3_ms, _ = device_ms(lambda: dst.copy_(src), ("",))
+    log(f"phase 5 membership_segscan floor: a one-element fill {fill_ms:.5f} ms, a device copy moving "
+        f"{2 * (k3_bytes // 2)} B {copy3_ms:.5f} ms, K3 {timing['membership_segscan'][0]:.5f} ms (device time, {REPS} calls each)")
+    del src, dst
     compares = int((p_ok.sum(1) * b_ok.sum(1)).sum())
     k4_bytes = K4.probe_tables_bytes(b_ok, p_ok)
     time_kernel("probe_tables", ("probe_kernel",), K4.probe_tables, K4._probe_tables_plain, k4_in,

@@ -5,7 +5,9 @@ bit-equal on every [n] output, the overflow flag and the join rows. Then
 membership_chain and packed_join_groupsum, the port against the JAX
 package (interpret), including the INT32_MIN key (a phantom-key guard) and
 a key over 2^30 (overflow), and a case whose only JAX overflow is the TPU
-kernel's run-length cap, which the port does not have."""
+kernel's run-length cap, which the port does not have. K3's cases at the
+CUDA kernel's tile boundaries (K3_TILE) hold its plain version against the
+JAX kernel where the tiled kernel's edges lie."""
 
 import jax
 import jax.numpy as jnp
@@ -172,6 +174,105 @@ def test_k3_plain_bit_equal_to_pallas(seed):
     _eq(jok, ok, "ok_out")
     assert bool(jovf) == bool(ovf) == (seed != 2)
     assert bool(ok.any())
+
+
+_I32_MIN = -(1 << 31)
+
+
+def _k3_spk(n, seed, fixed=()):
+    """Sorted packed keys of runs (inner 2k heading outer 2k + 1 rows):
+    the `fixed` runs first, each (headed by an inner row, rows), then
+    random runs of 1-16 rows, 3 in 4 headed, cut at n; the last rows pinned
+    (unusable inner, then outer rows)."""
+    rng = np.random.default_rng(seed)
+    out, key = [], 1
+    for headed, rows in fixed:
+        out += [2 * key] * int(headed) + [2 * key + 1] * (rows - int(headed))
+        key += 1
+    while len(out) < n:
+        headed, rows = rng.random() < 0.75, int(rng.integers(1, 17))
+        out += [2 * key] * int(headed) + [2 * key + 1] * (rows - int(headed))
+        key += 1
+    spk = np.array(out[:n], np.int64)
+    pins = min(4, n // 4)
+    spk[n - pins:n - pins // 2] = TSC.PIN
+    spk[n - pins // 2:] = TSC.PIN + 1
+    return spk
+
+
+def _k3_edge(name):
+    """(spk, bad) of one K3 tile-edge case, boundaries at the CUDA kernel's
+    tile size."""
+    T = TSC.K3_TILE
+    if name == "run_over_one_boundary":
+        spk = _k3_spk(2 * T + 7, 1, [(True, T - 50), (True, 200)])
+    elif name == "run_over_two_boundaries_headed":
+        spk = _k3_spk(4 * T, 2, [(True, T - 100), (True, 2 * T + 300)])
+    elif name == "run_over_two_boundaries_not_headed":
+        spk = _k3_spk(4 * T, 3, [(True, T - 100), (False, 2 * T + 300)])
+    elif name == "runs_start_at_a_tile_end":
+        spk = _k3_spk(3 * T, 4, [(True, T - 1), (True, 50), (True, T - 50), (False, 40)])
+    elif name == "leading_run_over_32_rows":
+        spk = _k3_spk(2 * T + 9, 5, [(True, T - 40), (True, 80)])
+    elif name == "duplicate_straddling_a_boundary":
+        spk = _k3_spk(3 * T, 6, [(True, T - 1), (True, 60)])
+        spk[T] = spk[T - 1]
+    elif name == "int32_min_inner_at_element_0":
+        spk = np.concatenate([[_I32_MIN], [_I32_MIN + 1] * (T + 50), _k3_spk(2 * T, 7)])
+    elif name == "all_pinned":
+        spk = np.array([TSC.PIN] * (3 * T // 2) + [TSC.PIN + 1] * (3 * T // 2 + 5), np.int64)
+    elif name == "n_1":
+        spk = np.array([3], np.int64)
+    else:  # bad_bit_on_the_last_row
+        spk = _k3_spk(3 * T, 8)
+    bad = np.zeros(len(spk), bool)
+    if name == "bad_bit_on_the_last_row":
+        bad[-1] = True
+    return spk.astype(np.int32), bad
+
+
+K3_EDGES = ["run_over_one_boundary", "run_over_two_boundaries_headed", "run_over_two_boundaries_not_headed",
+            "runs_start_at_a_tile_end", "leading_run_over_32_rows", "duplicate_straddling_a_boundary",
+            "int32_min_inner_at_element_0", "all_pinned", "n_1", "bad_bit_on_the_last_row"]
+
+
+@pytest.mark.parametrize("name", K3_EDGES)
+def test_k3_tile_edges_bit_equal_to_pallas(name):
+    """K3's plain version against the JAX kernel (interpret) on runs placed
+    at the CUDA kernel's tile boundaries: runs crossing one and two
+    boundaries, runs starting at a tile's last row, a leading run longer
+    than the kernel's 32-row window, a duplicate inner key straddling a
+    boundary, INT32_MIN at element 0 (whose predecessor is INT32_MIN, so it
+    heads no run and is a duplicate), all rows pinned, one row, and a bad
+    bit on the last row only."""
+    spk, bad = _k3_edge(name)
+    ok, ovf = TSC._membership_segscan_plain(torch.from_numpy(spk), torch.from_numpy(bad))
+    jok, jovf = JSC.membership_segscan(jnp.asarray(spk), jnp.asarray(bad), interpret=True)
+    _eq(jok, ok, "ok_out")
+    want_ovf = name in ("duplicate_straddling_a_boundary", "int32_min_inner_at_element_0", "bad_bit_on_the_last_row")
+    assert bool(jovf) == bool(ovf) == want_ovf
+    T, ok = TSC.K3_TILE, ok.numpy()
+    if name == "run_over_two_boundaries_headed":
+        assert ok[T - 99:3 * T + 200].all()
+    if name == "run_over_two_boundaries_not_headed":
+        assert not ok[T - 100:3 * T + 200].any()
+    if name == "runs_start_at_a_tile_end":
+        assert ok[T:T + 49].all() and not ok[2 * T - 1:2 * T + 39].any()
+    if name == "int32_min_inner_at_element_0":
+        assert not ok[:T + 51].any()
+    if name in ("all_pinned", "n_1"):
+        assert not ok.any()
+
+
+def test_k3_tile_matches_the_source():
+    """K3_TILE is the CUDA kernel's rows per CTA (K3_THREADS * K3_ITEMS)."""
+    import re
+
+    from tidb_tpu_torch import kernels
+
+    src = (kernels._PKG / kernels.SOURCES["joinscan"]).read_text()
+    threads, items = (int(re.search(rf"constexpr int {k} = (\d+);", src).group(1)) for k in ("K3_THREADS", "K3_ITEMS"))
+    assert threads * items == TSC.K3_TILE
 
 
 def _chain_inputs(seed, inner_key_fix=None, payload_fix=None):

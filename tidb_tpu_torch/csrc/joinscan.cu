@@ -71,13 +71,41 @@
 // times on the card are in PERF.md.
 //
 // K3 membership_segscan replaces the Pallas kernel of the same name
-// (tidb_tpu/ops/joinscan.py:344, pallas_call at :365). Inner rows (even pk)
-// sort before outer rows (odd pk) of their key, so an outer real row is ok
-// iff the element holding pk - 1 exists: one elementwise kernel with a
-// binary search, no scan. Duplicate inner keys come from an adjacent-equal
-// test, and the overflow flag is one atomicOr per block. K3 reads ~5 B and
-// writes 1 B a row: ~4 MB and ~1.2 us for Q3's 655K rows, so it is
-// launch-bound.
+// (tidb_tpu/ops/joinscan.py:344, pallas_call at :365). Over the sorted
+// packed keys it marks each outer (odd) real row whose run (a maximal
+// block of equal spk | 1) begins with a usable inner row, and flags
+// overflow: a duplicate usable inner key, or any bad byte. ONE launch of
+// k3_kernel and no other device operation; one CTA of 256 threads per
+// 2048-row tile, 8 consecutive rows a thread: 320 CTAs, one wave, at Q3's
+// 655,360 rows. No search per row:
+//   * every load goes out at once: two 16-B spk loads and two 4-B bad
+//     loads a thread, and the 32 rows before each warp (its window);
+//   * a warp whose rows are all pinned stops there (Q3's 371,356-row
+//     pinned tail): a real row after a pinned one always starts its run;
+//   * a thread turns its rows into bit masks (run starts K, heads A,
+//     outer real rows O); the head bit of every row's run is the carry
+//     chain of one add, (~K | A) + A + carry-in (k3_heads). The carry-in is
+//     the last start of the nearest earlier lane (two ballots), else the
+//     warp's leading run, decided by its window: the last row before the
+//     run there, or for a run that fills the window a 32-ary search of the
+//     rows before it (the one place that takes the keys as sorted). Warps
+//     never wait on one another;
+//   * ok leaves with 4-B streaming stores. The flag: warps 1-7 leave their
+//     bit in shared memory and arrive at a named barrier; warp 0 waits
+//     there and takes the CTA's ticket, one 64-bit atomic carrying the
+//     count and the flag; the last CTA writes the 0-d output and zeroes
+//     the ticket (K3Scratch, 16 B per device and stream, zeroed once).
+// Element 0's predecessor is INT_MIN, as in the plain version: an INT_MIN
+// inner row there heads no run (and counts as a duplicate).
+// Bound on an H100 SXM (3.35 TB/s): memory, 6 B a row (spk, bad, ok) and
+// the flag, 3,932,161 B at Q3, 0.0012 ms. A kernel this small sits on the
+// card's floor instead (a one-element fill takes 0.0010 ms, a copy of as
+// many bytes 0.0015 ms), and the completion signal across CTAs that the
+// one 0-d output needs (this ticket; counters that one CTA polls were no
+// faster) lies on its critical path. Times and variants: PERF.md.
+// Resources (ptxas -v, sm_90a): k3_kernel<true> 31 registers, <false> 30,
+// 32 B of shared memory, no spills. Views at an element offset take the
+// <false> copy (per-element loads); the launcher picks it by alignment.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -203,7 +231,7 @@ __device__ __forceinline__ int swz(int c) { return c ^ ((c >> 3) & 7); }
 __device__ __forceinline__ int sw32(int e) { return (swz(e >> 2) << 2) | (e & 3); }
 __device__ __forceinline__ int sw64(int e) { return (swz(e >> 1) << 1) | (e & 1); }
 
-__device__ __forceinline__ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+__host__ __device__ __forceinline__ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // m int32 elements of g into the swizzled tile sm: 16 B a thread,
 // neighbouring threads on neighbouring addresses, where the tile is whole.
@@ -573,35 +601,176 @@ __global__ void __launch_bounds__(THREADS, 4) k2_scan(Params p, Outs o, unsigned
   }
 }
 
-__global__ void k3_kernel(const int* __restrict__ spk, const unsigned char* __restrict__ bad,
-                          long long n, unsigned char* __restrict__ ok, int* flag) {
-  int any = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int v = spk[i];
-    const int pv = i ? spk[i - 1] : INT_MIN;
-    const bool inner = (v & 1) == 0;
-    const bool real = v < PIN;
-    if (inner && real && v == pv) any = 1;
-    if (bad[i]) any = 1;
-    bool hit = false;
-    // v - 1 == INT_MIN could only sit at element 0, where it does not start
-    // a run (its predecessor is INT_MIN itself)
-    if (!inner && real && v != INT_MIN + 1) {
-      const int target = v - 1;
-      long long lo = 0, hi = i;
-      while (lo < hi) {
-        const long long mid = (lo + hi) >> 1;
-        if (spk[mid] < target)
-          lo = mid + 1;
-        else
-          hi = mid;
-      }
-      hit = lo < i && spk[lo] == target;
-    }
-    ok[i] = hit;
+// ---------------------------------------------------------------------------
+// K3: one CTA per tile of K3_TILE rows, K3_ITEMS consecutive rows a thread
+// ---------------------------------------------------------------------------
+
+constexpr int K3_THREADS = 256;
+constexpr int K3_ITEMS = 8;
+constexpr int K3_TILE = K3_THREADS * K3_ITEMS;
+constexpr int K3_WARPS = K3_THREADS / 32;
+static_assert(K3_ITEMS % 4 == 0 && K3_ITEMS < 32, "vector accesses; a row mask and its carry in 32 bits");
+
+struct K3Scratch {
+  // CTAs of this launch finished (low 32 bits) and, of those, the ones
+  // that saw a duplicate or a bad bit (high 32 bits): one atomic a CTA
+  unsigned long long tickets;
+  unsigned long long pad;
+};
+
+// v is a run head led by a usable inner row; pv is the element before it
+// (INT_MIN before element 0, as in the plain version).
+__device__ __forceinline__ bool k3_head(int v, int pv) {
+  return (v & 1) == 0 && v < PIN && (v | 1) != (pv | 1);
+}
+
+// A warp: the head bit of the run that holds element e (> 0), the warp's
+// first row, when that run began before e. w is spk[e - 32 + lane]
+// (anything where that is below 0), x is spk[e]. The last element before
+// the run inside the 32-element window decides at once; a run that fills
+// the window is found by a 32-ary search of [0, e - 32] for its first
+// element, which takes the input to be sorted (each step: 32 probes, one
+// ballot).
+__device__ int k3_lead(const int* __restrict__ spk, long long e, int w, int x) {
+  const int lane = threadIdx.x & 31;
+  const int key = x | 1;
+  const long long base = e - 32;
+  const unsigned out = __ballot_sync(FULL, base + lane < 0 || (w | 1) != key);
+  if (out) {
+    const int q = 31 - __clz(out);  // <= 30: element e - 1 is in the run
+    const int vf = __shfl_sync(FULL, w, q + 1);
+    const int pw = __shfl_sync(FULL, w, q);
+    return k3_head(vf, base + q < 0 ? INT_MIN : pw);
   }
-  if (__syncthreads_or(any) && threadIdx.x == 0) atomicOr(flag, 1);
+  long long lo = 0, hi = base;  // the run's first element lies in [lo, hi]
+  while (lo < hi) {
+    const long long q = lo + (long long)lane * (hi - lo) / 32;
+    const int c = __popc(__ballot_sync(FULL, (__ldcg(spk + q) | 1) < key));
+    if (c == 0) break;  // spk[lo] is in the run
+    const long long below = __shfl_sync(FULL, q, c - 1);
+    if (c < 32) hi = __shfl_sync(FULL, q, c);
+    lo = below + 1;
+  }
+  return k3_head(__ldcg(spk + lo), lo ? __ldcg(spk + lo - 1) : INT_MIN);
+}
+
+// H[j], the head bit of the last run start at or before row j of a thread
+// (cin before its first start), for all rows at once: K marks the run
+// starts and A the heads among them. In x + A + cin with x = ~K | A, a head
+// generates a carry, another start kills it and any other row propagates
+// it, so the carry out of bit j is H[j].
+__device__ __forceinline__ unsigned k3_heads(unsigned K, unsigned A, unsigned cin) {
+  constexpr unsigned ROWS = (1u << K3_ITEMS) - 1;
+  const unsigned x = (~K & ROWS) | A;
+  return ((x + A + cin) ^ x ^ A) >> 1;
+}
+
+// Four ok bits (bits 0-3 of b) as four bytes.
+__device__ __forceinline__ unsigned k3_bytes(unsigned b) { return (b & 15u) * 0x204081u & 0x01010101u; }
+
+// ok[i] = an outer real row whose run (a maximal block of equal spk | 1)
+// begins with a run head; ovf = a duplicate usable inner key or any bad
+// byte. VEC: spk 16-B, bad and ok 4-B aligned; whole threads then load and
+// store with vector accesses, and the ragged tail per element.
+template <bool VEC>
+__global__ void __launch_bounds__(K3_THREADS) k3_kernel(const int* __restrict__ spk,
+                                                        const unsigned char* __restrict__ bad, int n,
+                                                        unsigned char* __restrict__ ok,
+                                                        unsigned char* __restrict__ ovf, K3Scratch* sc) {
+  constexpr int W = K3_ITEMS / 4;  // 4-row words a thread
+  __shared__ int s_any[K3_WARPS];  // each warp's overflow bit
+  const int t = threadIdx.x, lane = t & 31, wp = t >> 5;
+  const unsigned wb = blockIdx.x * (unsigned)K3_TILE + wp * (32u * K3_ITEMS);  // the warp's first row
+  const unsigned e0 = wb + lane * K3_ITEMS;                                    // < 2^32: n < 2^31
+  const int m = e0 < (unsigned)n ? min(K3_ITEMS, (int)((unsigned)n - e0)) : 0;
+
+  // 1. every load at once: the thread's rows and bad bytes, and the 32
+  // rows before the warp (INT_MIN before element 0). Rows past n read as
+  // pinned.
+  int v[K3_ITEMS];
+  unsigned bb = 0;
+  if (VEC && m == K3_ITEMS) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int4 a = __ldcs(reinterpret_cast<const int4*>(spk + e0) + k);
+      v[4 * k] = a.x, v[4 * k + 1] = a.y, v[4 * k + 2] = a.z, v[4 * k + 3] = a.w;
+      bb |= __ldcs(reinterpret_cast<const unsigned*>(bad + e0) + k);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K3_ITEMS; ++j) {
+      v[j] = j < m ? spk[e0 + j] : PIN;
+      bb |= j < m ? bad[e0 + j] : 0u;
+    }
+  }
+  const int win = wb > 0 && wb < (unsigned)n ? spk[wb - 32 + lane] : INT_MIN;
+  const int up = __shfl_up_sync(FULL, v[K3_ITEMS - 1], 1);
+  const int win_last = __shfl_sync(FULL, win, 31);
+  const int pv = lane ? up : win_last;
+
+  // 2. per row: run starts K, heads A (starts led by a usable inner row),
+  // outer real rows O, duplicates; then ok = O & the head bit of each
+  // row's run. A warp whose rows are all pinned skips this: it has no ok
+  // row and no duplicate.
+  unsigned okm = 0;
+  int any = bb != 0;
+  int lo = v[0];
+#pragma unroll
+  for (int j = 1; j < K3_ITEMS; ++j) lo = min(lo, v[j]);
+  if (!__all_sync(FULL, lo >= PIN)) {
+    unsigned K = 0, A = 0, O = 0;
+    int px = pv;
+#pragma unroll
+    for (int j = 0; j < K3_ITEMS; ++j) {
+      const int x = v[j];
+      const bool kd = (x | 1) != (px | 1), real = x < PIN, inner = (x & 1) == 0;
+      K |= (unsigned)kd << j;
+      A |= (unsigned)(kd && inner && real) << j;
+      O |= (unsigned)(!inner && real) << j;
+      any |= inner && real && x == px;
+      px = x;
+    }
+    K |= e0 == 0;  // element 0 starts a run whatever its predecessor INT_MIN says
+    // the carry into each thread: the head bit of the last start in the
+    // nearest earlier lane that has one, else the warp's leading run's
+    const unsigned h0 = k3_heads(K, A, 0);
+    const unsigned S = __ballot_sync(FULL, K != 0), V = __ballot_sync(FULL, (h0 >> (K3_ITEMS - 1)) & 1);
+    const int x0 = __shfl_sync(FULL, v[0], 0);
+    const int lead = wb > 0 && x0 < PIN && (x0 | 1) == (win_last | 1) ? k3_lead(spk, wb, win, x0) : 0;
+    const unsigned before = S & ((1u << lane) - 1u);
+    const unsigned cin = before ? (V >> (31 - __clz(before))) & 1 : lead;
+    okm = O & (cin ? k3_heads(K, A, 1) : h0);
+  }
+  if (VEC && m == K3_ITEMS) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) __stcs(reinterpret_cast<unsigned*>(ok + e0) + k, k3_bytes(okm >> (4 * k)));
+  } else {
+#pragma unroll
+    for (int j = 0; j < K3_ITEMS; ++j)
+      if (j < m) ok[e0 + j] = (okm >> j) & 1;
+  }
+
+  // 3. the flag: warps 1.. leave their bit and go; warp 0 waits for them,
+  // then takes the CTA's ticket, in which the flag rides. The last CTA
+  // publishes the flag and resets the scratch. No fence: the ticket is all
+  // that the CTAs share.
+  any = __any_sync(FULL, any);
+  if (lane == 0) s_any[wp] = any;
+  if (wp) {
+    asm volatile("bar.arrive 1, %0;" ::"n"(K3_THREADS) : "memory");
+    return;
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(K3_THREADS) : "memory");
+  if (lane == 0) {
+    int cta = 0;
+#pragma unroll
+    for (int k = 0; k < K3_WARPS; ++k) cta |= s_any[k];
+    const unsigned long long seen = atomicAdd(&sc->tickets, 1ull | (unsigned long long)(cta != 0) << 32);
+    if ((unsigned)seen == gridDim.x - 1) {
+      *ovf = (seen >> 32) != 0 || cta;
+      atomicExch(&sc->tickets, 0ull);
+    }
+  }
 }
 
 }  // namespace
@@ -656,13 +825,28 @@ extern "C" int postsort_segscan_launch(const void* spk, const void* lane0, const
   return (int)cudaGetLastError();
 }
 
-// K3. ok: uint8[n] (written in full); flag int32[1] = 0.
-extern "C" int membership_segscan_launch(const void* spk, const void* bad, long long n, void* ok,
-                                         void* flag, void* stream) {
-  if (n < 1 || n >= (1ll << 31)) return -1;
-  long long want = (n + THREADS - 1) / THREADS;
-  const int blocks = (int)(want < 4 * 132 * 8 ? want : 4 * 132 * 8);
-  k3_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)spk, (const unsigned char*)bad, n, (unsigned char*)ok, (int*)flag);
+extern "C" int membership_segscan_tile() { return K3_TILE; }
+
+// Bytes of K3's scratch; it must be zeroed once when allocated.
+extern "C" long long membership_segscan_scratch_bytes() { return (long long)sizeof(K3Scratch); }
+
+// K3, one launch on `stream`. spk int32 [n] sorted, bad byte [n]. Outputs,
+// written in full: ok uint8 [n] and ovf (one byte). scratch:
+// membership_segscan_scratch_bytes() bytes, zeroed when allocated and then
+// kept for every later call on the same stream. Returns cudaGetLastError(),
+// -1 for bad arguments.
+extern "C" int membership_segscan_launch(const void* spk, const void* bad, long long n, void* ok, void* ovf,
+                                         void* scratch, void* stream) {
+  if (n < 1 || n >= (1ll << 31) || !spk || !bad || !ok || !ovf) return -1;
+  if (!scratch || ((uintptr_t)scratch & 15)) return -1;
+  const unsigned tiles = (unsigned)((n + K3_TILE - 1) / K3_TILE);
+  const bool vec = aligned16(spk) && ((uintptr_t)bad & 3) == 0 && ((uintptr_t)ok & 3) == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* s = (const int*)spk;
+  const unsigned char* b = (const unsigned char*)bad;
+  if (vec)
+    k3_kernel<true><<<tiles, K3_THREADS, 0, st>>>(s, b, (int)n, (unsigned char*)ok, (unsigned char*)ovf, (K3Scratch*)scratch);
+  else
+    k3_kernel<false><<<tiles, K3_THREADS, 0, st>>>(s, b, (int)n, (unsigned char*)ok, (unsigned char*)ovf, (K3Scratch*)scratch);
   return (int)cudaGetLastError();
 }

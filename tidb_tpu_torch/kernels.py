@@ -108,6 +108,27 @@ def check(t: torch.Tensor, shape, dtypes, what: str):
         raise ValueError(f"{what} must be contiguous {tuple(shape)}, got {tuple(t.shape)}")
 
 
+class StreamScratch:
+    """A kernel's zeroed scratch buffer, one per (device, stream), made
+    with torch.zeros at the stream's first launch; the kernel leaves it
+    zeroed for the next launch. A launch that failed may leave it dirty,
+    so its caller drops it. `nbytes()` gives the size (the kernel library's
+    own entry point)."""
+
+    def __init__(self, nbytes):
+        self.nbytes = nbytes
+        self.bufs: dict = {}
+
+    def get(self, dev, stream: int) -> torch.Tensor:
+        buf = self.bufs.get((dev.index, stream))
+        if buf is None:
+            buf = self.bufs[(dev.index, stream)] = torch.zeros(self.nbytes(), dtype=torch.uint8, device=dev)
+        return buf
+
+    def drop(self, dev, stream: int):
+        self.bufs.pop((dev.index, stream), None)
+
+
 _typed: dict = {}
 
 

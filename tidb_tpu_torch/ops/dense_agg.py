@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from ..kernels import StreamScratch
 from .keys import sort_key_arrays
 from .seg import _lsr, group_hash, hash_words
 
@@ -181,18 +182,9 @@ def _fn(name: str):
     return entry("dense_agg", name, _SIGNATURES[name])
 
 
-# (device index, stream) -> zeroed scratch: the 64-slot table the blocks
-# merge into, which the kernel's last block leaves zeroed for the next call
-_k1_scratch: dict = {}
-
-
-def _k1_scratch_for(dev, stream: int):
-    """K1's scratch on the CUDA stream `stream` (a handle) of dev."""
-    key = (dev.index, stream)
-    buf = _k1_scratch.get(key)
-    if buf is None:
-        buf = _k1_scratch[key] = torch.zeros(_fn("dense_agg_scratch_bytes")(), dtype=torch.uint8, device=dev)
-    return buf
+# the 64-slot table the blocks merge into, per device and stream; the
+# kernel's last block leaves it zeroed for the next call
+_k1_scratch = StreamScratch(lambda: _fn("dense_agg_scratch_bytes")())
 
 
 def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
@@ -233,10 +225,10 @@ def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
         err = _fn("dense_agg_launch")(hp.data_ptr(), hv.data_ptr(), row_valid.data_ptr(), n, varr, narr, nc, G,
                                       group_rep.data_ptr(), n_groups.data_ptr(), overflow.data_ptr(),
                                       counts.data_ptr(), sums.data_ptr(), nns.data_ptr(),
-                                      _k1_scratch_for(dev, st).data_ptr(), st)
+                                      _k1_scratch.get(dev, st).data_ptr(), st)
     if err != 0:
         # a launch that failed may leave the table dirty: never reuse it
-        _k1_scratch.pop((dev.index, st), None)
+        _k1_scratch.drop(dev, st)
         raise RuntimeError(f"dense_agg kernel launch failed (CUDA error {err})")
     dense_agg.launches += 1
     return group_rep, n_groups, overflow, counts, sums, nns

@@ -28,6 +28,8 @@ import ctypes
 
 import torch
 
+from ..kernels import StreamScratch
+
 MAX_PART_CAP = 256     # build slots per partition (a 512-entry shared hash table)
 MAX_ROWS = 1 << 26     # probe-slot bound of the TPU kernel's gate
 _PLAIN_CHUNK = 1 << 24  # compare cells per step of the plain version
@@ -91,18 +93,9 @@ def _fn(name: str):
     return entry("join_probe", name, _SIGNATURES[name])
 
 
-# (device index, stream) -> zeroed scratch: the dup word and the CTA
-# ticket, which the kernel's last CTA leaves zeroed for the next call
-_k4_scratch: dict = {}
-
-
-def _k4_scratch_for(dev, stream: int):
-    """K4's scratch on the CUDA stream `stream` (a handle) of dev."""
-    key = (dev.index, stream)
-    buf = _k4_scratch.get(key)
-    if buf is None:
-        buf = _k4_scratch[key] = torch.zeros(_fn("probe_tables_scratch_bytes")(), dtype=torch.uint8, device=dev)
-    return buf
+# the dup word and the CTA ticket, per device and stream; the kernel's
+# last CTA leaves them zeroed for the next call
+_k4_scratch = StreamScratch(lambda: _fn("probe_tables_scratch_bytes")())
 
 
 def _probe_tables_cuda(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
@@ -128,10 +121,10 @@ def _probe_tables_cuda(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
         st = torch.cuda.current_stream(dev).cuda_stream
         err = _fn("probe_tables_launch")(b_key_tbl.data_ptr(), b_slot_ok.data_ptr(), p_key_tbl.data_ptr(),
                                          p_slot_ok.data_ptr(), P, part_cap, probe_cap, bpos.data_ptr(),
-                                         dup.data_ptr(), _k4_scratch_for(dev, st).data_ptr(), st)
+                                         dup.data_ptr(), _k4_scratch.get(dev, st).data_ptr(), st)
     if err != 0:
         # a launch that failed may leave the scratch dirty: never reuse it
-        _k4_scratch.pop((dev.index, st), None)
+        _k4_scratch.drop(dev, st)
         raise RuntimeError(f"probe_tables kernel launch failed (CUDA error {err})")
     probe_tables.launches += 1
     return bpos, dup

@@ -10,7 +10,7 @@ Replaces the Pallas kernels of tidb_tpu/ops/joinscan.py:
     join-row total;
   * K3 `membership_segscan` (:344, pallas_call at :365): per element, an
     outer (odd) real row whose key run starts with a usable inner row, plus
-    the overflow flag.
+    the overflow flag (duplicate usable inner keys, or any bad bit).
 The kernels are csrc/joinscan.cu (CUDA C++ for sm_90a, bound with ctypes);
 their design notes are there. The TPU kernel's 12/12/8-bit limbs, its
 0x80000000 bias and its run-length cap (_RUN_CAP, a limb-carry bound) are
@@ -24,7 +24,9 @@ of the (unsorted) bad lane. join_rows counts every real probe row.
 
 `postsort_segscan` and `membership_segscan` launch the kernels for CUDA
 tensors and run the plain torch versions only for CPU tensors; on CUDA
-they launch or raise. `.launches` on each counts kernel launches.
+they launch or raise, and a call is that one launch and no other device
+operation (each keeps a zeroed scratch per device and stream). `.launches`
+on each counts kernel launches.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from ..kernels import StreamScratch
 
 PIN = (1 << 31) - 4    # joinagg._PIN_HAY: pk >= PIN is an unusable row
 _PREV0 = -(1 << 31)    # "previous pk" of element 0: below every real pk
@@ -102,7 +106,9 @@ _SIGNATURES = {
     "postsort_segscan_scratch_bytes": (_i64, [_i64]),
     "postsort_segscan_launch": (_i32, [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i64, _vp, _vp, _vp,
                                        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
-    "membership_segscan_launch": (_i32, [_vp, _vp, _i64, _vp, _vp, _vp]),
+    "membership_segscan_tile": (_i32, []),
+    "membership_segscan_scratch_bytes": (_i64, []),
+    "membership_segscan_launch": (_i32, [_vp, _vp, _i64, _vp, _vp, _vp, _vp]),
 }
 
 
@@ -213,8 +219,16 @@ def _membership_segscan_plain(spk, bad_lane):
     return ok_out, torch.any(dup) | torch.any(bad_lane != 0)
 
 
+K3_TILE = 2048  # csrc/joinscan.cu K3_TILE: the rows of one K3 CTA
+# the CTA ticket (count and flag), per device and stream; the kernel's
+# last CTA leaves it zeroed for the next call
+_k3_scratch = StreamScratch(lambda: _fn("membership_segscan_scratch_bytes")())
+
+
 def _membership_segscan_cuda(spk, bad_lane):
-    from ..kernels import check, ptr, stream
+    """One launch of the kernel and no other device operation: it writes
+    ok_out and the overflow flag in full, so both are allocated empty."""
+    from ..kernels import check
 
     n = spk.shape[0]
     if not 1 <= n < (1 << 31):
@@ -223,18 +237,25 @@ def _membership_segscan_cuda(spk, bad_lane):
     check(bad_lane, (n,), (torch.bool, torch.uint8), "bad_lane")
     dev = spk.device
     ok_out = torch.empty(n, dtype=torch.bool, device=dev)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        err = _fn("membership_segscan_launch")(ptr(spk), ptr(bad_lane), n, ptr(ok_out), ptr(flag), stream(dev))
+        st = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn("membership_segscan_launch")(spk.data_ptr(), bad_lane.data_ptr(), n, ok_out.data_ptr(),
+                                               overflow.data_ptr(), _k3_scratch.get(dev, st).data_ptr(), st)
     if err != 0:
+        # a launch that failed may leave the scratch dirty: never reuse it
+        _k3_scratch.drop(dev, st)
         raise RuntimeError(f"membership_segscan kernel launch failed (CUDA error {err})")
     membership_segscan.launches += 1
-    return ok_out, flag[0] != 0
+    return ok_out, overflow
 
 
 def membership_segscan(spk, bad_lane):
     """K3 (see _membership_segscan_plain for the contract): the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors. spk int32 [n]
+    sorted, as membership_lanes gives it (the kernel finds the start of a
+    run longer than 32 rows by a search that relies on the order); bad_lane
+    bool [n]."""
     if spk.device.type == "cuda":
         return _membership_segscan_cuda(spk, bad_lane)
     if spk.device.type == "cpu":

@@ -54,6 +54,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      (2^22 probe rows, 2^17 build rows) uniform scalar, uniform grouped by
      the build payload (700 groups) and skewed (40% on one key: the escape
      hatch and one ladder retry) — K4 must launch on the uniform cases;
+     then the order-dependent executors, each against an exact numpy
+     order: TopN (ORDER BY price DESC, shipdate LIMIT 100, BASELINE config
+     4) at 2^22 rows, one program on the sampled fast path, and at 2^26
+     rows; a TopN whose prices are all equal (the sampled threshold
+     misses, drive_program_info rebuilds the program as the full sort: two
+     compiles); LIMIT 4096 (above FAST_K_LIMIT: the direct full sort);
+     the full Sort of 2^22 rows; and the window DAG (PARTITION BY
+     l_orderkey ORDER BY price DESC, shipdate: row_number, rank,
+     dense_rank, sum, count, max, lag, first_value) at 2^22 lineitem rows;
   5. time each kernel beside its bound — its device time per call from
      torch.profiler over 10 calls, the median CUDA-event time of a
      wrapper call (>= 10 runs) and its host time (100 calls back to
@@ -81,6 +90,8 @@ import sys
 import time
 
 N_ROWS = 1 << 22
+TOPN_BIG_ROWS = 1 << 26        # BASELINE's "100M rows", the power of two below it
+TOPN_K = 100
 G = 16
 REPS = 10
 JOIN_RATIO = 32
@@ -436,6 +447,80 @@ def decoded_join(chunk, grouped: bool):
     if grouped:
         return {int(cols[2].data[j]): (int(cols[0].data[j]), int(cols[1].data[j])) for j in range(chunk.num_rows())}
     return {None: (int(cols[0].data[0]), int(cols[1].data[0]))}
+
+
+def numpy_order(price, ship, k=None):
+    """Row indices in ORDER BY price DESC, shipdate order, ties by row
+    index (np.lexsort is stable); with k, the first k, from the rows at or
+    above the k-th largest price (no full sort of every row)."""
+    import numpy as np
+
+    if k is None:
+        return np.lexsort((ship, -price))
+    k = min(k, len(price))
+    thr = np.partition(price, len(price) - k)[len(price) - k]
+    cand = np.nonzero(price >= thr)[0]
+    return cand[np.lexsort((ship[cand], -price[cand]))][:k]
+
+
+def check_rows(name, chunk, want_idx, price, ship):
+    """The decoded (price, shipdate) rows equal the numpy order's, row for
+    row."""
+    import numpy as np
+
+    if chunk.num_rows() != len(want_idx):
+        raise SystemExit(f"{name}: {chunk.num_rows()} rows, numpy {len(want_idx)}")
+    got_p, got_s = chunk.columns[0], chunk.columns[1]
+    if got_p.null.any() or got_s.null.any():
+        raise SystemExit(f"{name}: NULLs in a NOT NULL result")
+    bad = np.nonzero((got_p.data != price[want_idx]) | (got_s.data.view(np.int64) != ship[want_idx]))[0]
+    if len(bad):
+        raise SystemExit(f"{name}: row {bad[0]} differs from numpy (port price {got_p.data[bad[0]]}, "
+                         f"numpy {price[want_idx[bad[0]]]})")
+
+
+def numpy_window(cols):
+    """The window DAG's eight columns in input row order: PARTITION BY okey
+    ORDER BY price DESC, shipdate (ties by row index) with row_number,
+    rank, dense_rank, sum(price), count(*), max(disc), lag(price, 1) and
+    first_value(price) over MySQL's default frame (up to the last peer).
+    Returns ([values], [null masks])."""
+    import numpy as np
+
+    okey, price, disc, ship = (c[0] for c in cols)
+    n = len(okey)
+    order = np.lexsort((np.arange(n), ship, -price, okey))
+    ok, p, d, s = okey[order], price[order], disc[order], ship[order]
+    ar = np.arange(n)
+    new_part = np.ones(n, bool)
+    new_part[1:] = ok[1:] != ok[:-1]
+    new_peer = new_part.copy()
+    new_peer[1:] |= (p[1:] != p[:-1]) | (s[1:] != s[:-1])
+
+    def first_of(flags):
+        return np.maximum.accumulate(np.where(flags, ar, 0))
+
+    def last_of(flags):
+        is_last = np.ones(n, bool)
+        is_last[:-1] = flags[1:]
+        return np.minimum.accumulate(np.where(is_last, ar, n)[::-1])[::-1]
+
+    start, peer_start, peer_end = first_of(new_part), first_of(new_peer), last_of(new_peer)
+    dense = np.cumsum(new_peer)
+    csum = np.cumsum(p)
+    run_sum = csum[peer_end] - (csum[start] - p[start])
+    part_id = np.cumsum(new_part)
+    run_max = np.maximum.accumulate(part_id * 64 + d) - part_id * 64  # disc is 0..10
+    sorted_vals = [ar - start + 1, peer_start - start + 1, dense - dense[start] + 1, run_sum,
+                   peer_end - start + 1, run_max[peer_end], np.where(new_part, 0, np.roll(p, 1)), p[start]]
+    sorted_nulls = [np.zeros(n, bool)] * 6 + [new_part, np.zeros(n, bool)]
+    vals, nulls = [], []
+    for v, nl in zip(sorted_vals, sorted_nulls):
+        out_v, out_n = np.empty(n, np.int64), np.empty(n, bool)
+        out_v[order], out_n[order] = v, nl
+        vals.append(out_v)
+        nulls.append(out_n)
+    return vals, nulls
 
 
 def profile_path(name, fn, wall_ms: float, top: int = 12):
@@ -930,6 +1015,89 @@ def main() -> int:
     if radix["join 1:32 uniform"]["strategy"] != "kernel" or radix["join 1:32 skewed"]["escapes"] < 1:
         raise SystemExit(f"radix attribution unexpected: {radix}")
 
+    # the order-dependent executors: TopN (BASELINE config 4), its
+    # full-sort retry, LIMIT above FAST_K_LIMIT, Sort and Window
+    tn_dag, tn_fts = W.topn_dag(E, X, T, limit=TOPN_K)
+    tn_batch = device_batch_from_numpy(W.topn_columns(t), np.ones(n, bool), n, tn_fts, device=dev)
+    tn_cache = ProgramCache()
+
+    def run_topn():
+        return drive_program_info(tn_cache, tn_dag, tn_batch, 64)
+
+    chunk, _, _ = counters.path("TopN", run_topn)
+    check_rows("TopN", chunk, numpy_order(t["price"], t["shipdate"], TOPN_K), t["price"], t["shipdate"])
+    if tn_cache.stats()["compiles"] != 1:
+        raise SystemExit(f"TopN built {tn_cache.stats()['compiles']} programs; the fast path should hold")
+    log(f"phase 4 TopN at {n} rows: the first {TOPN_K} rows == numpy, one program (the sampled fast path)")
+
+    nb = TOPN_BIG_ROWS
+    big_t = W.make_tables(nb, seed=0)
+    big_price, big_ship = big_t["price"], big_t["shipdate"]
+    del big_t
+    big_batch = device_batch_from_numpy(W.topn_columns({"price": big_price, "shipdate": big_ship}),
+                                        np.ones(nb, bool), nb, tn_fts, device=dev)
+
+    def run_topn_big():
+        return drive_program_info(tn_cache, tn_dag, big_batch, 64)
+
+    chunk, _, _ = counters.path("TopN 2^26", run_topn_big)
+    check_rows("TopN 2^26", chunk, numpy_order(big_price, big_ship, TOPN_K), big_price, big_ship)
+    log(f"phase 4 TopN at {nb} rows: the first {TOPN_K} rows == numpy")
+    del big_price, big_ship
+
+    tie_price = np.full(n, 123456, np.int64)
+    tie_batch = device_batch_from_numpy(W.topn_columns({"price": tie_price, "shipdate": t["shipdate"]}),
+                                        np.ones(n, bool), n, tn_fts, device=dev)
+    tie_cache = ProgramCache()
+
+    def run_topn_tie():
+        return drive_program_info(tie_cache, tn_dag, tie_batch, 64)
+
+    chunk, _, _ = counters.path("TopN, every price equal", run_topn_tie)
+    check_rows("TopN, every price equal", chunk, numpy_order(tie_price, t["shipdate"], TOPN_K), tie_price, t["shipdate"])
+    if tie_cache.stats()["compiles"] != 2:
+        raise SystemExit(f"the tie-heavy TopN built {tie_cache.stats()['compiles']} programs, not 2 (sampled, full sort)")
+    log(f"phase 4 TopN at {n} rows, every price equal: == numpy through the full-sort retry (2 programs)")
+
+    k4k_dag, _ = W.topn_dag(E, X, T, limit=4096)
+
+    def run_topn_4096():
+        return drive_program_info(tn_cache, k4k_dag, tn_batch, 64)
+
+    chunk, _, _ = counters.path("TopN k = 4096", run_topn_4096)
+    check_rows("TopN k = 4096", chunk, numpy_order(t["price"], t["shipdate"], 4096), t["price"], t["shipdate"])
+    log(f"phase 4 TopN k = 4096 at {n} rows: == numpy (the direct full sort)")
+
+    sort_dag, _ = W.sort_dag(E, X, T)
+
+    def run_sort():
+        return drive_program_info(tn_cache, sort_dag, tn_batch, 64)
+
+    chunk, _, _ = counters.path("Sort", run_sort)
+    check_rows("Sort", chunk, numpy_order(t["price"], t["shipdate"]), t["price"], t["shipdate"])
+    log(f"phase 4 Sort at {n} rows: every row == numpy, in order")
+
+    win_dag, win_fts = W.window_dag(E, X, T)
+    win_cols = q3_cols[0]
+    win_batch = device_batch_from_numpy(win_cols, np.ones(n, bool), n, win_fts, device=dev)
+
+    def run_window():
+        return drive_program_info(cache, win_dag, win_batch, 64)
+
+    chunk, _, _ = counters.path("Window", run_window)
+    want_v, want_n = numpy_window(win_cols)
+    if chunk.num_rows() != n:
+        raise SystemExit(f"Window: {chunk.num_rows()} rows, numpy {n}")
+    for i, (c, (d, _null, _len)) in enumerate(zip(chunk.columns[:4], win_cols)):
+        if not (np.array_equal(c.data.view(np.int64), d) and not c.null.any()):
+            raise SystemExit(f"Window: input column {i} did not pass through")
+    names = ("row_number", "rank", "dense_rank", "sum(price)", "count(*)", "max(disc)", "lag(price)", "first_value(price)")
+    for nm, c, wv, wn in zip(names, chunk.columns[4:], want_v, want_n):
+        if not np.array_equal(c.null, wn) or not np.array_equal(np.where(wn, 0, c.data.view(np.int64)), np.where(wn, 0, wv)):
+            bad = np.nonzero((c.null != wn) | ((c.data.view(np.int64) != wv) & ~wn))[0][:5]
+            raise SystemExit(f"Window {nm} differs from numpy at rows {bad.tolist()}")
+    log(f"phase 4 Window at {n} lineitem rows: the 8 window columns == numpy (exact; none is real-valued)")
+
     # phase 5: times (the timing launches are not the main paths')
     main_launches = dict(counters.main)
     timing = {}
@@ -992,6 +1160,11 @@ def main() -> int:
     for name, (dag, batches, _c, _g, gcap, _n) in join_cases.items():
         paths[name] = ((lambda d=dag, b=batches, g=gcap: drive_program_info(cache, d, b, g)),
                        sum(int(x.n_rows) for x in batches))
+    paths.update({
+        "TopN": (run_topn, n), "TopN 2^26": (run_topn_big, nb),
+        "TopN, every price equal (retry)": (run_topn_tie, n), "TopN k = 4096": (run_topn_4096, n),
+        "Sort": (run_sort, n), "Window": (run_window, n),
+    })
     wall = {}
     for name, (fn, rows) in paths.items():
         ms = host_median_ms(fn)

@@ -51,6 +51,7 @@ def test_import_leaves_jax_unloaded():
         "import tidb_tpu_torch.interop, tidb_tpu_torch.workloads, tidb_tpu_torch.kernels\n"
         "import tidb_tpu_torch.ops.join, tidb_tpu_torch.ops.joinagg, tidb_tpu_torch.ops.joinscan\n"
         "import tidb_tpu_torch.ops.join_probe, tidb_tpu_torch.ops.radix_join\n"
+        "import tidb_tpu_torch.ops.topn, tidb_tpu_torch.ops.window\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )

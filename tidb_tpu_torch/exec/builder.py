@@ -9,14 +9,16 @@ over eager ops with the same signature and outputs:
                           ex_rows)
 
 Ported executors: TableScan / IndexScan, Selection, Projection, Limit,
-Aggregation (scalar and GROUP BY) and Join (inner / left_outer / semi /
-anti), with the JAX package's join routes: the packed join+group chain
-(ops/joinagg.py, TPC-H Q3's shape), the fused one-sort join + stream
-aggregation, the radix-partitioned join (ops/radix_join.py) and the general
-sort-merge kernel (ops/join.py). TopN, Sort and Window raise
-NotImplementedError. There is no vmapped (region-batched) and no mesh
-variant. Programs cache by (DAG fingerprint, capacities, knobs, device,
-kernel route), with a single-flight miss so racing threads build once.
+TopN, Sort, Window, Aggregation (scalar and GROUP BY) and Join (inner /
+left_outer / semi / anti), with the JAX package's join routes: the packed
+join+group chain (ops/joinagg.py, TPC-H Q3's shape), the fused one-sort
+join + stream aggregation, the radix-partitioned join (ops/radix_join.py)
+and the general sort-merge kernel (ops/join.py). TopN takes the sampled
+threshold path (ops/topn.py) and sets its overflow flag when the check
+fails; topn_full=True builds the exact full-sort variant that
+drive_program_info retries with. There is no vmapped (region-batched) and no mesh variant.
+Programs cache by (DAG fingerprint, capacities, knobs, device, kernel
+route), with a single-flight miss so racing threads build once.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from ..expr.compile import CompVal, ExprCompiler, normalize_device_column
 from ..ops import apply_selection, group_aggregate, scalar_aggregate
 from ..ops.aggregate import GatherState, finalize_agg
 from ..ops.join import hash_join
+from ..ops.topn import sort_all, topn
+from ..ops.window import window_cols
 from ..types import FieldType
 from .dag import Aggregation, DAGRequest, IndexScan, Join, Limit, Projection, Selection, Sort, TableScan, TopN, Window, collect_scans
 
@@ -66,11 +70,13 @@ class _TraceState:
     Group and join overflow are SEPARATE flags so the retry driver grows
     only the capacity that overflowed. The NEED hints (exec/ladder.py) ride
     next to them: the true group count / join fan-out when a kernel knows
-    it. TopN is not ported, so its flag is constant."""
+    it. TopN's flag says its sampled threshold missed (the retry rebuilds
+    with the full sort)."""
 
     def __init__(self, device):
         self.group_overflow = torch.zeros((), dtype=torch.bool, device=device)
         self.join_overflow = torch.zeros((), dtype=torch.bool, device=device)
+        self.topn_overflow = torch.zeros((), dtype=torch.bool, device=device)
         self.group_need = torch.zeros((), dtype=torch.int64, device=device)
         self.join_need = torch.zeros((), dtype=torch.int64, device=device)
         self.radix_escapes = torch.zeros((), dtype=torch.int64, device=device)
@@ -175,7 +181,8 @@ def _split_aggs(aggs, avals):
 
 
 def _run_pipeline(executors, batches, cursor, group_capacity, join_capacity, state: _TraceState,
-                  small_groups: int | None = None, unique_joins: bool = True, out_offsets=None):
+                  topn_full: bool = False, small_groups: int | None = None, unique_joins: bool = True,
+                  out_offsets=None):
     """Run one executor pipeline; recursion handles Join build sides.
     Batches are consumed in canonical scan order (dag.collect_scans);
     `cursor` is the index of the next one."""
@@ -202,21 +209,44 @@ def _run_pipeline(executors, batches, cursor, group_capacity, join_capacity, sta
         elif isinstance(ex, Limit):
             keep = torch.cumsum(valid.to(torch.int64), 0) <= ex.limit
             valid = valid & keep
-        elif isinstance(ex, (TopN, Sort, Window)):
-            raise NotImplementedError(f"{type(ex).__name__} not on device in this port")
+        elif isinstance(ex, TopN):
+            order_vals = comp.run([e for e, _ in ex.order_by], cols)
+            by = list(zip(order_vals, [d for _, d in ex.order_by]))
+            idx, out_valid, t_ovf = topn(by, valid, ex.limit, full_sort=topn_full)
+            state.topn_overflow = state.topn_overflow | t_ovf
+            cols = _gather(cols, idx)
+            valid = out_valid
+        elif isinstance(ex, Sort):
+            order_vals = comp.run([e for e, _ in ex.order_by], cols)
+            by = list(zip(order_vals, [d for _, d in ex.order_by]))
+            idx, out_valid = sort_all(by, valid)
+            cols = _gather(cols, idx)
+            valid = out_valid
+        elif isinstance(ex, Window):
+            part_vals = comp.run(list(ex.partition_by), cols) if ex.partition_by else []
+            order_vals = comp.run([e for e, _ in ex.order_by], cols) if ex.order_by else []
+            order_pairs = list(zip(order_vals, [d for _, d in ex.order_by]))
+            funcs = []
+            for w in ex.funcs:
+                argv = comp.run(list(w.args), cols) if w.args else []
+                if w.default is not None:
+                    argv = argv + comp.run([w.default], cols)
+                funcs.append((w, argv))
+            cols = cols + window_cols(part_vals, order_pairs, funcs, valid)
+            fts = fts + [w.ft for w in ex.funcs]
         elif isinstance(ex, Join):
             nxt = executors[ei + 1] if ei + 1 < len(executors) else None
             fused_ok = isinstance(nxt, Aggregation) and _joinagg_pattern(ex, nxt, len(fts), unique_joins)
             if fused_ok:
                 fused = _trace_packed_chain(ex, nxt, comp, cols, valid, batches, cursor, group_capacity,
-                                            join_capacity, state, small_groups, unique_joins)
+                                            join_capacity, state, topn_full, small_groups, unique_joins)
                 if fused is not None:
                     cols, valid, fts = fused
                     state.rows(valid)
                     ei += 2
                     continue
             bcols, bvalid, bfts = _run_pipeline(list(ex.build), batches, cursor, group_capacity, join_capacity,
-                                                state, small_groups, unique_joins)
+                                                state, topn_full, small_groups, unique_joins)
             bkeys = ExprCompiler(bfts, device=dev).run(list(ex.build_keys), bcols)
             pkeys = comp.run(list(ex.probe_keys), cols)
             _check_join_key_types(pkeys, bkeys)
@@ -383,7 +413,7 @@ def _int_expr(e) -> bool:
 
 
 def _trace_packed_chain(ex, agg, comp, cols, valid, batches, cursor, group_capacity, join_capacity,
-                        state: _TraceState, small_groups, unique_joins):
+                        state: _TraceState, topn_full, small_groups, unique_joins):
     """The packed-int path (ops/joinagg.py packed_join_groupsum): every
     eligibility check is static (expression FieldTypes) and comes before
     any batch is consumed, so returning None never consumes a scan twice."""
@@ -440,9 +470,9 @@ def _trace_packed_chain(ex, agg, comp, cols, valid, batches, cursor, group_capac
     if chain is not None:
         outer_execs, ij = chain
         ocols, ovalid, ofts = _run_pipeline(outer_execs, batches, cursor, group_capacity, join_capacity, state,
-                                            small_groups, unique_joins)
+                                            topn_full, small_groups, unique_joins)
         icols, ivalid, ifts = _run_pipeline(list(ij.build), batches, cursor, group_capacity, join_capacity, state,
-                                            small_groups, unique_joins)
+                                            topn_full, small_groups, unique_joins)
         ocomp, icomp = ExprCompiler(ofts, device=dev), ExprCompiler(ifts, device=dev)
         okey = ocomp.run([ij.probe_keys[0]], ocols)[0]
         ckey = icomp.run([ij.build_keys[0]], icols)[0]
@@ -454,7 +484,7 @@ def _trace_packed_chain(ex, agg, comp, cols, valid, batches, cursor, group_capac
         state.rows(hay_ok)  # inner join rows
     else:
         bcols, bvalid, bfts = _run_pipeline(list(ex.build), batches, cursor, group_capacity, join_capacity, state,
-                                            small_groups, unique_joins)
+                                            topn_full, small_groups, unique_joins)
         bkv = ExprCompiler(bfts, device=dev).run([bk_e], bcols)[0]
         hay_key = bkv.value
         hay_ok = bvalid & ~bkv.null
@@ -544,14 +574,17 @@ def build_program(
     capacities,
     group_capacity: int = DEFAULT_GROUP_CAPACITY,
     join_capacity: int | None = None,
+    topn_full: bool = False,
     small_groups: int | None = None,
     unique_joins: bool = True,
     radix_joins: bool = True,
 ) -> CompiledDAG:
     """The whole DAG (probe pipeline and every join build pipeline) as one
-    closure over a tuple of device batches. unique_joins=False ignores the
-    planner's unique-build hints and radix_joins=False the radix path: the
-    join-overflow retry drops both and lands on the general kernel."""
+    closure over a tuple of device batches. topn_full=True runs every TopN
+    as the exact full sort (the TopN-overflow retry). unique_joins=False
+    ignores the planner's unique-build hints and radix_joins=False the
+    radix path: the join-overflow retry drops both and lands on the general
+    kernel."""
     if isinstance(capacities, int):
         capacities = (capacities,)
     capacities = tuple(capacities)
@@ -565,14 +598,13 @@ def build_program(
         state = _TraceState(dev)
         state.radix_joins = radix_joins
         cols, valid, _ = _run_pipeline(dag.executors, batches, [0], group_capacity, join_capacity, state,
-                                       small_groups, unique_joins, out_offsets=dag.output_offsets)
+                                       topn_full, small_groups, unique_joins, out_offsets=dag.output_offsets)
         packed = _pack_cols([cols[i] for i in dag.output_offsets])
         n_out = valid.sum()
         radix_info.update(state.radix_meta)
-        no = torch.zeros((), dtype=torch.bool, device=dev)
         # (group, join, topn overflow, group need, join need, radix escapes)
-        ovfs = (state.group_overflow, state.join_overflow, no, state.group_need, state.join_need,
-                state.radix_escapes)
+        ovfs = (state.group_overflow, state.join_overflow, state.topn_overflow, state.group_need,
+                state.join_need, state.radix_escapes)
         return packed, valid, n_out, ovfs, torch.stack(state.ex_rows)
 
     return CompiledDAG(program, dag.output_fts(), capacities, group_capacity, join_capacity, radix_info)
@@ -587,11 +619,12 @@ def kernel_route(device) -> str:
 class ProgramCache:
     """Fingerprint -> CompiledDAG (ref: coprocessor cache keying).
 
-    The key is the JAX package's (builder.py:900) less the TopN, region
-    batch and mesh knobs this port has no executors for, with the device
-    and the kernel route in place of the pallas mode. Builds are
-    single-flight per key: the first thread to miss claims the key, racers
-    wait on its event and land as hits."""
+    The key is the JAX package's (builder.py:900) less the region batch
+    and mesh knobs this port has no programs for, with the device and the
+    kernel route in place of the pallas mode; topn_full keeps its place
+    after the join capacity. Builds are single-flight per key: the first
+    thread to miss claims the key, racers wait on its event and land as
+    hits."""
 
     def __init__(self):
         self._cache: dict = {}
@@ -601,13 +634,13 @@ class ProgramCache:
         self._inflight: dict = {}  # key -> Event, guarded_by: _stats_mu
 
     def get(self, dag: DAGRequest, capacities, group_capacity: int = DEFAULT_GROUP_CAPACITY,
-            join_capacity: int | None = None, small_groups: int | None = None,
+            join_capacity: int | None = None, topn_full: bool = False, small_groups: int | None = None,
             device="cuda", unique_joins: bool = True, radix_joins: bool = True) -> CompiledDAG:
-        return self.get_info(dag, capacities, group_capacity, join_capacity, small_groups, device,
-                             unique_joins, radix_joins)[0]
+        return self.get_info(dag, capacities, group_capacity, join_capacity, topn_full, small_groups,
+                             device, unique_joins, radix_joins)[0]
 
     def get_info(self, dag: DAGRequest, capacities, group_capacity: int = DEFAULT_GROUP_CAPACITY,
-                 join_capacity: int | None = None, small_groups: int | None = None,
+                 join_capacity: int | None = None, topn_full: bool = False, small_groups: int | None = None,
                  device="cuda", unique_joins: bool = True, radix_joins: bool = True) -> tuple:
         """(program, cache_hit, build_ns)."""
         import time as _t
@@ -616,7 +649,7 @@ class ProgramCache:
             capacities = (capacities,)
         capacities = tuple(capacities)
         dev = str(torch.device(device))
-        key = (dag.fingerprint(), capacities, group_capacity, join_capacity, small_groups,
+        key = (dag.fingerprint(), capacities, group_capacity, join_capacity, topn_full, small_groups,
                unique_joins, radix_joins, dev, kernel_route(dev))
         while True:
             prog = self._cache.get(key)
@@ -636,7 +669,7 @@ class ProgramCache:
             with self._stats_mu:
                 self.compiles += 1
             t0 = _t.perf_counter_ns()
-            prog = build_program(dag, capacities, group_capacity, join_capacity, small_groups,
+            prog = build_program(dag, capacities, group_capacity, join_capacity, topn_full, small_groups,
                                  unique_joins, radix_joins)
             build_ns = _t.perf_counter_ns() - t0
             self._cache[key] = prog

@@ -3,8 +3,9 @@
 run_dag_on_chunk(s): pad host Chunks into DeviceBatches, run the program,
 decode outputs back to a host Chunk. drive_program_info handles the
 overflow contract: on overflow it retries on the capacity ladder
-(exec/ladder.py), drops a wrong small-G hint, and drops the unique-build
-and radix join hints when no rung can clear a join overflow. There is no
+(exec/ladder.py), drops a wrong small-G hint, drops the unique-build and
+radix join hints when no rung can clear a join overflow, and rebuilds a
+TopN whose sampled threshold missed as the exact full sort. There is no
 spill and no row-at-a-time oracle in this port: exhausted retries raise
 OverflowRetryError, and host-only operators raise NotImplementedError.
 """
@@ -119,19 +120,22 @@ def drive_program_info(cache: ProgramCache, dag: DAGRequest, batches, group_capa
     whether the one-pass kernel ran, so doing both never wastes a retry. A
     join overflow that no rung can clear (a violated unique-build hint, a
     hash collision) drops the unique-build and radix hints, so the retry
-    lands on the general kernel (ops/join.py)."""
+    lands on the general kernel (ops/join.py). A TopN overflow (its sampled
+    threshold missed) rebuilds with topn_full=True, the exact full sort."""
     if not isinstance(batches, (list, tuple)):
         batches = [batches]
     device = batches[0].row_valid.device
     caps = tuple(b.capacity for b in batches)
     gc = rung_for(group_capacity)
     jc = rung_for(join_capacity or max(caps))
+    tf = False
     smg = small_groups
     uj = True
     rj = True
     info = {"cache_hit": True, "compile_ns": 0}
     for _ in range(max_retries + 1):
-        prog, hit, build_ns = cache.get_info(dag, caps, gc, jc, smg, device=device, unique_joins=uj, radix_joins=rj)
+        prog, hit, build_ns = cache.get_info(dag, caps, gc, jc, tf, smg, device=device, unique_joins=uj,
+                                             radix_joins=rj)
         t0 = time.perf_counter_ns()
         packed, valid, n, (g_ovf, j_ovf, t_ovf, g_need, j_need, radix_esc), ex_rows = prog.fn(*batches)
         g_ovf, j_ovf, t_ovf = bool(g_ovf), bool(j_ovf), bool(t_ovf)
@@ -148,6 +152,8 @@ def drive_program_info(cache: ProgramCache, dag: DAGRequest, batches, group_capa
         if drop:
             uj = False
             rj = False
+        if t_ovf:
+            tf = True  # TopN candidate overflow: the exact full-sort variant
     raise OverflowRetryError("DAG overflow not resolved after retries")
 
 

@@ -300,9 +300,11 @@ def group_aggregate(
     small_groups: statistics-driven hint (planner NDV product) — with a
     hint <= 32 and an eligible agg mix the one-pass kernel runs; its
     overflow flag routes the driver back here.
-    stream: input pre-sorted on the group keys; the sort path gives the
-    same rows (the stream kernel is not ported)."""
+    stream: input pre-sorted on the group keys (planner-proven, e.g. below
+    a Sort): the boundary-scan stream kernel runs, no sort and no hash."""
     _check_supported(aggs, merge)
+    if stream and group_bys and not any(d.distinct for d, _ in aggs):
+        return _group_aggregate_stream(group_bys, aggs, row_valid, group_capacity, merge)
     if small_groups and group_bys and small_groups <= 32:
         from .dense_agg import dense_agg_eligible, group_aggregate_dense
 

@@ -1,7 +1,8 @@
-"""TPC-H-shaped coprocessor workloads: the Q6, Q1, scalar-agg and Q3 DAGs,
-the join bench's lineitem x orders DAG, and their generated columns (the
-builders of the JAX package's bench.py, with its random draws in its order,
-so both packages get identical batches).
+"""TPC-H-shaped coprocessor workloads: the Q6, Q1, scalar-agg, TopN and Q3
+DAGs, the join bench's lineitem x orders DAG, a full Sort and a window DAG
+over lineitem, and their generated columns (the DAG makers of the JAX
+package's bench.py, with its random draws in its order, so both packages
+get identical batches).
 
 Each DAG builder takes the package's `exec`, `expr` and `types` modules as
 arguments, so one definition builds the same DAG in this port and in the
@@ -144,6 +145,34 @@ def q1_columns(t: dict) -> list:
             fixed_col(t["qty"]), fixed_col(t["price"]), fixed_col(t["disc"]), fixed_col(t["shipdate"])]
 
 
+def _order_by(expr_mod, types_mod):
+    """ORDER BY price DESC, shipdate over a (price D15, shipdate DT) scan."""
+    D15, DT = types_mod.new_decimal(15, 2), types_mod.new_datetime()
+    return ((expr_mod.col(0, D15), True), (expr_mod.col(1, DT), False)), [D15, DT]
+
+
+def topn_dag(exec_mod, expr_mod, types_mod, limit: int = 100):
+    """bench.py's topn config (BASELINE config 4): SELECT price, shipdate
+    ORDER BY price DESC, shipdate LIMIT 100, the TopN executor."""
+    E = exec_mod
+    order_by, fts = _order_by(expr_mod, types_mod)
+    scan = E.TableScan(1, tuple(E.ColumnInfo(i + 1, ft) for i, ft in enumerate(fts)))
+    return E.DAGRequest((scan, E.TopN(order_by=order_by, limit=limit)), output_offsets=(0, 1)), fts
+
+
+def topn_columns(t: dict) -> list:
+    return [fixed_col(t["price"]), fixed_col(t["shipdate"])]
+
+
+def sort_dag(exec_mod, expr_mod, types_mod):
+    """topn_dag's keys with no limit: the Sort executor, every row back in
+    ORDER BY order."""
+    E = exec_mod
+    order_by, fts = _order_by(expr_mod, types_mod)
+    scan = E.TableScan(1, tuple(E.ColumnInfo(i + 1, ft) for i, ft in enumerate(fts)))
+    return E.DAGRequest((scan, E.Sort(order_by=order_by)), output_offsets=(0, 1)), fts
+
+
 def _notnull(types_mod, ft):
     f = ft.clone()
     f.flag |= types_mod.Flag.NotNull
@@ -237,3 +266,31 @@ def join_bench_columns(n: int, ratio: int, skewed: bool, groups: int | None = No
     payload = rng.integers(0, groups or 64, nb).astype(np.int64)
     return [[fixed_col(okey), fixed_col(v)],
             [fixed_col(np.arange(nb, dtype=np.int64)), fixed_col(payload)]]
+
+
+def window_dag(exec_mod, expr_mod, types_mod):
+    """Ranking lines within an order (the top-N-per-group shape of TPC-DS's
+    rank() OVER queries) over Q3's lineitem columns (okey, price, disc,
+    shipdate; q3_columns(n)[0]): PARTITION BY okey ORDER BY price DESC,
+    shipdate with row_number, rank, dense_rank, sum(price), count(*),
+    max(disc), lag(price, 1) and first_value(price). Output: the four
+    input columns, then the eight window columns."""
+    T, E, X = types_mod, exec_mod, expr_mod
+    LL = T.new_longlong(notnull=True)
+    D15, DT = _notnull(T, T.new_decimal(15, 2)), _notnull(T, T.new_datetime())
+    fts = [LL, D15, D15, DT]
+    scan = E.TableScan(1, tuple(E.ColumnInfo(i + 1, ft) for i, ft in enumerate(fts)))
+    okey, price, disc, ship = (X.col(i, ft) for i, ft in enumerate(fts))
+    WinDesc = E.dag.WinDesc
+    funcs = (
+        WinDesc("row_number", (), LL),
+        WinDesc("rank", (), LL),
+        WinDesc("dense_rank", (), LL),
+        WinDesc("sum", (price,), X.AggDesc("sum", (price,)).ft),
+        WinDesc("count", (), LL),
+        WinDesc("max", (disc,), D15.clone_nullable()),
+        WinDesc("lag", (price,), D15.clone_nullable(), 1),
+        WinDesc("first_value", (price,), D15.clone_nullable()),
+    )
+    win = E.dag.Window(partition_by=(okey,), order_by=((price, True), (ship, False)), funcs=funcs)
+    return E.DAGRequest((scan, win), output_offsets=tuple(range(len(fts) + len(funcs)))), fts

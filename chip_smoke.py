@@ -73,11 +73,26 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      device copy that moves K3's bytes, timed as K3 is), and
      each path end to end (host clock around a synchronised run); with
      --profile, also one torch.profiler run of each path: device time by
-     kernel and the device's busy share.
+     kernel and the device's busy share;
+  6. the store's coprocessor endpoint (tidb_tpu_torch/store): load 2^21
+     rows of a 7-column lineitem table into a TPUStore on `cuda` (the
+     Python row encoder in 8 processes), split two 2^20-row regions,
+     require the native row decoder, and per region send Q6, Q1 (small-G
+     hint 16, K1 must launch), TopN, Q3 (orders and customer as aux
+     chunks; K2 and K3 must launch) and the join bench (orders as an aux
+     chunk) as wire bytes through coprocessor_bytes, each answer decoded
+     and held against numpy over the region's rows, with no oracle
+     fallback and no other_error; a paged Selection followed through its
+     cursors; a stale epoch (region_error); then time each DAG per region
+     cold (native decode, H2D and program build printed apart), warm
+     through coprocessor(req), warm through coprocessor_bytes (its build
+     sides decoded and uploaded again each call) and as a result-cache
+     hit; with --profile, also a profile of Q1 and Q3 through
+     coprocessor_bytes with the bytes copied each way.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without CUDA the script exits 2 and prints
-no result.
+The line before the last is the kernels' JSON record (launches summed over
+the main paths of phases 4 and 6); the last line is {"ok": true, "device":
+{...}}. Without CUDA the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -101,6 +116,19 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 SIMT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 I64_MAX = (1 << 63) - 1
 HAND_KERNELS = ("k1_kernel", "k2_scan", "k3_kernel", "probe_kernel")  # CUDA names of K1-K4
+# phase 6, the store: one lineitem table of STORE_ROWS rows in two regions
+# split at handle STORE_SPLIT (2^20 rows a region, TiKV's split size for
+# this schema); Q3's orders / customers and the join's orders as aux chunks
+STORE_ROWS = 1 << 21
+STORE_SPLIT = 1 << 20
+STORE_ORDERS = 1 << 19
+STORE_CUSTOMERS = 1 << 17
+STORE_JOIN_ORDERS = 1 << 17
+STORE_PAGE = 8192
+STORE_PAGED_ROWS = 1 << 16     # the paged request covers each region's first 2^16 rows
+STORE_LOAD_CHUNK = 1 << 18     # rows a load worker encodes at a time
+LOAD_WORKERS = 8
+COLD_REPS = 10
 # K3's operations a row for its bound, whatever the design: the key-run
 # test, inner, real, the duplicate test, the bad byte, the head and ok
 K3_OPS_PER_ROW = 8
@@ -523,16 +551,74 @@ def numpy_window(cols):
     return vals, nulls
 
 
-def profile_path(name, fn, wall_ms: float, top: int = 12):
+def copy_bytes(prof) -> dict:
+    """{"HtoD": bytes, "DtoH": bytes} over the memcpy records of a profile
+    (the trace's `bytes` argument); None for a direction the trace carries
+    no byte count for."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    out = {}
+    for ev in events:
+        nm = ev.get("name", "")
+        for way in ("HtoD", "DtoH"):
+            if nm.startswith("Memcpy " + way):
+                b = (ev.get("args") or {}).get("bytes")
+                out[way] = None if b is None or out.get(way, 0) is None else out.get(way, 0) + int(b)
+    return out
+
+
+class CountedCopies:
+    """Bytes a run moves between host and card, counted where the port
+    moves them: every DeviceBatch that `to_device_batch` uploads for the
+    store (H2D), and every card tensor that `decode_outputs` and the
+    executor's counts fetch through `exec.executor._np` (D2H). The
+    profiler's memcpy records can miss copies, so these are the counts."""
+
+    def __enter__(self):
+        import tidb_tpu_torch.exec.executor as X
+        import tidb_tpu_torch.store.store as S
+
+        self.moved = {"H2D": 0, "D2H": 0}
+        self._up, self._down = S.to_device_batch, X._np
+
+        def up(*a, **k):
+            b = self._up(*a, **k)
+            tensors = [b.row_valid, b.n_rows] + [x for c in b.cols for x in (c.data, c.null, c.length) if x is not None]
+            self.moved["H2D"] += sum(x.nbytes for x in tensors)
+            return b
+
+        def down(x):
+            if getattr(x, "device", None) is not None and x.device.type != "cpu":
+                self.moved["D2H"] += x.nbytes
+            return self._down(x)
+
+        S.to_device_batch, X._np = up, down
+        return self.moved
+
+    def __exit__(self, *exc):
+        import tidb_tpu_torch.exec.executor as X
+        import tidb_tpu_torch.store.store as S
+
+        S.to_device_batch, X._np = self._up, self._down
+        return False
+
+
+def profile_path(name, fn, wall_ms: float, top: int = 12, copies: bool = False):
     """One profiled run of fn: device time by kernel (torch.profiler), the
     `top` longest and every hand kernel, and the device's busy share of the
-    path's median wall time."""
+    path's median wall time; with `copies`, the bytes copied each way."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+    with CountedCopies() as moved, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                           acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
     rows = []
@@ -549,6 +635,10 @@ def profile_path(name, fn, wall_ms: float, top: int = 12):
     hand = [r for r in rows[top:] if any(k in r[2] for k in HAND_KERNELS)]
     for us, count, key in rows[:top] + hand:
         log(f"  {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    if copies:
+        cb = copy_bytes(prof)
+        log(f"  copies: H2D {moved['H2D']} B, D2H {moved['D2H']} B counted at the source; the trace's memcpy "
+            f"records hold H2D {cb.get('HtoD', 0)} B, D2H {cb.get('DtoH', 0)} B")
 
 
 class Counters:
@@ -561,6 +651,7 @@ class Counters:
         self.fns = {"dense_agg": dense_agg.dense_agg, "postsort_segscan": joinscan.postsort_segscan,
                     "membership_segscan": joinscan.membership_segscan, "probe_tables": join_probe.probe_tables}
         self.main = {k: 0 for k in self.fns}
+        self.last = {}  # the counts of the last path
 
     def zero(self):
         for f in self.fns.values():
@@ -569,7 +660,7 @@ class Counters:
     def read(self) -> dict:
         return {k: f.launches for k, f in self.fns.items()}
 
-    def path(self, name, fn, need=()):
+    def path(self, name, fn, need=(), phase: int = 4):
         """Run one main path with the counters zeroed; require a launch of
         each kernel in `need`; keep the counts for the record."""
         self.zero()
@@ -581,8 +672,233 @@ class Counters:
         for k, v in got.items():
             self.main[k] += v
         self.zero()
-        log(f"phase 4 {name}: launches {got}")
+        self.last = got
+        log(f"phase {phase} {name}: launches {got}")
         return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the store
+# ---------------------------------------------------------------------------
+
+_LOAD_TABLE = None
+
+
+def _load_init(n: int, n_orders: int):
+    """A load worker's copy of the table (the same seeded draws)."""
+    global _LOAD_TABLE
+    from tidb_tpu_torch import workloads as W
+
+    _LOAD_TABLE = W.store_lineitem(n, n_orders)
+
+
+def _load_encode(span):
+    """Rows lo..hi of the table as (row key, rowcodec value) pairs."""
+    from tidb_tpu_torch import codec, types, workloads as W
+
+    lo, hi = span
+    return W.store_items(codec, W.store_rows(types, _LOAD_TABLE, lo, hi))
+
+
+def load_store(store, n: int, n_orders: int):
+    """Encode the table's rows with the port's Python row encoder in
+    LOAD_WORKERS processes and bulk-ingest them at one commit ts; returns
+    (seconds, bytes of keys and values)."""
+    import multiprocessing as mp
+
+    spans = [(lo, min(lo + STORE_LOAD_CHUNK, n)) for lo in range(0, n, STORE_LOAD_CHUNK)]
+    ts = store.next_ts()
+    nbytes = 0
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(min(LOAD_WORKERS, len(spans)), initializer=_load_init,
+                                      initargs=(n, n_orders)) as pool:
+        for items in pool.imap(_load_encode, spans):
+            nbytes += sum(len(k) + len(v) for k, v in items)
+            store.bulk_ingest(items, ts)
+    return time.perf_counter() - t0, nbytes
+
+
+def store_phase(E, X, T, W, counters, dev, profile: bool) -> None:
+    """Phase 6: the port's TPUStore on the card. Load the lineitem table,
+    split it into two regions, answer each region's Q6, Q1 (small-G hint),
+    TopN, Q3 (orders and customer as aux chunks) and join-bench request as
+    wire bytes through coprocessor_bytes against numpy over the region's
+    rows, follow a paged Selection's cursor, check a stale epoch, then time
+    each DAG per region cold, warm through coprocessor(req), warm through
+    coprocessor_bytes, and as a result-cache hit."""
+    import numpy as np
+    import torch
+
+    import tidb_tpu_torch.chunk as C
+    from tidb_tpu_torch import codec, native
+    from tidb_tpu_torch.codec import wire
+    from tidb_tpu_torch.exec.builder import ProgramCache
+    from tidb_tpu_torch.exec.ladder import rung_for
+    from tidb_tpu_torch.ops.radix_join import probe_strategy, radix_plan
+    from tidb_tpu_torch.store import CopRequest, KeyRange, TPUStore
+
+    if not native.available():
+        raise SystemExit("phase 6: the native row decoder did not build")
+    n, tid = STORE_ROWS, W.LINEITEM_TABLE_ID
+    store = TPUStore(device=dev)
+    secs, nbytes = load_store(store, n, STORE_ORDERS)
+    log(f"phase 6 load: {n} rows ({nbytes} B of keys and rowcodec values, {nbytes / n:.1f} B a row) "
+        f"in {secs:.2f} s ({n / secs:.0f} rows/s, {LOAD_WORKERS} encoder processes)")
+    store.cluster.split(codec.encode_row_key(tid, STORE_SPLIT))
+    t = W.store_lineitem(n, STORE_ORDERS)
+    regions = [(r, lo, hi) for r, (lo, hi) in zip(store.cluster.regions(), [(0, STORE_SPLIT), (STORE_SPLIT, n)])]
+    table = [KeyRange(codec.record_prefix(tid), codec.record_prefix(tid + 1))]
+    dags = W.store_dags(E, X, T)
+    q3_build = W.store_q3_build_columns(STORE_ORDERS, STORE_CUSTOMERS)
+    join_build = W.store_join_build_columns(STORE_JOIN_ORDERS)
+    aux = {
+        "q3": [W.make_chunk(C, f, c) for c, f in zip(q3_build, dags["q3"][1])],
+        "join": [W.make_chunk(C, f, c) for c, f in zip(join_build, dags["join"][1])],
+    }
+    names = ("q6", "q1", "topn", "q3", "join")
+    need = {"q1": ("dense_agg",), "q3": ("postsort_segscan", "membership_segscan")}
+    avg_agg = next(e for e in dags["q1"][0].executors if isinstance(e, E.Aggregation)).aggs[3]
+    q1_shift = avg_agg.ft.decimal - avg_agg.partial_fts()[1].decimal
+    plan = radix_plan(STORE_JOIN_ORDERS, STORE_SPLIT, rung_for(STORE_SPLIT))
+    log(f"phase 6 join plan at a {STORE_SPLIT}-row region: {plan} (partitions, part_cap, probe_cap, esc_cap), "
+        f"strategy {probe_strategy(*plan[:3])}")
+
+    def request(name, region, ts, **kw):
+        return CopRequest(dags[name][0], table, ts, region.region_id, region.epoch, aux.get(name, []),
+                          small_groups=G if name == "q1" else None, **kw)
+
+    def over_wire(req):
+        return wire.decode_cop_response(store.coprocessor_bytes(wire.encode_cop_request(req)))
+
+    def check(name, resp, lo, hi):
+        if resp.other_error is not None or resp.region_error is not None:
+            raise SystemExit(f"phase 6 {name}: other_error {resp.other_error!r}, region_error {resp.region_error!r}")
+        tr = {k: v[lo:hi] for k, v in t.items()}
+        ch = resp.chunk
+        if name == "q6":
+            got, want = (int(ch.columns[0].data[0]), int(ch.columns[1].data[0])), numpy_q6(tr, T)
+        elif name == "q1":
+            got, want = decoded_q1(ch), numpy_q1(tr, T, q1_shift)
+        elif name == "topn":
+            check_rows(f"phase 6 {name}", ch, numpy_order(tr["price"], tr["shipdate"], TOPN_K), tr["price"], tr["shipdate"])
+            return f"the first {TOPN_K} rows"
+        elif name == "q3":
+            lcols = [W.fixed_col(tr[k]) for k in ("okey", "price", "disc", "shipdate")]
+            got, want = decoded_q3(ch), numpy_q3([lcols] + q3_build, T)
+        else:
+            got = decoded_join(ch, False)
+            want = numpy_join([[W.fixed_col(tr["okey"]), W.fixed_col(tr["price"])]] + join_build, False)
+        if got != want:
+            raise SystemExit(f"phase 6 {name} rows {lo}..{hi} mismatch: port {len(got)} rows, numpy {len(want)}")
+        return f"{len(got)} rows" if isinstance(got, dict) else f"{got}"
+
+    fallbacks = store.stats()["oracle_fallbacks"]
+    ts = store.next_ts()
+    per_request = {}
+    for region, lo, hi in regions:
+        for name in names:
+            resp = counters.path(f"store {name} region {region.region_id}",
+                                 lambda: over_wire(request(name, region, ts)), need=need.get(name, ()), phase=6)
+            per_request[(name, region.region_id)] = dict(counters.last)
+            what = check(name, resp, lo, hi)
+            extra = ""
+            if name == "join":
+                s = resp.exec_summaries[2]
+                extra = f"; radix partitions {s.radix_partitions}, rung {s.radix_rung}, escapes {s.radix_escapes}"
+            log(f"phase 6 {name} region {region.region_id} (rows {lo}..{hi}): {what} == numpy{extra}")
+        # the paged row-local request over the region's first rows, its
+        # cursor followed to the end
+        sel = W.store_selection_dag(E, X, T)
+        rng = [KeyRange(codec.encode_row_key(tid, lo), codec.encode_row_key(tid, lo + STORE_PAGED_ROWS))]
+        got, pages = [], 0
+        while rng is not None:
+            resp = over_wire(CopRequest(sel, rng, ts, region.region_id, region.epoch, paging_size=STORE_PAGE))
+            if resp.other_error is not None or resp.region_error is not None:
+                raise SystemExit(f"phase 6 paged: {resp.other_error!r} {resp.region_error!r}")
+            got.append(np.stack([resp.chunk.columns[0].data, resp.chunk.columns[1].data,
+                                 resp.chunk.columns[2].data.view(np.int64)], axis=1))
+            rng = resp.last_range
+            pages += 1
+        cut = T.MyTime.parse("1995-03-15", 0).packed
+        s = slice(lo, lo + STORE_PAGED_ROWS)
+        m = (t["shipdate"][s] > cut) & (t["disc"][s] >= 5)
+        want = np.stack([t["okey"][s][m], t["price"][s][m], t["shipdate"][s][m]], axis=1)
+        if not np.array_equal(np.concatenate(got), want):
+            raise SystemExit(f"phase 6 paged Selection region {region.region_id}: the pages differ from numpy")
+        log(f"phase 6 paged Selection region {region.region_id}: {pages} pages of <= {STORE_PAGE} rows, "
+            f"{len(want)} rows == numpy")
+        stale = over_wire(CopRequest(dags["q6"][0], table, ts, region.region_id, region.epoch - 1))
+        if stale.region_error is None or not stale.region_error.startswith("epoch_not_match"):
+            raise SystemExit(f"phase 6 stale epoch: {stale.region_error!r}")
+        log(f"phase 6 stale epoch region {region.region_id}: region_error {stale.region_error!r}")
+    if store.stats()["oracle_fallbacks"] != fallbacks:
+        raise SystemExit(f"phase 6: the oracle served a main-path request ({store.stats()})")
+    for name in names:
+        per = [per_request[(name, r.region_id)] for r, _lo, _hi in regions]
+        log(f"phase 6 launches per {name} cop request: " + ", ".join(
+            f"region {r.region_id} {p}" for (r, _lo, _hi), p in zip(regions, per)))
+
+    # times: cold, then warm (object), warm (wire) and a result-cache hit in
+    # turns; every run ends in a synchronise
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    med = statistics.median
+    for region, lo, hi in regions:
+        rows = hi - lo
+        for name in names:
+            req = request(name, region, ts)
+            cold = {"decode": [], "h2d": [], "request": [], "build": [], "total": []}
+            for _ in range(COLD_REPS):
+                store.evict_caches()
+                store.programs = ProgramCache()
+                d_ms, _ = timed(lambda: store.region_chunk(region, table, req.dag, ts))
+                h_ms, _ = timed(lambda: store.region_device_batch(region, table, req.dag, ts))
+                r_ms, resp = timed(lambda: store.coprocessor(req))
+                cold["decode"].append(d_ms)
+                cold["h2d"].append(h_ms)
+                cold["request"].append(r_ms)
+                cold["build"].append(resp.exec_summaries[0].time_compile_ns / 1e6)
+                cold["total"].append(d_ms + h_ms + r_ms)
+            req_bytes = wire.encode_cop_request(req)
+            cacheable = not req.aux_chunks
+            warm = {"object": [], "wire": [], "hit": [], "hit wire": []}
+            for i in range(REPS + 1):
+                store.clear_result_cache()
+                o_ms, _ = timed(lambda: store.coprocessor(req))
+                store.clear_result_cache()
+                w_ms, _ = timed(lambda: wire.decode_cop_response(store.coprocessor_bytes(req_bytes)))
+                if i == 0:
+                    continue  # warm-up
+                warm["object"].append(o_ms)
+                warm["wire"].append(w_ms)
+                if cacheable:
+                    hits = store.stats()["result_cache_hits"]
+                    warm["hit"].append(timed(lambda: store.coprocessor(req))[0])
+                    warm["hit wire"].append(timed(lambda: wire.decode_cop_response(store.coprocessor_bytes(req_bytes)))[0])
+                    if store.stats()["result_cache_hits"] != hits + 2:
+                        raise SystemExit(f"phase 6 {name}: the repeat missed the result cache")
+            cm = {k: med(v) for k, v in cold.items()}
+            log(f"phase 6 {name} region {region.region_id} cold ({COLD_REPS} runs): {cm['total']:.3f} ms = native decode "
+                f"{cm['decode']:.3f} + H2D {cm['h2d']:.3f} + request {cm['request']:.3f} (program build "
+                f"{cm['build']:.3f} of it); {rows / cm['total'] / 1e3:.2f} Mrows/s")
+            hit = (f"result-cache hit {med(warm['hit']):.4f} ms (wire {med(warm['hit wire']):.4f} ms)"
+                   if cacheable else "no result-cache hit (aux chunks are not cacheable)")
+            log(f"phase 6 {name} region {region.region_id} warm ({REPS} paired runs): coprocessor(req) "
+                f"{med(warm['object']):.3f} ms ({rows / med(warm['object']) / 1e3:.1f} Mrows/s), coprocessor_bytes "
+                f"{med(warm['wire']):.3f} ms ({rows / med(warm['wire']) / 1e3:.1f} Mrows/s), {hit}")
+            if profile and region is regions[0][0] and name in ("q1", "q3"):
+                store.clear_result_cache()
+                profile_path(f"phase 6 {name} through coprocessor_bytes",
+                             lambda: wire.decode_cop_response(store.coprocessor_bytes(req_bytes)),
+                             med(warm["wire"]), copies=True)
+    if store.stats()["oracle_fallbacks"] != fallbacks or store.stats()["other_errors"]:
+        raise SystemExit(f"phase 6: an oracle fallback or an other_error while timing ({store.stats()})")
+    log(f"phase 6 store counts: {store.stats()}")
 
 
 def main() -> int:
@@ -1099,7 +1415,6 @@ def main() -> int:
     log(f"phase 4 Window at {n} lineitem rows: the 8 window columns == numpy (exact; none is real-valued)")
 
     # phase 5: times (the timing launches are not the main paths')
-    main_launches = dict(counters.main)
     timing = {}
 
     def time_kernel(name, cuda_names, kernel, plain, args, in_bytes, out_bytes, ops, one_op=False):
@@ -1173,6 +1488,11 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         for name, (fn, _rows) in paths.items():
             profile_path(name, fn, wall[name])
+    counters.zero()
+
+    # phase 6: the store's coprocessor endpoint
+    store_phase(E, X, T, W, counters, dev, "--profile" in sys.argv[1:])
+    main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 

@@ -5,7 +5,8 @@ card. The layout mirrors the JAX package module for module, so each
 module's counterpart is easy to find:
 
   types/, chunk/column.py, chunk/chunk.py, expr/ir.py, expr/agg.py,
-  exec/dag.py, exec/ladder.py
+  expr/eval_ref.py, exec/dag.py, exec/ladder.py, codec/, store/kv.py,
+  store/region.py, store/errors.py, native/
              copies of the JAX package's JAX-free modules (imports only
              rewritten); the port never imports `tidb_tpu` or `jax`
   chunk/device.py  host Chunk -> capacity-padded torch DeviceBatch
@@ -14,8 +15,12 @@ module's counterpart is easy to find:
                    aggregation, and ops/dense_agg.py — the one-pass small-G
                    GROUP BY kernel written in CUDA C++ for sm_90a
                    (csrc/dense_agg.cu)
-  exec/            DAG -> a closure over eager ops (builder.py) and the
-                   overflow-retry driver (executor.py)
+  exec/            DAG -> a closure over eager ops (builder.py), the
+                   overflow-retry driver and the row-at-a-time oracle
+                   (executor.py)
+  store/store.py   the coprocessor store: region rows decoded once per
+                   region version, cached on the host and the device, served
+                   by coprocessor(req) and coprocessor_bytes (wire bytes)
   interop.py       numpy column arrays -> DeviceBatch (feeds both packages
                    identical batches in the tests)
 

@@ -90,10 +90,13 @@ def host_column_arrays(col: Column, capacity: int, str_width: int | None = None)
     w = int(str_width) if str_width else max(1, max_len)
     if max_len > w:
         raise ValueError(f"varlen column has a {max_len}-byte value but str_width={w}")
+    # one gather for every row: byte j of row i is blob[offsets[i] + j]
+    # below the row's length, else 0 (a loop per row costs ~4 us a row)
     data = np.zeros((capacity, w), np.uint8)
-    for i in range(n):
-        ln = min(int(lens[i]), w)
-        data[i, :ln] = col.blob[col.offsets[i]: col.offsets[i] + ln]
+    if n and col.blob is not None and len(col.blob):
+        pos = np.asarray(col.offsets[:-1], np.int64)[:, None] + np.arange(w, dtype=np.int64)[None, :]
+        inside = np.arange(w)[None, :] < lens[:, None]
+        data[:n] = np.where(inside, np.asarray(col.blob, np.uint8)[np.minimum(pos, len(col.blob) - 1)], 0)
     return data, null, _pad(lens, capacity)
 
 

@@ -1,13 +1,19 @@
-"""Host-side DAG drivers (port of the device half of tidb_tpu/exec/executor.py).
+"""Host-side DAG drivers (port of tidb_tpu/exec/executor.py).
 
 run_dag_on_chunk(s): pad host Chunks into DeviceBatches, run the program,
 decode outputs back to a host Chunk. drive_program_info handles the
 overflow contract: on overflow it retries on the capacity ladder
 (exec/ladder.py), drops a wrong small-G hint, drops the unique-build and
 radix join hints when no rung can clear a join overflow, and rebuilds a
-TopN whose sampled threshold missed as the exact full sort. There is no
-spill and no row-at-a-time oracle in this port: exhausted retries raise
-OverflowRetryError, and host-only operators raise NotImplementedError.
+TopN whose sampled threshold missed as the exact full sort. Exhausted
+retries raise OverflowRetryError, and operators the device program does
+not express raise NotImplementedError.
+
+run_dag_reference: the row-at-a-time oracle, copied from the JAX package
+(`tidb_tpu/exec/executor.py`, datum_group_key .. _ref_join). It
+interprets the same DAG with RefEvaluator; the store falls back to it
+when the device path raises either error. There is no spill
+(`_spill_partitioned`) in this port.
 """
 
 from __future__ import annotations
@@ -18,8 +24,11 @@ import numpy as np
 import torch
 
 from ..chunk import Chunk, Column, to_device_batch
+from ..expr.agg import AggDesc
+from ..expr.eval_ref import RefEvaluator, compare, _truth
+from ..types import Datum, DatumKind, FieldType, MyDecimal
 from .builder import DEFAULT_GROUP_CAPACITY, ProgramCache
-from .dag import DAGRequest
+from .dag import Aggregation, DAGRequest, Join, Limit, Projection, Selection, Sort, TopN, Window, current_schema_fts
 from .ladder import overflow_step, rung_for
 
 
@@ -87,8 +96,8 @@ DEFAULT_PROGRAM_CACHE = ProgramCache()
 
 
 class OverflowRetryError(RuntimeError):
-    """Capacity growth retries exhausted (this port has no spill and no
-    oracle to fall back to)."""
+    """Capacity growth retries exhausted (this port has no spill; the
+    store falls back to the row oracle, run_dag_reference)."""
 
 
 def drive_program(cache: ProgramCache, dag: DAGRequest, batches, group_capacity: int, max_retries: int = 3, join_capacity: int | None = None, small_groups: int | None = None):
@@ -185,3 +194,490 @@ def run_dag_on_chunk(
     cap = capacity or _pow2(max(chunk.num_rows(), 1))
     batch = to_device_batch(chunk, capacity=cap, device=device)
     return drive_program(cache, dag, batch, group_capacity, max_retries)[0]
+
+
+# ---------------------------------------------------------------------------
+# Reference interpreter (oracle)
+# ---------------------------------------------------------------------------
+
+def datum_group_key(d: Datum, ft: FieldType | None = None):
+    if d.is_null():
+        return (0, None)
+    if d.kind == DatumKind.MysqlJSON:
+        return (1, bytes(d.val))
+    if d.kind in (DatumKind.MysqlEnum, DatumKind.MysqlSet):
+        return (1, int(d.val))
+    if d.kind == DatumKind.MysqlDecimal:
+        return (1, str(d.val.d.normalize()))
+    if d.kind in (DatumKind.String, DatumKind.Bytes):
+        if ft is not None and ft.is_ci():
+            # one group per collation WEIGHT key (full Unicode,
+            # types/collate.py — é and É and e share a unicode_ci group)
+            from ..types.collate import weight_bytes
+
+            return (1, weight_bytes(d.val, ft.collate))
+        v = d.val.encode() if isinstance(d.val, str) else bytes(d.val)
+        return (1, v)
+    if d.kind == DatumKind.MysqlTime:
+        return (1, d.val.packed)
+    if d.kind in (DatumKind.Float32, DatumKind.Float64):
+        return (1, float(d.val) + 0.0)  # -0.0 -> 0.0
+    return (1, d.val)
+
+
+class _RefAgg:
+    """One aggregate's accumulator (Complete mode), incl. DISTINCT via a
+    seen-set (ref: executor/aggfuncs distinct wrappers) and the BIT_*
+    aggregates (ref: aggfuncs/func_bitfuncs.go)."""
+
+    def __init__(self, desc: AggDesc):
+        self.d = desc
+        self.count = 0
+        self.sum = None
+        self.extreme = None
+        self.first = None
+        self.has_first = False
+        self.bits = None
+        self.fsum = 0.0  # float moments for stddev/var
+        self.sumsq = 0.0
+        self.strs: list = []  # group_concat pieces
+        self.seen = set() if desc.distinct else None
+
+    def update(self, args: list[Datum]):
+        name = self.d.name
+        if self.seen is not None and name in (
+            "count", "sum", "avg", "group_concat",
+            "stddev_pop", "stddev_samp", "var_pop", "var_samp",
+        ):
+            # DISTINCT: rows with any NULL arg are skipped; each distinct
+            # arg tuple contributes once
+            if any(a.is_null() for a in args):
+                return
+            key = tuple(
+                datum_group_key(a, ae.ft)
+                for a, ae in zip(args, self.d.args)
+            )
+            if key in self.seen:
+                return
+            self.seen.add(key)
+        if name == "count":
+            if all(not a.is_null() for a in args):
+                self.count += 1
+            return
+        a = args[0]
+        if name == "first_row":
+            if not self.has_first:
+                self.first, self.has_first = a, True
+            return
+        if a.is_null():
+            return
+        if name in ("bit_and", "bit_or", "bit_xor"):
+            v = int(a.val) & ((1 << 64) - 1)
+            if self.bits is None:
+                self.bits = v
+            elif name == "bit_and":
+                self.bits &= v
+            elif name == "bit_or":
+                self.bits |= v
+            else:
+                self.bits ^= v
+            return
+        self.count += 1
+        if name in ("sum", "avg"):
+            self._add_sum(a)
+        elif name in ("stddev_pop", "stddev_samp", "var_pop", "var_samp"):
+            v = a.val.to_float() if a.kind == DatumKind.MysqlDecimal else float(a.val)
+            self.fsum += v
+            self.sumsq += v * v
+        elif name == "group_concat":
+            v = a.val if isinstance(a.val, str) else (
+                bytes(a.val).decode("utf-8", "surrogateescape") if isinstance(a.val, (bytes, bytearray)) else str(a.val)
+            )
+            self.strs.append(v)
+        elif name in ("min", "max"):
+            if self.extreme is None:
+                self.extreme = a
+            else:
+                c = compare(a, self.extreme)
+                if (name == "min" and c < 0) or (name == "max" and c > 0):
+                    self.extreme = a
+        else:
+            raise NotImplementedError(name)
+
+    def _add_sum(self, a: Datum):
+        if self.sum is None:
+            if a.kind in (DatumKind.Float64, DatumKind.Float32):
+                self.sum = float(a.val)
+            elif a.kind == DatumKind.MysqlDecimal:
+                self.sum = a.val
+            else:
+                self.sum = MyDecimal(a.val, 0)
+        else:
+            if isinstance(self.sum, float):
+                self.sum += float(a.val)
+            else:
+                self.sum = self.sum + (a.val if a.kind == DatumKind.MysqlDecimal else MyDecimal(a.val, 0))
+
+    def merge_update(self, args: list[Datum]):
+        """Consume partial-state columns (Partial2/Final modes) — the state
+        schemas of expr/agg.py (ref: aggfuncs MergePartialResult)."""
+        name = self.d.name
+        if self.seen is not None and name not in ("min", "max", "first_row"):
+            raise NotImplementedError("DISTINCT partials are not mergeable")
+        if name == "count":
+            if not args[0].is_null():
+                self.count += int(args[0].val)
+            return
+        if name == "avg":
+            c, s = args
+            if not c.is_null():
+                self.count += int(c.val)
+            if not s.is_null():
+                self._add_sum(s)
+            return
+        if name == "sum":
+            if not args[0].is_null():
+                self.count += 1
+                self._add_sum(args[0])
+            return
+        if name == "first_row":
+            has, val = args
+            if not has.is_null() and int(has.val) > 0 and not self.has_first:
+                self.first, self.has_first = val, True
+            return
+        if name in ("stddev_pop", "stddev_samp", "var_pop", "var_samp"):
+            c, s, q = args
+            if not c.is_null():
+                self.count += int(c.val)
+            if not s.is_null():
+                self.fsum += float(s.val)
+                self.sumsq += float(q.val)
+            return
+        if name == "group_concat":
+            raise NotImplementedError("group_concat partials are not mergeable (root-only aggregate)")
+        # min/max/bit_*: state column == value column, same combine
+        self.update(args)
+
+    def partial_result(self) -> list[Datum]:
+        """Emit this accumulator's partial-state columns (Partial1 mode)."""
+        name = self.d.name
+        pf = self.d.partial_fts()
+        if name == "count":
+            return [Datum.i64(self.count)]
+        if name == "sum":
+            return [self._sum_datum(pf[0])]
+        if name == "avg":
+            return [Datum.i64(self.count), self._sum_datum(pf[1])]
+        if name in ("min", "max"):
+            return [self.extreme if self.extreme is not None else Datum.NULL]
+        if name == "first_row":
+            return [Datum.i64(1 if self.has_first else 0), self.first if self.has_first else Datum.NULL]
+        if name in ("stddev_pop", "stddev_samp", "var_pop", "var_samp"):
+            return [Datum.i64(self.count), Datum.f64(self.fsum), Datum.f64(self.sumsq)]
+        return [self.result()]  # bit_*: state == result
+
+    def _sum_datum(self, ft: FieldType) -> Datum:
+        if self.sum is None:
+            return Datum.NULL
+        if isinstance(self.sum, float):
+            return Datum.f64(self.sum)
+        return Datum.dec(self.sum.round(max(ft.decimal, 0)))
+
+    def result(self) -> Datum:
+        name = self.d.name
+        ft = self.d.ft
+        if name == "count":
+            return Datum.i64(self.count)
+        if name == "first_row":
+            return self.first if self.has_first else Datum.NULL
+        if name == "sum":
+            if self.sum is None:
+                return Datum.NULL
+            if isinstance(self.sum, float):
+                return Datum.f64(self.sum)
+            return Datum.dec(self.sum.round(max(ft.decimal, 0)))
+        if name == "avg":
+            if self.count == 0:
+                return Datum.NULL
+            if isinstance(self.sum, float):
+                return Datum.f64(self.sum / self.count)
+            q = self.sum.div(MyDecimal(self.count, 0))
+            return Datum.dec(q.round(max(ft.decimal, 0)))
+        if name in ("min", "max"):
+            return self.extreme if self.extreme is not None else Datum.NULL
+        if name in ("bit_and", "bit_or", "bit_xor"):
+            if self.bits is None:  # empty: AND -> all ones, OR/XOR -> 0
+                return Datum.u64((1 << 64) - 1 if name == "bit_and" else 0)
+            return Datum.u64(self.bits)
+        if name in ("stddev_pop", "stddev_samp", "var_pop", "var_samp"):
+            import math
+
+            n = self.count
+            if n == 0 or (name.endswith("samp") and n < 2):
+                return Datum.NULL
+            mean = self.fsum / n
+            if name.endswith("samp"):
+                var = max(self.sumsq - n * mean * mean, 0.0) / (n - 1)
+            else:
+                var = max(self.sumsq / n - mean * mean, 0.0)
+            return Datum.f64(math.sqrt(var) if name.startswith("stddev") else var)
+        if name == "group_concat":
+            if not self.strs:
+                return Datum.NULL
+            return Datum.string((self.d.extra if self.d.extra is not None else ",").join(self.strs))
+        raise NotImplementedError(name)
+
+
+def run_dag_reference(dag: DAGRequest, chunks) -> list[list[Datum]]:
+    """Row-at-a-time oracle over one chunk per scan (canonical order);
+    accepts a bare Chunk for single-scan DAGs."""
+    if isinstance(chunks, Chunk):
+        chunks = [chunks]
+    ev = RefEvaluator()
+    cursor = [0]
+    rows = _ref_pipeline(dag.executors, chunks, cursor, ev)
+    return [[r[i] for i in dag.output_offsets] for r in rows]
+
+
+def _ref_pipeline(executors, chunks, cursor, ev) -> list[list[Datum]]:
+    chunk = chunks[cursor[0]]
+    cursor[0] += 1
+    rows = chunk.rows()
+    for ex in executors[1:]:
+        if isinstance(ex, Selection):
+            rows = [r for r in rows if all(_truth(ev.eval(c, r)) for c in ex.conditions)]
+        elif isinstance(ex, Projection):
+            rows = [[ev.eval(e, r) for e in ex.exprs] for r in rows]
+        elif isinstance(ex, Limit):
+            rows = rows[: ex.limit]
+        elif isinstance(ex, TopN):
+            rows = _order_by_sorted(rows, ex.order_by, ev)[: ex.limit]
+        elif isinstance(ex, Sort):
+            rows = _order_by_sorted(rows, ex.order_by, ev)
+        elif isinstance(ex, Window):
+            rows = _ref_window(ex, rows, ev)
+        elif isinstance(ex, Join):
+            rows = _ref_join(ex, rows, chunks, cursor, ev)
+        elif isinstance(ex, Aggregation):
+            groups: dict = {}
+            order: list = []
+            for r in rows:
+                key = tuple(datum_group_key(ev.eval(g, r), g.ft) for g in ex.group_by)
+                if key not in groups:
+                    groups[key] = ([_RefAgg(a) for a in ex.aggs], [ev.eval(g, r) for g in ex.group_by])
+                    order.append(key)
+                accs, _ = groups[key]
+                for acc, a in zip(accs, ex.aggs):
+                    args = [ev.eval(x, r) for x in a.args]
+                    if ex.merge:
+                        acc.merge_update(args)
+                    else:
+                        acc.update(args)
+            if not ex.group_by:
+                if not rows:
+                    groups[()] = ([_RefAgg(a) for a in ex.aggs], [])
+                    order.append(())
+            rows = []
+            for key in order:
+                accs, gvals = groups[key]
+                out: list[Datum] = []
+                for acc in accs:
+                    if ex.partial:
+                        out.extend(acc.partial_result())
+                    else:
+                        out.append(acc.result())
+                rows.append(out + gvals)
+        else:
+            raise TypeError(f"unsupported executor {ex}")
+    return rows
+
+
+def _order_by_sorted(rows, order_by, ev) -> list:
+    """Stable ORDER BY sort — THE null-first/desc-flip comparator both TopN
+    and Sort (and only they) define order with."""
+    import functools
+
+    def cmp_rows(r1, r2):
+        for e, desc in order_by:
+            a, b = ev.eval(e, r1), ev.eval(e, r2)
+            if a.is_null() and b.is_null():
+                continue
+            ci = e.ft.is_string() and e.ft.is_ci()
+            c = -1 if a.is_null() else (
+                1 if b.is_null() else compare(a, b, ci=ci, collation=e.ft.collate if ci else None)
+            )
+            if c:
+                return -c if desc else c
+        return 0
+
+    return sorted(rows, key=functools.cmp_to_key(cmp_rows))
+
+
+def _ref_window(ex, rows, ev) -> list[list[Datum]]:
+    """Window oracle: partition dict -> stable sort by order keys -> per-row
+    frame evaluation with MySQL default frames (RANGE UNBOUNDED
+    PRECEDING..CURRENT ROW including peers with ORDER BY; whole partition
+    without). Semantics ref: pkg/executor/aggfuncs/func_*.go per function."""
+    import functools
+
+    from ..types import MyDecimal
+
+    def okey_cmp(r1, r2):
+        for e, desc in ex.order_by:
+            a, b = ev.eval(e, r1), ev.eval(e, r2)
+            if a.is_null() and b.is_null():
+                continue
+            ci = e.ft.is_string() and e.ft.is_ci()
+            c = -1 if a.is_null() else (
+                1 if b.is_null() else compare(a, b, ci=ci, collation=e.ft.collate if ci else None)
+            )
+            if c:
+                return -c if desc else c
+        return 0
+
+    parts: dict = {}
+    order: list = []
+    for i, r in enumerate(rows):
+        key = tuple(datum_group_key(ev.eval(g, r), g.ft) for g in ex.partition_by)
+        if key not in parts:
+            parts[key] = []
+            order.append(key)
+        parts[key].append(i)
+
+    results: dict = {i: [] for i in range(len(rows))}
+    for key in order:
+        idxs = parts[key]
+        idxs.sort(key=functools.cmp_to_key(lambda a, b: okey_cmp(rows[a], rows[b]) or (a - b)))
+        n = len(idxs)
+        # peer groups (equal order keys)
+        peer_id = [0] * n
+        for j in range(1, n):
+            peer_id[j] = peer_id[j - 1] + (1 if okey_cmp(rows[idxs[j - 1]], rows[idxs[j]]) else 0)
+        peer_end = [0] * n
+        end = n - 1
+        for j in range(n - 1, -1, -1):
+            if j < n - 1 and peer_id[j] != peer_id[j + 1]:
+                end = j
+            peer_end[j] = end
+        has_order = bool(ex.order_by)
+        for w in ex.funcs:
+            for j, ri in enumerate(idxs):
+                frame_hi = (peer_end[j] if has_order else n - 1)
+                results[ri].append(_ref_window_value(w, ex, rows, idxs, j, n, frame_hi, peer_id, ev))
+    return [r + results[i] for i, r in enumerate(rows)]
+
+
+def _ref_window_value(w, ex, rows, idxs, j, n, frame_hi, peer_id, ev) -> Datum:
+    from ..types import MyDecimal
+
+    name = w.name
+
+    def argval(ri, k=0):
+        return ev.eval(w.args[k], rows[ri])
+
+    if name == "row_number":
+        return Datum.i64(j + 1)
+    if name == "rank":
+        first = next(k for k in range(n) if peer_id[k] == peer_id[j])
+        return Datum.i64(first + 1)
+    if name == "dense_rank":
+        return Datum.i64(peer_id[j] + 1)
+    if name == "percent_rank":
+        if n <= 1:
+            return Datum.f64(0.0)
+        first = next(k for k in range(n) if peer_id[k] == peer_id[j])
+        return Datum.f64(first / (n - 1))
+    if name == "cume_dist":
+        return Datum.f64((frame_hi + 1) / n) if ex.order_by else Datum.f64(1.0)
+    if name == "ntile":
+        k = w.offset
+        base, rem = n // k, n % k
+        cut = rem * (base + 1)
+        if j < cut:
+            return Datum.i64(j // (base + 1) + 1)
+        return Datum.i64(rem + (j - cut) // max(base, 1) + 1)
+    if name in ("lead", "lag"):
+        off = w.offset if name == "lead" else -w.offset
+        t = j + off
+        if 0 <= t < n:
+            return argval(idxs[t])
+        if w.default is not None:
+            return ev.eval(w.default, rows[idxs[j]])
+        return Datum.NULL
+    if name == "first_value":
+        return argval(idxs[0])
+    if name == "last_value":
+        return argval(idxs[frame_hi])
+    if name == "nth_value":
+        t = w.offset - 1
+        if t <= frame_hi:
+            return argval(idxs[t])
+        return Datum.NULL
+    # frame aggregates over rows[0..frame_hi]
+    if name == "count" and not w.args:
+        return Datum.i64(frame_hi + 1)
+    vals = [argval(idxs[k]) for k in range(frame_hi + 1)]
+    live = [d for d in vals if not d.is_null()]
+    if name == "count":
+        return Datum.i64(len(live))
+    if not live:
+        return Datum.NULL
+    if name in ("min", "max"):
+        best = live[0]
+        for d in live[1:]:
+            c = compare(d, best)
+            if (name == "max" and c > 0) or (name == "min" and c < 0):
+                best = d
+        return best
+    # sum / avg with MySQL numeric promotion
+    et = w.ft.eval_type()
+    if et == "real":
+        s = sum(float(d.val.to_float() if isinstance(d.val, MyDecimal) else d.val) for d in live)
+        return Datum.f64(s if name == "sum" else s / len(live))
+    acc = None
+    for d in live:
+        dv = d.val if isinstance(d.val, MyDecimal) else MyDecimal(str(d.val))
+        acc = dv if acc is None else acc + dv
+    if name == "sum":
+        return Datum.dec(acc)
+    return Datum.dec(acc.div(MyDecimal(str(len(live)))))
+
+
+def _ref_join(ex: Join, probe_rows, chunks, cursor, ev) -> list[list[Datum]]:
+    """Hash-join oracle (ref: mpp_exec.go:844 joinExec — build a key map,
+    probe row by row; NULL keys never match)."""
+    build_rows = _ref_pipeline(ex.build, chunks, cursor, ev)
+    nb_cols = len(current_schema_fts(ex.build))
+
+    def key_of(row, exprs):
+        ds = [ev.eval(k, row) for k in exprs]
+        if any(d.is_null() for d in ds):
+            return None
+        return tuple(datum_group_key(d, k.ft) for d, k in zip(ds, exprs))
+
+    table: dict = {}
+    for br in build_rows:
+        k = key_of(br, ex.build_keys)
+        if k is not None:
+            table.setdefault(k, []).append(br)
+
+    out: list[list[Datum]] = []
+    for pr in probe_rows:
+        k = key_of(pr, ex.probe_keys)
+        matches = table.get(k, []) if k is not None else []
+        if ex.join_type == "inner":
+            out.extend(pr + br for br in matches)
+        elif ex.join_type == "left_outer":
+            if matches:
+                out.extend(pr + br for br in matches)
+            else:
+                out.append(pr + [Datum.NULL] * nb_cols)
+        elif ex.join_type == "semi":
+            if matches:
+                out.append(pr)
+        elif ex.join_type == "anti":
+            if not matches:
+                out.append(pr)
+        else:
+            raise TypeError(f"unknown join type {ex.join_type}")
+    return out

@@ -1,0 +1,635 @@
+"""The coprocessor store on the card (port of tidb_tpu/store/store.py's
+single-request endpoint).
+
+A CopRequest carries the DAG, key ranges, snapshot ts, region id and
+epoch, and the broadcast build sides of its joins; the store decodes the
+region's rows to a columnar chunk once per region version (the C++ scan
+decoder of `native/`, else the Python rowcodec), caches that chunk on the
+host and its padded DeviceBatch on `device`, runs the program through
+drive_program_info, and answers with the result chunk plus execution
+summaries (ref: unistore/cophandler/cop_handler.go:89 HandleCopRequest).
+`coprocessor_bytes` is the same endpoint from wire bytes to wire bytes
+(codec/wire.py). Whole responses are cached by region data version, and a
+DAG the device program cannot run (an op it does not express, or capacity
+retries that run out) is answered by the row oracle, run_dag_reference.
+
+Left out, beside the reference: `batch_coprocessor` and its region-batched
+programs, the mesh tier, replica reads (a follower read answers
+other_error), failpoints, metrics, Top SQL and PD flow recording, and the
+write path's quorum and CDC guards.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from dataclasses import dataclass, field, replace
+
+from ..chunk import Chunk, to_device_batch
+from ..chunk.device import DeviceBatch
+from ..codec import tablecodec
+from ..codec.rowcodec import RowEncoder, decode_row_to_datum_map, fill_origin_default
+from ..exec.builder import DEFAULT_GROUP_CAPACITY, ProgramCache
+from ..exec.dag import DAGRequest
+from ..exec.executor import OverflowRetryError, _pow2, drive_program_info, run_dag_reference
+from ..runtime import resolve_device
+from ..types import Datum
+from .kv import MemKV
+from .region import Cluster, Region
+
+
+@dataclass(frozen=True)
+class KeyRange:
+    """(ref: coprocessor.KeyRange)."""
+
+    start: bytes
+    end: bytes
+
+
+@dataclass
+class CopRequest:
+    """(ref: coprocessor.Request: tp=DAG, data, ranges, start_ts).
+
+    aux_chunks: broadcast operands for the DAG's join build sides, one per
+    non-probe scan in canonical order (the TiFlash broadcast-exchange analog
+    — ref: mpp_exec.go:669 Broadcast partition mode). Every region task of a
+    broadcast join carries the same chunks; the device upload is shared.
+
+    paging_size: when set, the scan stops after at most this many rows and
+    the response carries `last_range`, the resume cursor for the next page
+    (ref: copr/coprocessor.go:1393 handleCopPagingResult; store side
+    cop_handler.go:210 lastRange). Row-local DAGs only — aggregations
+    cannot produce correct partials from a partial scan.
+
+    mesh and mesh_min_rows belong to the reference's batched tier; this
+    store has none, but they travel on the wire, so they are kept."""
+
+    dag: DAGRequest
+    ranges: list
+    start_ts: int
+    region_id: int = 0
+    region_epoch: int = 0
+    aux_chunks: list = field(default_factory=list)
+    paging_size: int | None = None
+    small_groups: int | None = None  # planner NDV hint (stats-driven)
+    peer_store: int = -1  # the peer the client routed to (-1 = whoever
+    # leads at serve time); a non-leader peer answers NotLeader unless
+    # replica_read (ref: kvrpcpb.Context.peer)
+    replica_read: bool = False  # follower read (not ported: other_error)
+    mesh: bool = False
+    mesh_min_rows: int = 0
+
+
+@dataclass
+class ExecSummary:
+    """(ref: tipb.ExecutorExecutionSummary, cop_handler.go:518). Extended
+    with device-time attribution: where the task's wall time went —
+    program build (vs. a program-cache hit) and the bytes the executor
+    moved (scan row: decoded region bytes; final row: result bytes)."""
+
+    time_processed_ns: int = 0
+    num_produced_rows: int = 0
+    num_iterations: int = 1
+    time_compile_ns: int = 0  # 0 on a cache hit
+    cache_hit: bool = False  # the program came from the cache
+    num_bytes: int = 0
+    # radix-join attribution: set on the first Join executor whose task
+    # rode the radix-partitioned kernel — partition count, the join
+    # capacity rung the program was built at, and the skew-escape row
+    # count; 0/0/0 = monolithic kernel
+    radix_partitions: int = 0
+    radix_rung: int = 0
+    radix_escapes: int = 0
+
+
+@dataclass
+class CopResponse:
+    chunk: Chunk | None = None
+    region_error: str | None = None
+    other_error: str | None = None
+    exec_summaries: list = field(default_factory=list)
+    last_range: list | None = None  # [KeyRange] resume cursor; None = drained
+    batched: int = 0  # the reference's batched-tier markers, carried on
+    mesh_merged: int = 0  # the wire; always 0 here
+
+
+def _apply_radix_attribution(summaries: list, walk, info) -> None:
+    """Fold the executor's radix attribution (exec/executor.py
+    _radix_attribution: partitions / capacity rung / skew escapes) onto
+    the FIRST Join executor's summary — the triple is program-level, so
+    stamping every Join would multiply it in a cross-summary sum; the
+    summary indexes align with the executor walk, as the row counts do."""
+    ri = info.get("radix") if isinstance(info, dict) else None
+    if not ri:
+        return
+    from ..exec.dag import Join as _Join
+
+    for i, ex in enumerate(walk):
+        if isinstance(ex, _Join) and i < len(summaries):
+            summaries[i].radix_partitions = int(ri.get("partitions") or 0)
+            summaries[i].radix_rung = int(ri.get("rung") or 0)
+            summaries[i].radix_escapes = int(ri.get("escapes") or 0)
+            return
+
+
+# the counts stats() returns: what served each request, and how often the
+# caches missed
+STAT_KEYS = ("device_served", "oracle_fallbacks", "result_cache_hits", "other_errors", "chunk_decodes",
+             "native_decodes", "device_uploads", "aux_uploads")
+
+
+class TPUStore:
+    """KV + regions + the coprocessor on `device`, one process (ref:
+    mockstore EmbedUnistore, mockstore.go:86)."""
+
+    _AUX_CACHE_MAX = 16
+    _COP_CACHE_MAX = 128
+
+    def __init__(self, device="cuda"):
+        self.device = resolve_device(device)
+        self.kv = MemKV()
+        self.cluster = Cluster()
+        self.programs = ProgramCache()
+        self._tso = itertools.count(100)  # guarded_by: _tso_lock
+        self._tso_lock = threading.Lock()
+        self._write_ver = 0  # guarded_by: _cop_lock
+        self._chunk_cache: dict = {}
+        self._batch_cache: dict = {}
+        self._aux_batch_cache: dict = {}  # token -> (chunk, DeviceBatch); guarded_by: _aux_lock
+        self._aux_lock = threading.Lock()
+        self._chunk_tokens = itertools.count(1)  # monotonic chunk identity; guarded_by: _aux_lock
+        # coprocessor RESULT cache (ref: pkg/store/copr/coprocessor_cache.go):
+        # a whole region response keyed by the region's data version
+        self._cop_cache: dict = {}  # guarded_by: _cop_lock
+        self._cop_lock = threading.Lock()
+        self._row_encoder = RowEncoder()
+        # logical placement stores marked down answer every cop request
+        # with a typed StoreUnavailable region error
+        self._down_stores: set[int] = set()  # guarded_by: _down_lock
+        self._down_lock = threading.Lock()
+        self._stats = dict.fromkeys(STAT_KEYS, 0)  # guarded_by: _stats_lock
+        self._stats_lock = threading.Lock()
+
+    # -- counts -----------------------------------------------------------------
+    def _count(self, key: str) -> None:
+        with self._stats_lock:
+            self._stats[key] += 1
+
+    def stats(self) -> dict:
+        """The counts since the store was made (plain integers)."""
+        with self._stats_lock:
+            return dict(self._stats)
+
+    # -- store fault switches -----------------------------------------------------
+    def set_down(self, store_id: int) -> None:
+        """Take one logical placement store down: every cop request whose
+        region is placed there answers `store_unavailable` until set_up."""
+        with self._down_lock:
+            self._down_stores.add(store_id)
+
+    def set_up(self, store_id: int) -> None:
+        with self._down_lock:
+            self._down_stores.discard(store_id)
+
+    def store_down(self, store_id: int) -> bool:
+        with self._down_lock:
+            return store_id in self._down_stores
+
+    def evict_caches(self) -> None:
+        """Drop the decoded-chunk, device-batch, build-side and result
+        caches (the next request of each region decodes and uploads anew)."""
+        with self._cop_lock:
+            self._cop_cache.clear()
+        self._chunk_cache.clear()
+        self._batch_cache.clear()
+        with self._aux_lock:
+            self._aux_batch_cache.clear()
+
+    def clear_result_cache(self) -> None:
+        """Drop the cached responses only (decoded chunks and device batches
+        stay): the next request of each region runs its program again."""
+        with self._cop_lock:
+            self._cop_cache.clear()
+
+    def next_ts(self) -> int:
+        """Store-global TSO (ref: PD timestamp oracle; mock unistore/pd.go)."""
+        with self._tso_lock:
+            return next(self._tso)
+
+    def _bump_write_ver(self):
+        # every cache key embeds the old write version, so no entry can
+        # serve stale data; the clear drops the dead result entries
+        with self._cop_lock:
+            self._write_ver += 1
+            self._cop_cache.clear()
+
+    def _snapshot_write_ver(self) -> int:
+        """Locked read of the store write version — the pre-read snapshot
+        every cache key embeds."""
+        with self._cop_lock:
+            return self._write_ver
+
+    # -- write path (ref: table.AddRecord -> memdb -> prewrite/commit) ------
+    def put_row(self, table_id: int, handle: int, col_ids: list[int], datums: list[Datum], ts: int):
+        key = tablecodec.encode_row_key(table_id, handle)
+        self.kv.put(key, self._row_encoder.encode(col_ids, datums), ts)
+        self._bump_write_ver()
+
+    def delete_row(self, table_id: int, handle: int, ts: int):
+        self.kv.put(tablecodec.encode_row_key(table_id, handle), None, ts)
+        self._bump_write_ver()
+
+    def put_index(self, key: bytes, value: bytes, ts: int):
+        self.kv.put(key, value, ts)
+        self._bump_write_ver()
+
+    def bulk_ingest(self, items, ts: int) -> None:
+        """Apply (key, value) pairs at commit ts `ts` in one critical section
+        (the apply of TxnEngine.bulk_ingest, tidb_tpu/store/txn.py:264; this
+        store has no lock table to check)."""
+        with self.kv.lock:
+            for k, v in items:
+                self.kv.put(k, v, ts)
+        self._bump_write_ver()
+
+    # -- scan/decode with caching -------------------------------------------
+    def region_chunk(self, region: Region, ranges: list, dag: DAGRequest, start_ts: int) -> Chunk:
+        """Rows of `region` ∩ `ranges` decoded to a columnar chunk.
+
+        Cache key includes the store write version: any write invalidates
+        (coarse, but correct; per-region versions later)."""
+        scan = dag.scan()
+        col_ids = tuple(c.col_id for c in scan.columns)
+        rkey = (
+            region.region_id,
+            region.epoch,
+            self._snapshot_write_ver(),
+            start_ts,
+            scan.table_id,
+            col_ids,
+            tuple((r.start, r.end) for r in ranges),
+        )
+        cached = self._chunk_cache.get(rkey)
+        if cached is not None:
+            return cached
+        self._count("chunk_decodes")
+        fts = [c.ft for c in scan.columns]
+        fts_by_id = {c.col_id: c.ft for c in scan.columns}
+        ch = None
+        from ..exec.dag import IndexScan
+
+        if not isinstance(scan, IndexScan):
+            ch = self._native_region_chunk(region, ranges, scan, start_ts)
+        if ch is None:
+            rows = []
+            for key, val in self._scan_region_kvs(region, ranges, start_ts):
+                row = self._decode_row(key, val, scan, fts_by_id)
+                if row is not None:
+                    rows.append(row)
+            ch = Chunk.from_rows(fts, rows)
+        self._chunk_cache[rkey] = ch
+        return ch
+
+    def _scan_region_kvs(self, region: Region, ranges: list, start_ts: int):
+        """(key, value) pairs of region ∩ ranges at the snapshot — the one
+        range-clamping loop both decode paths consume."""
+        for rng in ranges:
+            start = max(rng.start, region.start_key)
+            end = min(rng.end, region.end_key)
+            if start >= end:
+                continue
+            yield from self.kv.scan(start, end, start_ts)
+
+    def _native_region_chunk(self, region: Region, ranges: list, scan, start_ts: int) -> Chunk | None:
+        """C++ scan decode (native/): rowcodec values -> columns in one
+        call. None on any unsupported shape or decode error — the caller
+        runs the row-at-a-time Python decoder instead."""
+        from .. import native
+
+        if not native.available():
+            return None
+        if any(c.default is not None for c in scan.columns):
+            return None  # origin-default fill is python-side only
+        values: list[bytes] = []
+        handles: list[int] = []
+        for key, val in self._scan_region_kvs(region, ranges, start_ts):
+            try:
+                _, handle = tablecodec.decode_row_key(key)
+            except ValueError:
+                continue
+            values.append(val)
+            handles.append(handle)
+        cols = native.decode_rows_columnar(values, handles, scan.columns)
+        if cols is None:
+            return None
+        self._count("native_decodes")
+        return Chunk(cols)
+
+    def _decode_row(self, key: bytes, val: bytes, scan, fts_by_id: dict):
+        from ..exec.dag import IndexScan
+
+        if isinstance(scan, IndexScan):
+            return self._decode_index_entry(key, scan)
+        try:
+            _, handle = tablecodec.decode_row_key(key)
+        except ValueError:
+            return None
+        dmap = decode_row_to_datum_map(val, fts_by_id)
+        row = []
+        for c in scan.columns:
+            if c.col_id == -1:  # handle column (_tidb_rowid)
+                row.append(Datum.i64(handle))
+                continue
+            row.append(fill_origin_default(val, c.col_id, c.default, dmap[c.col_id]))
+        return row
+
+    def _decode_index_entry(self, key: bytes, scan):
+        """Index key `t{tid}_i{iid}{vals...}{handle}` -> one row of the
+        IndexScan schema (index cols then handle; ref: indexScanExec
+        mpp_exec.go:255 decoding index entries back to datums)."""
+        from ..codec.datum_codec import decode_datums
+
+        prefix_len = 1 + 8 + 2 + 8  # 't' + tid + '_i' + iid
+        if len(key) <= prefix_len:
+            return None
+        fts = [c.ft for c in scan.columns]
+        try:
+            datums = decode_datums(key[prefix_len:], fts)
+        except (ValueError, IndexError):
+            return None
+        if len(datums) != len(scan.columns):
+            return None
+        return datums
+
+    def _paged_region_chunk(self, region: Region, ranges: list, dag: DAGRequest, start_ts: int, limit: int):
+        """Scan at most `limit` rows of region ∩ ranges; returns
+        (chunk, resume_ranges | None). The resume cursor is the first
+        unscanned key, exactly the reference's lastRange contract
+        (ref: cop_handler.go:210-224)."""
+        scan = dag.scan()
+        fts = [c.ft for c in scan.columns]
+        fts_by_id = {c.col_id: c.ft for c in scan.columns}
+        rows: list = []
+        for ri, rng in enumerate(ranges):
+            start = max(rng.start, region.start_key)
+            end = min(rng.end, region.end_key)
+            if start >= end:
+                continue
+            for key, val in self.kv.scan(start, end, start_ts):
+                if len(rows) >= limit:
+                    resume = [KeyRange(key, rng.end)] + list(ranges[ri + 1 :])
+                    return Chunk.from_rows(fts, rows), resume
+                row = self._decode_row(key, val, scan, fts_by_id)
+                if row is not None:
+                    rows.append(row)
+        return Chunk.from_rows(fts, rows), None
+
+    def region_device_batch(self, region: Region, ranges, dag: DAGRequest, start_ts: int, capacity: int | None = None) -> DeviceBatch:
+        """The region chunk as a capacity-padded DeviceBatch on the store's
+        device, uploaded once per region version."""
+        ch = self.region_chunk(region, ranges, dag, start_ts)
+        cap = capacity or _pow2(max(ch.num_rows(), 1))
+        scan = dag.scan()
+        bkey = (
+            region.region_id,
+            region.epoch,
+            self._snapshot_write_ver(),
+            start_ts,
+            scan.table_id,
+            tuple(c.col_id for c in scan.columns),
+            tuple((r.start, r.end) for r in ranges),
+            cap,
+        )
+        cached = self._batch_cache.get(bkey)
+        if cached is not None:
+            return cached
+        batch = to_device_batch(ch, capacity=cap, device=self.device)
+        self._count("device_uploads")
+        self._batch_cache[bkey] = batch
+        return batch
+
+    def _chunk_token(self, chunk: Chunk) -> int:
+        """Monotonic identity for a chunk object. id() is reused after GC —
+        a dead build side's cache entry could alias a brand-new chunk at
+        the same address; a token handed out once per object never can."""
+        tok = getattr(chunk, "_device_token", None)
+        if tok is None:
+            with self._aux_lock:
+                tok = getattr(chunk, "_device_token", None)
+                if tok is None:
+                    tok = next(self._chunk_tokens)
+                    chunk._device_token = tok
+        return tok
+
+    def _aux_batch(self, chunk: Chunk) -> DeviceBatch:
+        """Broadcast build-side chunk -> DeviceBatch, uploaded once per
+        chunk object (all region tasks of a join share the operand).
+
+        Bounded LRU keyed by the chunk token (never-reused identity); the
+        entry pins the chunk so the device batch and its source live and
+        die together."""
+        key = self._chunk_token(chunk)
+        with self._aux_lock:
+            cached = self._aux_batch_cache.get(key)
+            if cached is not None:
+                self._aux_batch_cache.pop(key)  # refresh LRU position
+                self._aux_batch_cache[key] = cached
+                return cached[1]
+        batch = to_device_batch(chunk, capacity=_pow2(max(chunk.num_rows(), 1)), device=self.device)
+        self._count("aux_uploads")
+        with self._aux_lock:
+            self._aux_batch_cache[key] = (chunk, batch)
+            while len(self._aux_batch_cache) > self._AUX_CACHE_MAX:
+                self._aux_batch_cache.pop(next(iter(self._aux_batch_cache)))
+        return batch
+
+    # -- coprocessor result cache (ref: copr/coprocessor_cache.go) ----------
+    def _cop_cache_key(self, req: CopRequest, write_ver: int):
+        return (
+            req.region_id,
+            req.region_epoch,
+            write_ver,
+            req.dag.fingerprint(),
+            tuple((r.start, r.end) for r in req.ranges),
+            req.small_groups,
+        )
+
+    def _cop_cacheable(self, req: CopRequest) -> bool:
+        # paging responses carry per-page cursors; aux chunks (join build
+        # sides) are statement-local operands with no data version to key on
+        return req.paging_size is None and not req.aux_chunks
+
+    def _cop_cache_get(self, req: CopRequest) -> CopResponse | None:
+        """Serve a whole region response from the result cache when the
+        region's data version — (epoch, store write version) — and the DAG
+        fingerprint match (ref: coprocessor_cache.go keying responses by
+        region data version). Entries are only created for snapshots that
+        already see every committed version (start_ts >= kv.max_version at
+        put time), so with the write version unchanged any request at
+        start_ts >= the entry's sees byte-identical data; an older snapshot
+        might predate a version the entry includes and must miss."""
+        if not self._cop_cacheable(req):
+            return None
+        with self._cop_lock:
+            key = self._cop_cache_key(req, self._write_ver)
+            ent = self._cop_cache.get(key)
+            if ent is None:
+                return None
+            resp, entry_ts = ent
+            if req.start_ts < entry_ts:
+                return None
+            self._cop_cache.pop(key)  # refresh LRU position
+            self._cop_cache[key] = ent
+        summaries = [replace(s, cache_hit=True, time_compile_ns=0) for s in resp.exec_summaries]
+        return CopResponse(chunk=resp.chunk, exec_summaries=summaries)
+
+    def _cop_cache_put(self, req: CopRequest, resp: CopResponse, write_ver: int) -> None:
+        """write_ver is the caller's snapshot of _write_ver taken BEFORE it
+        read the region: the insert is refused under _cop_lock if a write
+        landed since (version moved, or a half-applied commit already
+        raised kv.max_version) — otherwise a pre-write response could be
+        filed under the post-write key and serve stale rows."""
+        if (
+            not self._cop_cacheable(req)
+            or resp.chunk is None
+            or resp.region_error is not None
+            or resp.other_error is not None
+            or resp.last_range is not None
+        ):
+            return
+        with self._cop_lock:
+            if write_ver != self._write_ver:
+                return  # a write raced the read: the response may predate it
+            # a snapshot that predates some committed version would cache a
+            # view newer snapshots must not inherit (MVCC: same write_ver,
+            # different visibility) — only the all-seeing snapshot caches
+            if req.start_ts < self.kv.max_committed():
+                return
+            self._cop_cache[self._cop_cache_key(req, write_ver)] = (resp, req.start_ts)
+            while len(self._cop_cache) > self._COP_CACHE_MAX:
+                self._cop_cache.pop(next(iter(self._cop_cache)))
+
+    def _region_fault(self, region_id: int, peer_store: int = -1, replica_read: bool = False):
+        """The typed fault ladder for the peer a request was routed to
+        (`peer_store`; -1 = whoever leads at serve time): the set_down
+        switch, then NotLeader (with the current leader as the hint) for a
+        non-leader peer unless the request is a replica read. None = this
+        peer serves (a replica read on a follower is refused by the
+        caller)."""
+        from .errors import NotLeader, StoreUnavailable
+
+        leader = self.cluster.leader_of(region_id)
+        sid = peer_store if peer_store >= 0 else leader
+        if self.store_down(sid):
+            return StoreUnavailable.make(sid)
+        if sid != leader and not replica_read:
+            return NotLeader.make(region_id, sid, leader)
+        return None
+
+    # -- the serialized endpoint (the sidecar seam) -------------------------
+    def coprocessor_bytes(self, req_bytes: bytes) -> bytes:
+        """Serve one cop request from wire bytes to wire bytes — the
+        process-boundary shape of the coprocessor endpoint (ref:
+        unistore/rpc.go:260 CmdCop dispatch over serialized protos)."""
+        from ..codec.wire import decode_cop_request, encode_cop_response
+
+        try:
+            req = decode_cop_request(req_bytes)
+        except Exception as exc:  # malformed bytes must not kill the server
+            self._count("other_errors")
+            return encode_cop_response(CopResponse(other_error=f"bad request: {exc}"))
+        return encode_cop_response(self.coprocessor(req))
+
+    # -- the coprocessor endpoint -------------------------------------------
+    def coprocessor(self, req: CopRequest, group_capacity: int = DEFAULT_GROUP_CAPACITY) -> CopResponse:
+        resp = self._coprocessor(req, group_capacity)
+        if resp.other_error is not None:
+            self._count("other_errors")
+        return resp
+
+    def _coprocessor(self, req: CopRequest, group_capacity: int) -> CopResponse:
+        from ..exec.dag import executor_walk
+
+        region = self.cluster.region_by_id(req.region_id)
+        if region is None:
+            return CopResponse(region_error=f"region {req.region_id} not found")
+        err = self._region_fault(req.region_id, req.peer_store, req.replica_read)
+        if err is not None:
+            return CopResponse(region_error=str(err))
+        if req.region_epoch != region.epoch:
+            return CopResponse(region_error=f"epoch_not_match: have {region.epoch}, got {req.region_epoch}")
+        if req.replica_read and req.peer_store >= 0 and req.peer_store != self.cluster.leader_of(req.region_id):
+            return CopResponse(other_error=f"replica read of region {req.region_id} at follower store "
+                                           f"{req.peer_store}: replica reads are not ported")
+        cached = self._cop_cache_get(req)
+        if cached is not None:
+            self._count("result_cache_hits")
+            return cached
+        ver = self._snapshot_write_ver()  # pre-read snapshot: gates the cache insert
+        t0 = time.monotonic_ns()
+        last_range = None
+        page = None
+        in_bytes = 0
+        try:
+            if req.paging_size is not None:
+                from ..exec.dag import Aggregation as _Agg, Limit as _Limit, Sort as _Sort, TopN as _TopN
+
+                if req.paging_size <= 0:
+                    return CopResponse(other_error=f"invalid paging_size {req.paging_size}")
+                if any(isinstance(e, (_Agg, _TopN, _Limit, _Sort)) for e in executor_walk(req.dag.executors)):
+                    # per-page agg/top-k/limit results are not mergeable by
+                    # concatenation — row-local DAGs only (scan/sel/proj/join)
+                    return CopResponse(other_error="paging requires a row-local DAG (no aggregation/TopN/Limit)")
+                page, last_range = self._paged_region_chunk(
+                    region, req.ranges, req.dag, req.start_ts, req.paging_size
+                )
+                in_bytes = page.nbytes()
+                batch = to_device_batch(page, capacity=_pow2(max(page.num_rows(), 1)), device=self.device)
+                self._count("device_uploads")
+            else:
+                in_bytes = self.region_chunk(region, req.ranges, req.dag, req.start_ts).nbytes()
+                batch = self.region_device_batch(region, req.ranges, req.dag, req.start_ts)
+            batches = [batch] + [self._aux_batch(c) for c in req.aux_chunks]
+            chunk, ex_rows, info = drive_program_info(self.programs, req.dag, batches, group_capacity,
+                                                      small_groups=req.small_groups)
+            self._count("device_served")
+        except (OverflowRetryError, NotImplementedError):
+            # degenerate fan-out OR an op the device program cannot express
+            # (JSON, host-only funcs, ops not ported yet): fall back to the
+            # row-at-a-time oracle (tidb_tpu/store/store.py:914)
+            self._count("oracle_fallbacks")
+            try:
+                region_chunk = page if page is not None else self.region_chunk(region, req.ranges, req.dag, req.start_ts)
+                rows = run_dag_reference(req.dag, [region_chunk] + list(req.aux_chunks))
+                chunk = Chunk.from_rows(req.dag.output_fts(), rows)
+                # fallback summaries: aligned with the device path's
+                # per-executor walk (build pipelines included); counts are
+                # the final row count
+                ex_rows = [chunk.num_rows()] * len(executor_walk(req.dag.executors))
+                info = {"cache_hit": False, "compile_ns": 0}
+            except (RuntimeError, TypeError, NotImplementedError, ValueError) as exc:
+                return CopResponse(other_error=f"oracle fallback failed: {exc}")
+        except (RuntimeError, TypeError) as exc:
+            return CopResponse(other_error=str(exc))
+        elapsed = time.monotonic_ns() - t0
+        # per-executor produced-row counts are real (counted inside the
+        # program); the time is the whole program's, so every summary of
+        # the task carries it, as it carries the compile/cache attribution;
+        # bytes attribute to the data movers (the scan's decoded region
+        # bytes in, the final executor's result out; ref:
+        # cop_handler.go:518-531)
+        walk = executor_walk(req.dag.executors)
+        out_bytes = chunk.nbytes()
+        summaries = [
+            ExecSummary(
+                time_processed_ns=elapsed, num_produced_rows=r,
+                time_compile_ns=info["compile_ns"], cache_hit=info["cache_hit"],
+                num_bytes=in_bytes if i == 0 else (out_bytes if i == len(ex_rows) - 1 else 0),
+            )
+            for i, r in enumerate(ex_rows)
+        ]
+        _apply_radix_attribution(summaries, walk, info)
+        resp = CopResponse(chunk=chunk, exec_summaries=summaries, last_range=last_range)
+        self._cop_cache_put(req, resp, write_ver=ver)
+        return resp

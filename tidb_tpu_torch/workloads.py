@@ -2,7 +2,9 @@
 DAGs, the join bench's lineitem x orders DAG, a full Sort and a window DAG
 over lineitem, and their generated columns (the DAG makers of the JAX
 package's bench.py, with its random draws in its order, so both packages
-get identical batches).
+get identical batches). The store workloads at the end put one lineitem
+table into a store (TPUStore) as rowcodec rows and scan it from the same
+DAGs, with the join build sides travelling as the request's aux chunks.
 
 Each DAG builder takes the package's `exec`, `expr` and `types` modules as
 arguments, so one definition builds the same DAG in this port and in the
@@ -229,26 +231,28 @@ def q3_columns(n: int, seed: int = 0) -> list:
     ]
 
 
-def join_bench_dag(exec_mod, expr_mod, types_mod, groups: int | None = None):
+def join_bench_dag(exec_mod, expr_mod, types_mod, groups: int | None = None, v_ft=None):
     """The join bench's DAG (bench.py BENCH_JOIN): lineitem(okey, v) JOIN
     orders(okey, payload) on okey, unique build, feeding sum(v), count(*) —
     scalar, or grouped by the build payload when `groups` is set. The
     aggregate's arguments are not the probe key, so the join is not fused
-    with it. Returns (dag, [lineitem, orders field types])."""
+    with it. v is a NOT NULL bigint unless `v_ft` says otherwise. Returns
+    (dag, [lineitem, orders field types])."""
     E, X = exec_mod, expr_mod
     LL = types_mod.new_longlong(notnull=True)
-    ls = E.TableScan(1, (E.ColumnInfo(1, LL), E.ColumnInfo(2, LL)))
+    VT = v_ft or LL
+    ls = E.TableScan(1, (E.ColumnInfo(1, LL), E.ColumnInfo(2, VT)))
     os_ = E.TableScan(2, (E.ColumnInfo(1, LL), E.ColumnInfo(2, LL)))
     join = E.Join(build=(os_,), probe_keys=(X.col(0, LL),), build_keys=(X.col(0, LL),),
                   join_type="inner", build_unique=True)
-    aggs = (X.AggDesc("sum", (X.col(1, LL),)), X.AggDesc("count", ()))
+    aggs = (X.AggDesc("sum", (X.col(1, VT),)), X.AggDesc("count", ()))
     if groups is None:
         agg = E.Aggregation(group_by=(), aggs=aggs)
         offsets = (0, 1)
     else:
         agg = E.Aggregation(group_by=(X.col(3, LL),), aggs=aggs)
         offsets = (0, 1, 2)
-    return E.DAGRequest((ls, join, agg), output_offsets=offsets), [[LL, LL], [LL, LL]]
+    return E.DAGRequest((ls, join, agg), output_offsets=offsets), [[LL, VT], [LL, LL]]
 
 
 def join_bench_columns(n: int, ratio: int, skewed: bool, groups: int | None = None, seed: int = 7) -> list:
@@ -294,3 +298,115 @@ def window_dag(exec_mod, expr_mod, types_mod):
     )
     win = E.dag.Window(partition_by=(okey,), order_by=((price, True), (ship, False)), funcs=funcs)
     return E.DAGRequest((scan, win), output_offsets=tuple(range(len(fts) + len(funcs)))), fts
+
+
+# ---------------------------------------------------------------------------
+# the store's lineitem table
+# ---------------------------------------------------------------------------
+
+LINEITEM_TABLE_ID = 10
+# every column a store DAG scans, in column-id order (ids 1..7)
+LINEITEM_COLUMNS = ("okey", "price", "disc", "shipdate", "qty", "rflag", "lstat")
+LINEITEM_COL_IDS = {name: i + 1 for i, name in enumerate(LINEITEM_COLUMNS)}
+
+
+def store_lineitem(n: int, n_orders: int, seed: int = 0) -> dict:
+    """The store table's columns at n rows (row i has handle i):
+    make_tables' columns, and l_orderkey uniform over n_orders orders as
+    q3_columns and join_bench_columns draw it."""
+    t = make_tables(n, seed)
+    t["okey"] = np.random.default_rng(seed + 1).integers(0, n_orders, n).astype(np.int64)
+    return t
+
+
+def store_rows(types_mod, t: dict, lo: int = 0, hi: int | None = None):
+    """Rows lo..hi of the table as (handle, [Datum per LINEITEM_COLUMNS])
+    of the package `types_mod`: okey a bigint, price / disc / qty
+    DECIMAL(15,2), shipdate a DATETIME, rflag / lstat one-letter strings."""
+    T = types_mod
+    hi = len(t["okey"]) if hi is None else hi
+    dec = T.MyDecimal.from_scaled_int
+    i64, d_dec, d_time, d_str = T.Datum.i64, T.Datum.dec, T.Datum.time, T.Datum.string
+    rflag, lstat = "ANR", "OF"
+    cols = [t[k][lo:hi].tolist() for k in LINEITEM_COLUMNS]
+    for j, (okey, price, disc, ship, qty, rf, ls) in enumerate(zip(*cols)):
+        yield lo + j, [i64(okey), d_dec(dec(price, 2)), d_dec(dec(disc, 2)), d_time(T.MyTime(ship, 0)),
+                       d_dec(dec(qty, 2)), d_str(rflag[rf]), d_str(lstat[ls])]
+
+
+def store_items(codec_mod, rows, table_id: int = LINEITEM_TABLE_ID):
+    """(row key, rowcodec value) pairs of `rows` from store_rows, encoded by
+    the package `codec_mod` (for a store's bulk_ingest)."""
+    enc = codec_mod.RowEncoder()
+    col_ids = [LINEITEM_COL_IDS[k] for k in LINEITEM_COLUMNS]
+    return [(codec_mod.encode_row_key(table_id, h), enc.encode(col_ids, datums)) for h, datums in rows]
+
+
+def store_scan(exec_mod, dag, names, table_id: int = LINEITEM_TABLE_ID):
+    """`dag` with its probe TableScan reading the store table: the same
+    column types, the table's id and the ids of the columns `names`."""
+    import dataclasses
+
+    scan = dag.executors[0]
+    cols = tuple(exec_mod.ColumnInfo(LINEITEM_COL_IDS[nm], c.ft) for nm, c in zip(names, scan.columns))
+    return dataclasses.replace(dag, executors=(dataclasses.replace(scan, table_id=table_id, columns=cols),)
+                               + tuple(dag.executors[1:]))
+
+
+def store_dags(exec_mod, expr_mod, types_mod, topn_limit: int = 100) -> dict:
+    """name -> (DAG over the store table, [field types of each aux scan]):
+    Q6, Q1, TopN, Q3 (orders and customer as aux), the join bench (orders
+    as aux; v is l_extendedprice), Sort and the window DAG."""
+    E, X, T = exec_mod, expr_mod, types_mod
+    out = {}
+    dag, _ = q6_dag(E, X, T)
+    out["q6"] = (store_scan(E, dag, ("shipdate", "qty", "price", "disc")), [])
+    dag, _ = q1_dag(E, X, T)
+    out["q1"] = (store_scan(E, dag, ("rflag", "lstat", "qty", "price", "disc", "shipdate")), [])
+    dag, _ = topn_dag(E, X, T, limit=topn_limit)
+    out["topn"] = (store_scan(E, dag, ("price", "shipdate")), [])
+    dag, (_l, ofts, cfts) = q3_dag(E, X, T)
+    out["q3"] = (store_scan(E, dag, ("okey", "price", "disc", "shipdate")), [ofts, cfts])
+    dag, (_l, ofts) = join_bench_dag(E, X, T, v_ft=_notnull(T, T.new_decimal(15, 2)))
+    out["join"] = (store_scan(E, dag, ("okey", "price")), [ofts])
+    dag, _ = sort_dag(E, X, T)
+    out["sort"] = (store_scan(E, dag, ("price", "shipdate")), [])
+    dag, _ = window_dag(E, X, T)
+    out["window"] = (store_scan(E, dag, ("okey", "price", "disc", "shipdate")), [])
+    return out
+
+
+def store_selection_dag(exec_mod, expr_mod, types_mod):
+    """A row-local DAG for paged requests: SELECT okey, price, shipdate
+    WHERE shipdate > '1995-03-15' AND disc >= 0.05 over the store table."""
+    E, X, T = exec_mod, expr_mod, types_mod
+    BOOL = T.new_longlong(notnull=True)
+    LL, D15, DT = T.new_longlong(notnull=True), T.new_decimal(15, 2), T.new_datetime()
+    scan = E.TableScan(LINEITEM_TABLE_ID, (E.ColumnInfo(LINEITEM_COL_IDS["okey"], LL),
+                                           E.ColumnInfo(LINEITEM_COL_IDS["price"], D15),
+                                           E.ColumnInfo(LINEITEM_COL_IDS["disc"], D15),
+                                           E.ColumnInfo(LINEITEM_COL_IDS["shipdate"], DT)))
+    pred = X.func("and", BOOL, X.func("gt", BOOL, X.col(3, DT), X.lit("1995-03-15", DT)),
+                  X.func("ge", BOOL, X.col(2, D15), X.lit("0.05", T.new_decimal(3, 2))))
+    proj = E.Projection((X.col(0, LL), X.col(1, D15), X.col(3, DT)))
+    return E.DAGRequest((scan, E.Selection((pred,)), proj), output_offsets=(0, 1, 2))
+
+
+def store_q3_build_columns(n_orders: int, n_cust: int, seed: int = 0) -> list:
+    """Q3's build sides for the store (orders keyed 0..n_orders-1, with a
+    customer and a date each; customers keyed 0..n_cust-1 with a segment
+    code into b"BAS"), in q3_columns' form: [orders columns, customer
+    columns]."""
+    rng = np.random.default_rng(seed + 3)
+    custkey = rng.integers(0, n_cust, n_orders).astype(np.int64)
+    odate = make_tables(n_orders, seed + 2)["shipdate"]
+    segment = rng.integers(0, 3, n_cust)
+    return [[fixed_col(np.arange(n_orders, dtype=np.int64)), fixed_col(custkey), fixed_col(odate)],
+            [fixed_col(np.arange(n_cust, dtype=np.int64)), str_col(segment, b"BAS")]]
+
+
+def store_join_build_columns(nb: int, groups: int | None = None, seed: int = 7) -> list:
+    """The join bench's build side for the store: orders keyed 0..nb-1 with
+    a payload of `groups` values (64 when None), as [orders columns]."""
+    payload = np.random.default_rng(seed).integers(0, groups or 64, nb).astype(np.int64)
+    return [[fixed_col(np.arange(nb, dtype=np.int64)), fixed_col(payload)]]

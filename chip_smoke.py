@@ -132,6 +132,13 @@ COLD_REPS = 10
 # K3's operations a row for its bound, whatever the design: the key-run
 # test, inner, real, the duplicate test, the bad byte, the head and ok
 K3_OPS_PER_ROW = 8
+# phase 5b: the kernels' region-batched launches over this many lanes
+BATCH_LANES = 4
+# phase 7, the batch endpoint: phase 6's table split further into seven
+# regions of 2^18 rows and two of 2^17 (two capacity buckets, the first
+# padded from 7 to 8 lanes)
+BATCH_REGION = 1 << 18
+BATCH_SPLITS = tuple(k * BATCH_REGION for k in (1, 2, 3, 5, 6, 7)) + (7 * BATCH_REGION + BATCH_REGION // 2,)
 
 
 def log(*a):
@@ -190,14 +197,15 @@ def host_median_ms(fn, reps: int = REPS, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel_names, reps: int = REPS, tries: int = 3):
+def device_ms(fn, kernel_names, reps: int = REPS, tries: int = 3, launches: int = 1):
     """(ms, ops): the device time per call of the hand kernels named in
     `kernel_names` (substrings of their CUDA function names), from
     torch.profiler over `reps` calls of fn: the kernels alone, without the
     wrapper's host work and small torch ops that the CUDA-event time of a
     call includes; and the device operations (kernels, fills, copies) a
-    call runs in all. A profile that recorded fewer launches of the kernels
-    than calls (the profiler dropped a record) is taken again."""
+    call runs in all. A call of fn launches the kernels `launches` times;
+    a profile that recorded fewer launches (the profiler dropped a record)
+    is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -211,14 +219,38 @@ def device_ms(fn, kernel_names, reps: int = REPS, tries: int = 3):
             torch.cuda.synchronize()
         dev_events = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
         mine = [ev for ev in dev_events if any(k in ev.key for k in kernel_names)]
-        if sum(ev.count for ev in mine) >= reps:
+        if sum(ev.count for ev in mine) >= reps * launches:
             break
     else:
-        raise SystemExit(f"the profiler saw fewer than {reps} launches of {kernel_names} in {tries} tries")
+        raise SystemExit(f"the profiler saw fewer than {reps * launches} launches of {kernel_names} in {tries} tries")
     us = sum(ev.self_device_time_total for ev in mine)
     if us <= 0:
         raise SystemExit(f"the profiler saw no device time for {kernel_names}")
     return us / 1e3 / reps, sum(ev.count for ev in dev_events) / reps
+
+
+def require_launches(what: str, got: int, want: int) -> None:
+    """A kernel's launch count on a path, held to what the path must give."""
+    if got != want:
+        raise SystemExit(f"{what}: {got} launches, not {want}")
+
+
+def vmap_fallbacks(fn):
+    """(fn(), the ops that torch.func.vmap ran lane by lane inside it):
+    torch warns "There is a performance drop because we have not yet
+    implemented the batching rule for <op>" for each such op."""
+    import re
+    import warnings
+
+    with warnings.catch_warnings(record=True) as ws:
+        warnings.simplefilter("always")
+        out = fn()
+    names = set()
+    for w in ws:
+        m = re.search(r"batching rule for (\S+)\.", str(w.message))
+        if m:
+            names.add(m.group(1))
+    return out, sorted(names)
 
 
 def bound(in_bytes: int, out_bytes: int, ops: int):
@@ -580,6 +612,8 @@ class CountedCopies:
     profiler's memcpy records can miss copies, so these are the counts."""
 
     def __enter__(self):
+        import torch
+
         import tidb_tpu_torch.exec.executor as X
         import tidb_tpu_torch.store.store as S
 
@@ -593,7 +627,7 @@ class CountedCopies:
             return b
 
         def down(x):
-            if getattr(x, "device", None) is not None and x.device.type != "cpu":
+            if isinstance(x, torch.Tensor) and x.device.type != "cpu":
                 self.moved["D2H"] += x.nbytes
             return self._down(x)
 
@@ -639,6 +673,7 @@ def profile_path(name, fn, wall_ms: float, top: int = 12, copies: bool = False):
         cb = copy_bytes(prof)
         log(f"  copies: H2D {moved['H2D']} B, D2H {moved['D2H']} B counted at the source; the trace's memcpy "
             f"records hold H2D {cb.get('HtoD', 0)} B, D2H {cb.get('DtoH', 0)} B")
+    return busy_ms, sum(r[1] for r in rows)
 
 
 class Counters:
@@ -899,6 +934,140 @@ def store_phase(E, X, T, W, counters, dev, profile: bool) -> None:
     if store.stats()["oracle_fallbacks"] != fallbacks or store.stats()["other_errors"]:
         raise SystemExit(f"phase 6: an oracle fallback or an other_error while timing ({store.stats()})")
     log(f"phase 6 store counts: {store.stats()}")
+    batch_store_phase(store, W, names, request, check, counters, profile)
+
+
+def batch_store_phase(store, W, names, request, check, counters, profile: bool) -> None:
+    """Phase 7: the batch endpoint on phase 6's store. Split the table into
+    seven regions of 2^18 rows and two of 2^17, send each DAG as one
+    batch_coprocessor_bytes frame over all nine regions plus a stale
+    epoch, hold every region's answer against numpy (no oracle fallback, no
+    other_error), require K1 / K2 / K3 to launch once per capacity bucket,
+    then time the warm batch beside the sum of coprocessor(req) over the
+    same regions, paired."""
+    import torch
+
+    from tidb_tpu_torch import codec
+    from tidb_tpu_torch.codec import wire
+    from tidb_tpu_torch.store import CopRequest
+
+    tid = W.LINEITEM_TABLE_ID
+    for h in BATCH_SPLITS:
+        store.cluster.split(codec.encode_row_key(tid, h))
+    bounds = sorted(set(BATCH_SPLITS) | {0, STORE_SPLIT, STORE_ROWS})
+    regions = list(zip(store.cluster.regions(), bounds[:-1], bounds[1:]))
+    sizes = [hi - lo for _r, lo, hi in regions]
+    if sizes != [BATCH_REGION] * 7 + [BATCH_REGION // 2] * 2:
+        raise SystemExit(f"phase 7: regions of {sizes} rows")
+    buckets = 2
+    per_bucket = {"q1": ("dense_agg",), "q3": ("postsort_segscan", "membership_segscan")}
+    fallbacks, others = store.stats()["oracle_fallbacks"], store.stats()["other_errors"]
+    ts = store.next_ts()
+    stale_region = regions[3][0]
+
+    def frame_of(name):
+        reqs = [request(name, r, ts) for r, _lo, _hi in regions]
+        stale = CopRequest(reqs[3].dag, reqs[3].ranges, ts, stale_region.region_id, stale_region.epoch - 1,
+                           reqs[3].aux_chunks, small_groups=reqs[3].small_groups)
+        return reqs, wire.encode_batch_cop_request(reqs + [stale])
+
+    for name in names:
+        reqs, frame = frame_of(name)
+        b0 = store.stats()
+        t0 = time.perf_counter()
+        resps, fallback = vmap_fallbacks(lambda: counters.path(
+            f"store batch {name}, {len(regions)} regions",
+            lambda: wire.decode_batch_cop_response(store.batch_coprocessor_bytes(frame)),
+            need=per_bucket.get(name, ()), phase=7))
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        for k in per_bucket.get(name, ()):
+            require_launches(f"phase 7 {name} {k}, once per bucket", counters.last[k], buckets)
+        for resp, (region, lo, hi) in zip(resps, regions):
+            what = check(name, resp, lo, hi)
+            if resp.batched not in (1, 2):
+                raise SystemExit(f"phase 7 {name} region {region.region_id}: not served by a bucket (batched={resp.batched})")
+        if len(resps) != len(regions) + 1 or not (resps[-1].region_error or "").startswith("epoch_not_match"):
+            raise SystemExit(f"phase 7 {name}: the stale lane answered {resps[-1].region_error!r}")
+        b1 = store.stats()
+        log(f"phase 7 {name}: {len(regions)} regions in one frame == numpy region by region (last: {what}); "
+            f"stale lane {resps[-1].region_error!r}; buckets {sorted({r.batched for r in resps[:-1]})}; "
+            f"first frame {first_ms:.1f} ms (its regions decoded); batch counts "
+            f"{ {k: b1[k] - b0[k] for k in ('batch_batches', 'batch_regions', 'batch_launches_saved')} }; "
+            f"vmap ran lane by lane: {fallback or 'no op'}")
+    st = store.stats()
+    if st["oracle_fallbacks"] != fallbacks or st["other_errors"] != others or st["batch_fallbacks"]:
+        raise SystemExit(f"phase 7: an oracle fallback, an other_error or a bucket's fallback ({st})")
+
+    # warm times, paired: the batch over the nine regions, then the nine
+    # single requests one after another; every run ends in a synchronise
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    from tidb_tpu_torch.chunk import Chunk, to_stacked_device_batch
+
+    def stack_buckets(reqs):
+        """What the batch pays before its programs run: each bucket's lanes
+        stacked on the host (padded to a power of two) and uploaded."""
+        chunks = [store.region_chunk(r, q.ranges, q.dag, q.start_ts) for q, (r, _lo, _hi) in zip(reqs, regions)]
+        out = []
+        for cap in sorted({1 << (c.num_rows() - 1).bit_length() for c in chunks}):
+            lanes = [c for c in chunks if 1 << (c.num_rows() - 1).bit_length() == cap]
+            pad = (1 << (len(lanes) - 1).bit_length()) - len(lanes)
+            out.append(to_stacked_device_batch(lanes + [Chunk.empty(lanes[0].field_types())] * pad, cap,
+                                               device=store.device))
+        return out
+
+    def served(resps, what):
+        """Every region answered by a bucket: a bucket that fell back to the
+        single path (any error of the batched program) fails the run."""
+        if any(r.batched not in (1, 2) for r in resps[:len(regions)]):
+            raise SystemExit(f"phase 7 {what}: regions not served by a bucket: {[r.batched for r in resps]}")
+        return resps
+
+    med = statistics.median
+    rows = STORE_ROWS
+    for name in names:
+        reqs, frame = frame_of(name)
+        batch_t, single_t, wire_t, stack_t = [], [], [], []
+        for i in range(REPS + 1):
+            store.clear_result_cache()
+            b_ms, resps = timed(lambda: store.batch_coprocessor(reqs))
+            served(resps, f"{name} timing")
+            store.clear_result_cache()
+            w_ms, resps = timed(lambda: wire.decode_batch_cop_response(store.batch_coprocessor_bytes(frame)))
+            served(resps, f"{name} timing over the wire")
+            store.clear_result_cache()
+            s_ms, _ = timed(lambda: [store.coprocessor(r) for r in reqs])
+            k_ms, _ = timed(lambda: stack_buckets(reqs))
+            if i:
+                batch_t.append(b_ms)
+                wire_t.append(w_ms)
+                single_t.append(s_ms)
+                stack_t.append(k_ms)
+        log(f"phase 7 {name} warm ({REPS} paired runs, {len(regions)} regions, {rows} rows): batch_coprocessor "
+            f"{med(batch_t):.3f} ms ({rows / med(batch_t) / 1e3:.1f} Mrows/s), batch_coprocessor_bytes "
+            f"{med(wire_t):.3f} ms, the sum of {len(regions)} coprocessor(req) {med(single_t):.3f} ms "
+            f"({rows / med(single_t) / 1e3:.1f} Mrows/s); batch / singles {med(batch_t) / med(single_t):.3f}; "
+            f"stacking and uploading the buckets' lanes alone {med(stack_t):.3f} ms")
+        if profile and name in ("q1", "q3"):
+            store.clear_result_cache()
+            _busy, launches = profile_path(f"phase 7 {name} batch over {len(regions)} regions",
+                                           lambda: served(store.batch_coprocessor(reqs), f"{name} profile"),
+                                           med(batch_t))
+            store.clear_result_cache()
+            _busy, one = profile_path(f"phase 7 {name} one region request ({BATCH_REGION} rows)",
+                                      lambda: store.coprocessor(reqs[0]), med(single_t) / len(regions))
+            log(f"phase 7 {name} launches: the batch {launches} ({buckets} buckets) vs {len(regions)} x one region "
+                f"request's {one} = {len(regions) * one}")
+    st = store.stats()
+    if st["oracle_fallbacks"] != fallbacks or st["other_errors"] != others or st["batch_fallbacks"]:
+        raise SystemExit(f"phase 7: an oracle fallback, an other_error or a bucket's fallback while timing ({st})")
+    log(f"phase 7 store counts: {st}")
 
 
 def main() -> int:
@@ -1466,6 +1635,137 @@ def main() -> int:
     log(f"phase 5 probe_tables yardstick: a device copy moving the same {16 * words} B takes {copy_ms:.4f} ms "
         f"({16 * words / copy_ms / 1e9:.2f} TB/s)")
     del src, dst
+    counters.zero()
+
+    # phase 5b: each kernel's region-batched launch (the vmap rule of its
+    # custom op) over BATCH_LANES lanes of phase 3's inputs, every lane's
+    # data different, against the plain version lane by lane, bit for bit;
+    # then its device time beside BATCH_LANES single calls and its bound
+    B = BATCH_LANES
+
+    def lanes_of(outs, b):
+        return [[x[b] for x in o] if isinstance(o, (list, tuple)) else o[b] for o in outs]
+
+    def check_batched(name, call, plain_lanes, names, want_flags, flag_at):
+        got, fallback = vmap_fallbacks(call)
+        torch.cuda.synchronize()
+        if fallback:
+            raise SystemExit(f"{name}: vmap ran {fallback} lane by lane")
+        err = 0
+        for b in range(B):
+            err = max(err, compare(name, f"batched lane {b}", lanes_of(got, b), plain_lanes[b](), names))
+        flags = [bool(x) for x in got[flag_at]]
+        if flags != want_flags:
+            raise SystemExit(f"{name} batched: flags {flags}, expected {want_flags}")
+        return err
+
+    batched_timing = {}
+
+    def time_batched(name, cuda_names, call, singles, single_in_out_ops, one_op):
+        """The batched call's device time beside the single calls over the
+        same lanes' inputs (`singles` runs them one after another) and its
+        bound over B times a single call's bytes and operations."""
+        k_ms, dev_ops = device_ms(call, cuda_names)
+        if one_op and dev_ops != 1:
+            raise SystemExit(f"{name} batched: a call ran {dev_ops} device operations, not its one kernel")
+        s_ms, _ = device_ms(singles, cuda_names, launches=B)
+        call_ms, s_call_ms = median_ms(call), median_ms(singles)
+        in_b, out_b, ops = single_in_out_ops
+        b_ms, b_by = bound(B * in_b, B * out_b, B * ops)
+        batched_timing[name] = (k_ms, s_ms, b_ms)
+        log(f"phase 5b {name}: one batched launch over {B} lanes {k_ms:.5f} ms on the device ({call_ms:.4f} ms a "
+            f"call, {dev_ops:g} device ops); the {B} lanes as single calls {s_ms:.5f} ms on the device ({s_call_ms:.4f} "
+            f"ms); batched / singles {k_ms / s_ms:.3f}; bound {b_ms:.4f} ms by {b_by} ({B * (in_b + out_b)} B)")
+
+    roll = [0, 12345, 0, 0]
+    k1_lane_in = [q1_lanes, tuple(torch.roll(x, roll[1]) if torch.is_tensor(x) else [torch.roll(v, roll[1]) for v in x]
+                                  for x in q1_lanes),
+                  K1.dense_agg_lanes([rflag_nulls, gvals[1]], aggs, valid, G)[:5],
+                  K1.dense_agg_lanes([wide_key], aggs, valid, G)[:5]]
+    k1_st = [torch.stack([lane[i] for lane in k1_lane_in]) for i in range(3)]
+    k1_vals = [torch.stack([lane[3][c] for lane in k1_lane_in]) for c in range(nc1)]
+    k1_nulls = [torch.stack([lane[4][c] for lane in k1_lane_in]) for c in range(nc1)]
+
+    def k1_batched():
+        return torch.func.vmap(lambda hp, hv, va, *vn: K1.dense_agg(hp, hv, va, list(vn[:nc1]), list(vn[nc1:]), G))(
+            *k1_st, *k1_vals, *k1_nulls)
+
+    counters.zero()
+    k1_err = max(k1_err, check_batched("dense_agg", k1_batched,
+                                       [lambda b=b: K1._dense_agg_plain(*k1_lane_in[b], G) for b in range(B)],
+                                       k1_names, [False, False, False, True], 2))
+    require_launches("K1 batched", counters.read()["dense_agg"], 1)
+    log(f"phase 5b K1 batched ({B} lanes x {n} rows, lane 3 with 40 keys > G): each lane == plain, one launch")
+    time_batched("dense_agg", ("k1_kernel",), k1_batched, lambda: [K1.dense_agg(*x, G) for x in k1_lane_in],
+                 (n * (8 + 8 + 1) + nc1 * n * (8 + 1), G * (4 + 8 * (1 + 2 * nc1)) + 8, n * (1 + 2 * nc1)), True)
+
+    def shift_keys(spk, b):
+        """spk moved up by 2b below the pinned rows: still sorted, each
+        row's side kept."""
+        return torch.where(spk < K23.PIN - 8, spk + 2 * b, spk)
+
+    def bad_on_last_lane(bad, b):
+        if b != B - 1:
+            return bad
+        out = bad.clone()
+        out[0] = True
+        return out
+
+    k2_lane_in = [(shift_keys(k2_spk, b), [torch.where(x != 0, x + b, x) for x in k2_lanes],
+                   bad_on_last_lane(k2_bad, b), k2_nw, k2_bits) for b in range(B)]
+    k2_st = [torch.stack([ln[0] for ln in k2_lane_in]), [torch.stack([ln[1][c] for ln in k2_lane_in]) for c in range(nl2)],
+             torch.stack([ln[2] for ln in k2_lane_in]), torch.stack([ln[3] for ln in k2_lane_in])]
+
+    def k2_batched():
+        return torch.func.vmap(lambda sp, bd, nw, *ln: K23.postsort_segscan(sp, list(ln), bd, nw, k2_bits))(
+            k2_st[0], k2_st[2], k2_st[3], *k2_st[1])
+
+    names2 = k2_names[:3] + k2_names[3:3 + nl2] + k2_names[5:5 + nl2] + k2_names[7:]
+    counters.zero()
+    k2_err = max(k2_err, check_batched("postsort_segscan", k2_batched,
+                                       [lambda b=b: K23._postsort_segscan_plain(*k2_lane_in[b]) for b in range(B)],
+                                       names2, [False, False, False, True], 5))
+    require_launches("K2 batched", counters.read()["postsort_segscan"], 1)
+    log(f"phase 5b K2 batched ({B} lanes x {n2} rows, lane 3 with a bad bit): each lane == plain, one launch")
+    time_batched("postsort_segscan", ("k2_",), k2_batched, lambda: [K23.postsort_segscan(*x) for x in k2_lane_in],
+                 (n2 * (4 + 4 * nl2 + 1 + (1 if nn2 else 0)), n2 * (1 + 8 + 4 + 8 * nl2 + 8 * nn2) + 16,
+                  n2 * (3 + nl2 + nn2)), False)
+
+    k3_lane_in = [(shift_keys(k3_spk, b), bad_on_last_lane(k3_bad, b)) for b in range(B)]
+    k3_st = [torch.stack([ln[i] for ln in k3_lane_in]) for i in range(2)]
+
+    def k3_batched():
+        return torch.func.vmap(K23.membership_segscan)(*k3_st)
+
+    counters.zero()
+    k3_err = max(k3_err, check_batched("membership_segscan", k3_batched,
+                                       [lambda b=b: K23._membership_segscan_plain(*k3_lane_in[b]) for b in range(B)],
+                                       ("ok_out", "overflow"), [False, False, False, True], 1))
+    require_launches("K3 batched", counters.read()["membership_segscan"], 1)
+    log(f"phase 5b K3 batched ({B} lanes x {n3} rows, lane 3 with a bad bit): each lane == plain, one launch")
+    time_batched("membership_segscan", ("k3_kernel",), k3_batched,
+                 lambda: [K23.membership_segscan(*x) for x in k3_lane_in], (n3 * (4 + 1), n3 + 1, n3 * K3_OPS_PER_ROW), True)
+
+    # K4: the build tables shared (no region axis, as the broadcast build
+    # side reaches the kernel), a different probe side per lane
+    keep = torch.rand(p_ok.shape, generator=gen, device=dev) < 0.8
+    k4_lane_p = [(p_key, p_ok), (p_key, p_ok & keep), (p_key + (1 << 40), p_ok), (torch.roll(p_key, 1, dims=1), p_ok)]
+    k4_pk = torch.stack([x[0] for x in k4_lane_p])
+    k4_po = torch.stack([x[1] for x in k4_lane_p])
+
+    def k4_batched():
+        return torch.func.vmap(lambda pk_, po_: K4.probe_tables(b_key, b_ok, pk_, po_))(k4_pk, k4_po)
+
+    counters.zero()
+    k4_err = max(k4_err, check_batched("probe_tables", k4_batched,
+                                       [lambda b=b: K4._probe_tables_plain(b_key, b_ok, *k4_lane_p[b]) for b in range(B)],
+                                       k4_names, [False] * B, 1))
+    require_launches("K4 batched", counters.read()["probe_tables"], 1)
+    log(f"phase 5b K4 batched ({B} lanes, plan {tuple(b_key.shape)} x {p_key.shape[1]}, one build table shared): "
+        f"each lane == plain, one launch")
+    time_batched("probe_tables", ("probe_kernel",), k4_batched,
+                 lambda: [K4.probe_tables(b_key, b_ok, *x) for x in k4_lane_p], (*k4_bytes, 2 * compares), True)
+    del k1_lane_in, k1_st, k1_vals, k1_nulls, k2_lane_in, k2_st, k3_lane_in, k3_st, k4_pk, k4_po
     counters.zero()
 
     paths = {

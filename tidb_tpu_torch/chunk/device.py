@@ -150,6 +150,48 @@ def _check_ci_ascii(col: Column) -> None:
             )
 
 
+def to_stacked_device_batch(chunks: list[Chunk], capacity: int, device="cuda") -> DeviceBatch:
+    """Stack same-schema chunks into ONE region-batched DeviceBatch whose
+    every leaf carries a leading region axis: data [B, cap(, W)], null /
+    row_valid [B, cap], n_rows [B] — the input of the region-batched
+    program (exec/builder.py build_program(vmap_batch=B)), where
+    torch.func.vmap maps each region lane back to the single-region
+    program unchanged.
+
+    All chunks must share a schema; varlen columns are padded to the
+    batch-wide max width (shared_str_widths), and every lane is checked
+    for non-ASCII bytes under a CI collation as to_device_batch checks
+    it. Stacking happens on the host, so the batch ships to `device` in
+    one copy per leaf of each column."""
+    if not chunks:
+        raise ValueError("cannot stack an empty region batch")
+    dev = resolve_device(device)
+    widths = shared_str_widths(chunks)
+    cols: list[DeviceColumn] = []
+    for ci in range(chunks[0].num_cols()):
+        datas, nulls, lengths = [], [], []
+        for ch in chunks:
+            col = ch.columns[ci]
+            _check_ci_ascii(col)
+            data, null, length = host_column_arrays(col, capacity, widths.get(ci))
+            datas.append(data)
+            nulls.append(null)
+            lengths.append(length)
+        cols.append(
+            DeviceColumn(
+                torch.from_numpy(np.stack(datas)).to(dev),
+                torch.from_numpy(np.stack(nulls)).to(dev),
+                torch.from_numpy(np.stack(lengths)).to(dev) if lengths[0] is not None else None,
+                chunks[0].columns[ci].ft,
+            )
+        )
+    row_valid = np.zeros((len(chunks), capacity), bool)
+    for b, ch in enumerate(chunks):
+        row_valid[b, : ch.num_rows()] = True
+    n_rows = np.array([ch.num_rows() for ch in chunks], np.int32)
+    return DeviceBatch(cols, torch.from_numpy(row_valid).to(dev), torch.from_numpy(n_rows).to(dev))
+
+
 def pack_string_words(data: torch.Tensor, length: torch.Tensor, n_words: int = STRING_WORDS) -> torch.Tensor:
     """[N, W] uint8 + lengths -> [N, n_words + 1] int64, big-endian packed.
 
@@ -165,11 +207,15 @@ def pack_string_words(data: torch.Tensor, length: torch.Tensor, n_words: int = S
     dev = data.device
     pos = torch.arange(w, dtype=torch.int32, device=dev)
     data = torch.where(pos[None, :] < length[:, None], data[:, :w], torch.zeros((), dtype=data.dtype, device=dev))
-    # only the words that can hold a byte are built; the rest stay zero
-    packed = torch.zeros((n, n_words), dtype=torch.int64, device=dev)
-    for j in range(w):
-        packed[:, j // 8] |= data[:, j].to(torch.int64) << (56 - 8 * (j % 8))
-    packed = packed ^ I64_MIN
+    # only the words that can hold a byte are built; the rest are zero.
+    # Built out of place (zeros_like keeps a vmapped batch's region axis)
+    words = []
+    for k in range(n_words):
+        word = torch.zeros_like(length, dtype=torch.int64)
+        for j in range(8 * k, min(w, 8 * k + 8)):
+            word = word | (data[:, j].to(torch.int64) << (56 - 8 * (j % 8)))
+        words.append(word)
+    packed = torch.stack(words, dim=1) ^ I64_MIN
     return torch.cat([packed, length[:, None].to(torch.int64)], dim=1)
 
 

@@ -66,9 +66,16 @@
 // limbs, the bias, the |v| < 2^46 gate and the row-count bound of the TPU
 // kernel are Mosaic artifacts and are gone.
 //
-// Scratch: Scratch below (8,456 B), zeroed once when allocated, one per
-// device and stream; every launch leaves it zeroed again. Resources
-// (ptxas -v, sm_90a) and times on the card are in PERF.md.
+// Regions: one launch serves B regions of n rows each (the region-batched
+// program's vmap rule), grid (blocks, B): each region takes the blocks a
+// single call would, and each region has its own table and done
+// counter in its own scratch record, its own last block and its own
+// outputs. Nothing crosses a region.
+//
+// Scratch: one record per region (Scratch below, 8,456 B, padded to
+// 8,464), zeroed once when allocated, one buffer per device and stream;
+// every launch leaves its records zeroed again. Resources (ptxas -v,
+// sm_90a) and times on the card are in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,6 +105,9 @@ struct Scratch {
   unsigned int flag;
   unsigned int done;
 };
+
+// a region's scratch record: sizeof(Scratch) rounded up to 16 bytes
+constexpr int SCRATCH_STRIDE = (int)((sizeof(Scratch) + 15) / 16 * 16);
 
 struct Inputs {
   const long long* hp;
@@ -189,8 +199,23 @@ __device__ __forceinline__ void load_rows(const Inputs& in, long long base, int 
 }
 
 template <int NC, bool VEC>
-__global__ void __launch_bounds__(THREADS) k1_kernel(Inputs in, Outputs out, Scratch* sc) {
+__global__ void __launch_bounds__(THREADS) k1_kernel(Inputs in, Outputs out, unsigned char* scratch) {
   constexpr int NA = 1 + 2 * NC;
+  // the region this block serves (blockIdx.y): its rows, its outputs and
+  // its own scratch record; nothing is shared between regions
+  const long long region = blockIdx.y;
+  in.hp += region * in.n;
+  in.hv += region * in.n;
+  in.valid += region * in.n;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) in.v[c] += region * in.n, in.nl[c] += region * in.n;
+  out.group_rep += region * out.G;
+  out.n_groups += region;
+  out.overflow += region;
+  out.counts += region * out.G;
+  out.sums += region * NC * out.G;
+  out.nns += region * NC * out.G;
+  Scratch* sc = reinterpret_cast<Scratch*>(scratch + region * (long long)SCRATCH_STRIDE);
   __shared__ unsigned long long s_key[SLOTS];
   __shared__ unsigned long long s_acc[SLOTS * NA];
   __shared__ long long s_hvmin[SLOTS], s_hvmax[SLOTS];
@@ -428,7 +453,7 @@ __global__ void __launch_bounds__(THREADS) k1_kernel(Inputs in, Outputs out, Scr
 }
 
 template <int NC, bool VEC>
-int launch(const Inputs& in, const Outputs& out, Scratch* sc, cudaStream_t st) {
+int launch(const Inputs& in, const Outputs& out, int B, unsigned char* sc, cudaStream_t st) {
   static int per_sm = 0;
   if (!per_sm) {
     cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k1_kernel<NC, VEC>, THREADS, 0);
@@ -439,22 +464,25 @@ int launch(const Inputs& in, const Outputs& out, Scratch* sc, cudaStream_t st) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long chunks = (in.n + CHUNK - 1) / CHUNK;
   const long long want = (chunks + WARPS - 1) / WARPS;
+  // as many blocks per region as one region would take: a region whose
+  // keys make it slow (many groups a chunk) still gets the whole card in
+  // its turn, rather than a fixed 1/B share of it
   const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const int blocks = (int)(want < 1 ? 1 : (want < cap ? want : cap));
-  k1_kernel<NC, VEC><<<blocks, THREADS, 0, st>>>(in, out, sc);
+  k1_kernel<NC, VEC><<<dim3(blocks, B), THREADS, 0, st>>>(in, out, sc);
   return (int)cudaGetLastError();
 }
 
 template <bool VEC>
-int launch_nc(int nc, const Inputs& in, const Outputs& out, Scratch* sc, cudaStream_t st) {
+int launch_nc(int nc, const Inputs& in, const Outputs& out, int B, unsigned char* sc, cudaStream_t st) {
   switch (nc) {
-    case 0: return launch<0, VEC>(in, out, sc, st);
-    case 1: return launch<1, VEC>(in, out, sc, st);
-    case 2: return launch<2, VEC>(in, out, sc, st);
-    case 3: return launch<3, VEC>(in, out, sc, st);
-    case 4: return launch<4, VEC>(in, out, sc, st);
-    case 5: return launch<5, VEC>(in, out, sc, st);
-    default: return launch<6, VEC>(in, out, sc, st);
+    case 0: return launch<0, VEC>(in, out, B, sc, st);
+    case 1: return launch<1, VEC>(in, out, B, sc, st);
+    case 2: return launch<2, VEC>(in, out, B, sc, st);
+    case 3: return launch<3, VEC>(in, out, B, sc, st);
+    case 4: return launch<4, VEC>(in, out, B, sc, st);
+    case 5: return launch<5, VEC>(in, out, B, sc, st);
+    default: return launch<6, VEC>(in, out, B, sc, st);
   }
 }
 
@@ -462,28 +490,35 @@ bool aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0;
 
 }  // namespace
 
-// Bytes of K1's scratch; it must be zeroed once when allocated.
-extern "C" long long dense_agg_scratch_bytes() { return (long long)sizeof(Scratch); }
+// Bytes of one region's record of K1's scratch; a launch over B regions
+// takes B records, zeroed when allocated.
+extern "C" long long dense_agg_scratch_bytes() { return (long long)SCRATCH_STRIDE; }
 
-// K1, one launch on `stream`. Inputs: hp, hv int64 [n]; valid byte [n];
-// vals[c] int64 [n] and nulls[c] byte [n] for c < nc. Every output is
-// written in full (no initialisation needed): group_rep int32 [G], n_groups
-// int32, overflow one byte, counts int64 [G], sums and nns int64 [nc, G].
-// scratch: dense_agg_scratch_bytes() bytes, zeroed when allocated and then
-// kept for every later call on the same stream. Returns cudaGetLastError()
-// (0 on success), or -1 for bad arguments.
+// K1 over B regions, one launch on `stream` (grid: blocks x B; the
+// counterpart of the region axis that vmap adds to the Pallas grid).
+// Inputs, region-major and contiguous: hp, hv int64 [B, n]; valid byte
+// [B, n]; vals[c] int64 [B, n] and nulls[c] byte [B, n] for c < nc. Every
+// output is written in full (no initialisation needed): group_rep int32
+// [B, G], n_groups int32 [B], overflow byte [B], counts int64 [B, G], sums
+// and nns int64 [B, nc, G]. scratch: B * dense_agg_scratch_bytes() bytes,
+// zeroed when allocated and then kept for every later call on the same
+// stream. Returns cudaGetLastError() (0 on success), or -1 for bad
+// arguments.
 extern "C" int dense_agg_launch(const void* hp, const void* hv, const void* valid, long long n,
-                                const void* const* vals, const void* const* nulls, int nc, int G,
+                                const void* const* vals, const void* const* nulls, int nc, int G, int B,
                                 void* group_rep, void* n_groups, void* overflow, void* counts,
                                 void* sums, void* nns, void* scratch, void* stream) {
   if (nc < 0 || nc > MAX_C || G < 1 || G > MAX_G || n < 0 || n >= (1ll << 31)) return -1;
+  if (B < 1 || B > 65535) return -1;
   if (!scratch || !aligned(scratch, 16)) return -1;
   Inputs in;
   in.hp = (const long long*)hp;
   in.hv = (const long long*)hv;
   in.valid = (const unsigned char*)valid;
   in.n = n;
-  bool vec = aligned(hp, 16) && aligned(hv, 16) && aligned(valid, 2);
+  // a region's rows start n elements after the last one's: whole vectors
+  // only when n is even
+  bool vec = aligned(hp, 16) && aligned(hv, 16) && aligned(valid, 2) && (B == 1 || n % 2 == 0);
   for (int c = 0; c < MAX_C; ++c) {
     in.v[c] = c < nc ? (const long long*)vals[c] : nullptr;
     in.nl[c] = c < nc ? (const unsigned char*)nulls[c] : nullptr;
@@ -497,7 +532,7 @@ extern "C" int dense_agg_launch(const void* hp, const void* hv, const void* vali
   out.sums = (long long*)sums;
   out.nns = (long long*)nns;
   out.G = G;
-  Scratch* sc = (Scratch*)scratch;
+  unsigned char* sc = (unsigned char*)scratch;
   cudaStream_t st = (cudaStream_t)stream;
-  return vec ? launch_nc<true>(nc, in, out, sc, st) : launch_nc<false>(nc, in, out, sc, st);
+  return vec ? launch_nc<true>(nc, in, out, B, sc, st) : launch_nc<false>(nc, in, out, B, sc, st);
 }

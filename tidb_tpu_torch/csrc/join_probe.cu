@@ -50,8 +50,14 @@
 // load, 8 CTAs an SM at 32 registers, and a table deduplicated after the
 // inserts so that a probe stops at its first match.
 //
-// Scratch: Scratch below (16 B), zeroed once when allocated; every launch
-// leaves it zeroed again. Resources (ptxas -v) and times on the card are
+// Regions: one launch probes B regions (the region-batched program's vmap
+// rule), grid (n_parts, B): a CTA per (region, partition). A build table
+// with no region axis (the broadcast build side of a region batch) is one
+// table that every region's CTAs read; each region has its own bpos rows,
+// its own dup flag and its own scratch record and ticket.
+//
+// Scratch: one Scratch record (16 B) per region, zeroed once when
+// allocated; every launch leaves its records zeroed again. Resources (ptxas -v) and times on the card are
 // in PERF.md.
 
 #include <cuda_runtime.h>
@@ -131,14 +137,30 @@ __device__ __forceinline__ void load_round(Round& r, const long long* __restrict
   }
 }
 
+// Elements between one region's table and the next, per input: 0 for a
+// table that every region shares (a build table with no region axis).
+struct Strides {
+  long long b_key, b_ok, p_key, p_ok;
+};
+
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 probe_kernel(const long long* __restrict__ b_key, const unsigned char* __restrict__ b_ok,
              const long long* __restrict__ p_key, const unsigned char* __restrict__ p_ok,
              int part_cap, int probe_cap, int bits, int* __restrict__ bpos,
-             unsigned char* __restrict__ dup_out, Scratch* sc) {
+             unsigned char* __restrict__ dup_out, Scratch* sc, Strides rs) {
   __shared__ long long s_key[MAX_TABLE];
   __shared__ int s_slot[MAX_TABLE];
+  // the region (blockIdx.y): its tables (a shared build table is read by
+  // every region), its bpos rows, its dup flag and its own scratch record
+  const long long region = blockIdx.y;
+  b_key += region * rs.b_key;
+  b_ok += region * rs.b_ok;
+  p_key += region * rs.p_key;
+  p_ok += region * rs.p_ok;
+  bpos += region * (long long)gridDim.x * probe_cap;
+  dup_out += region;
+  sc += region;
   const long long part = blockIdx.x;
   const int t = threadIdx.x;
   const int size = 1 << bits, mask = size - 1;
@@ -215,21 +237,25 @@ bool aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0;
 
 }  // namespace
 
-// Bytes of K4's scratch; it must be zeroed once when allocated.
+// Bytes of a region's record of K4's scratch; B records, zeroed once when
+// allocated.
 extern "C" long long probe_tables_scratch_bytes() { return (long long)sizeof(Scratch); }
 
-// K4, one launch on `stream`. Inputs: b_key int64 [n_parts, part_cap],
-// b_ok byte [n_parts, part_cap], p_key int64 [n_parts, probe_cap], p_ok
-// byte [n_parts, probe_cap]. Outputs, written in full: bpos int32
-// [n_parts, probe_cap] and dup (one byte). scratch:
-// probe_tables_scratch_bytes() bytes, zeroed when allocated and then kept
-// for every later call on the same stream. Returns cudaGetLastError() (0 on
-// success), or -1 for bad arguments.
+// K4 over B regions, one launch on `stream` (grid: n_parts x B). Inputs,
+// region-major: b_key int64 [B, n_parts, part_cap], b_ok byte [B, n_parts,
+// part_cap], p_key int64 [B, n_parts, probe_cap], p_ok byte [B, n_parts,
+// probe_cap]; a build input passed with shared_b_key / shared_b_ok set is
+// one [n_parts, part_cap] table read by every region. Outputs, written in
+// full: bpos int32 [B, n_parts, probe_cap] and dup (a byte a region).
+// scratch: B * probe_tables_scratch_bytes() bytes, zeroed when allocated
+// and then kept for every later call on the same stream. Returns
+// cudaGetLastError() (0 on success), or -1 for bad arguments.
 extern "C" int probe_tables_launch(const void* b_key, const void* b_ok, const void* p_key,
-                                   const void* p_ok, int n_parts, int part_cap, int probe_cap,
-                                   void* bpos, void* dup, void* scratch, void* stream) {
+                                   const void* p_ok, int n_parts, int part_cap, int probe_cap, int B,
+                                   int shared_b_key, int shared_b_ok, void* bpos, void* dup, void* scratch,
+                                   void* stream) {
   if (n_parts < 1 || part_cap < 1 || part_cap > MAX_PART_CAP || probe_cap < 1) return -1;
-  if ((long long)n_parts * probe_cap >= (1ll << 31)) return -1;
+  if ((long long)n_parts * probe_cap >= (1ll << 31) || B < 1 || B > 65535) return -1;
   if (!scratch || !aligned(scratch, 16)) return -1;
   int bits = 1;
   while ((1 << bits) < 2 * part_cap) ++bits;
@@ -240,11 +266,16 @@ extern "C" int probe_tables_launch(const void* b_key, const void* b_ok, const vo
   const long long* pk = (const long long*)p_key;
   const unsigned char* po = (const unsigned char*)p_ok;
   Scratch* sc = (Scratch*)scratch;
+  Strides rs;
+  rs.b_key = shared_b_key ? 0 : (long long)n_parts * part_cap;
+  rs.b_ok = shared_b_ok ? 0 : (long long)n_parts * part_cap;
+  rs.p_key = rs.p_ok = (long long)n_parts * probe_cap;
+  const dim3 grid(n_parts, B);
   if (vec)
-    probe_kernel<true><<<n_parts, THREADS, 0, st>>>(bk, bo, pk, po, part_cap, probe_cap, bits, (int*)bpos,
-                                                    (unsigned char*)dup, sc);
+    probe_kernel<true><<<grid, THREADS, 0, st>>>(bk, bo, pk, po, part_cap, probe_cap, bits, (int*)bpos,
+                                                 (unsigned char*)dup, sc, rs);
   else
-    probe_kernel<false><<<n_parts, THREADS, 0, st>>>(bk, bo, pk, po, part_cap, probe_cap, bits, (int*)bpos,
-                                                     (unsigned char*)dup, sc);
+    probe_kernel<false><<<grid, THREADS, 0, st>>>(bk, bo, pk, po, part_cap, probe_cap, bits, (int*)bpos,
+                                                  (unsigned char*)dup, sc, rs);
   return (int)cudaGetLastError();
 }

@@ -41,12 +41,21 @@
 // atomic each per block; the last block to finish moves them into the
 // call's outputs.
 //
+// Regions: one launch scans B regions of n rows each (the region-batched
+// program's vmap rule). Tile ids run region after region, so a region's
+// tiles still only wait on tiles already running; a tile looks back no
+// further than its region's first tile (before it lies the identity), and
+// each region's flag and join rows gather in its own record of a second
+// scratch (RegionAcc), which the launch's last block moves into the
+// [B] outputs and zeroes.
+//
 // Scratch and reset: the wrapper keeps one zeroed scratch buffer per
-// device and stream: a header {counter, done, flag, rows, epoch}, then one
-// 88-B record per tile: its status word ((epoch << 2) | 1 aggregate, | 2
-// inclusive prefix; 0 never published) and its two 40-B payloads. A tile's
-// status word sits at the same offset whatever n is, so a word there only
-// ever holds a status word, of this launch or of an earlier one. The epoch
+// device and stream: a header {counter, done, 16 unused bytes, epoch},
+// then one 88-B record per tile of every region: its status word
+// ((epoch << 2) | 1 aggregate, | 2 inclusive prefix; 0 never published)
+// and its two 40-B payloads. A record's status word sits at the same
+// offset whatever n and B are, so a word there only ever holds a status
+// word, of this launch or of an earlier one. The epoch
 // lives on the device: every block reads it when it starts, and the last
 // block of a launch (a block counts itself done only after it has read the
 // epoch, taken its tile id, finished its look-back and added its flag and
@@ -77,7 +86,9 @@
 // overflow: a duplicate usable inner key, or any bad byte. ONE launch of
 // k3_kernel and no other device operation; one CTA of 256 threads per
 // 2048-row tile, 8 consecutive rows a thread: 320 CTAs, one wave, at Q3's
-// 655,360 rows. No search per row:
+// 655,360 rows (grid (tiles, B) over B regions: each region starts at a
+// tile boundary, has its own ticket and its own flag, and no window or
+// search crosses its start). No search per row:
 //   * every load goes out at once: two 16-B spk loads and two 4-B bad
 //     loads a thread, and the 32 rows before each warp (its window);
 //   * a warp whose rows are all pinned stops there (Q3's 371,356-row
@@ -139,7 +150,8 @@ struct Params {
   const unsigned char* nw;
   int nc;
   int bit[MAXL];
-  long long n;
+  long long n;      // rows a region
+  long long tiles;  // tiles a region
 };
 
 struct Outs {
@@ -156,9 +168,16 @@ struct Outs {
 struct Scratch {
   unsigned long long counter;  // next tile id
   unsigned long long done;     // blocks past their flag and rows
+  unsigned long long unused[2];
+  unsigned long long epoch;    // this launch's; the last block bumps it
+};
+
+// A region's flag and join rows, in a second zeroed buffer of one record
+// per region; the last block of a launch moves them into the outputs and
+// zeroes them.
+struct RegionAcc {
   unsigned long long ovf;
   unsigned long long rows;
-  unsigned long long epoch;    // this launch's; the last block bumps it
 };
 
 struct TileRec {
@@ -341,14 +360,16 @@ __device__ void block_scan(const Run& x, Run& incl, Run& excl, Run& total) {
   __syncthreads();  // the shared arrays are reused by the next call
 }
 
-// Warp 0: the combination of tiles 0..tile-1, walking back 32 tiles at a
-// time until the nearest one that has published its inclusive prefix.
-__device__ Run look_back(const TileRec* rec, long long tile, unsigned long long epoch) {
+// Warp 0: the combination of records first..tile-1 (the tiles of the
+// region before this one), walking back 32 tiles at a time until the
+// nearest one that has published its inclusive prefix; it never reads a
+// record before the region's first.
+__device__ Run look_back(const TileRec* rec, long long tile, long long first, unsigned long long epoch) {
   const int lane = threadIdx.x & 31;
   Run acc = identity();  // the tiles after the current window
   for (long long w = tile - 1;; w -= 32) {
     const long long pt = w - lane;  // lane 0 is the nearest predecessor
-    int state = pt < 0 ? (int)ST_PRE : 0;  // before tile 0: the identity
+    int state = pt < first ? (int)ST_PRE : 0;  // before the region's first tile: the identity
     unsigned pm, upto;
     for (;;) {
       if (state == 0) {
@@ -362,7 +383,7 @@ __device__ Run look_back(const TileRec* rec, long long tile, unsigned long long 
       __nanosleep(32);
     }
     Run x = identity();
-    if (((upto >> lane) & 1) && pt >= 0) x = load_run(state == (int)ST_PRE ? &rec[pt].pre : &rec[pt].agg);
+    if (((upto >> lane) & 1) && pt >= first) x = load_run(state == (int)ST_PRE ? &rec[pt].pre : &rec[pt].agg);
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const Run o = shfl_down(x, d);  // lane + d is the earlier tile
@@ -422,7 +443,8 @@ __device__ __forceinline__ void store8(long long* stg, unsigned char* g, int wm,
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(THREADS, 4) k2_scan(Params p, Outs o, unsigned char* scratch) {
+__global__ void __launch_bounds__(THREADS, 4) k2_scan(Params p, Outs o, unsigned char* scratch, RegionAcc* acc,
+                                                      int regions) {
   __shared__ __align__(16) int s_spk[TILE];
   __shared__ __align__(16) int s_lane[MAXL][TILE];
   __shared__ __align__(16) unsigned char s_nw[TILE];
@@ -442,7 +464,23 @@ __global__ void __launch_bounds__(THREADS, 4) k2_scan(Params p, Outs o, unsigned
     s_rows = 0;
   }
   __syncthreads();
-  const long long tile = s_tile;
+  // tile ids run region after region: record g is tile g % tiles of
+  // region g / tiles, whose rows and outputs start region * n elements in
+  const long long g = s_tile;
+  const long long region = g / p.tiles, tile = g - region * p.tiles, first = region * p.tiles;
+  const long long roff = region * p.n;
+  p.spk += roff;
+  p.bad += roff;
+  if (p.nw) p.nw += roff;
+  o.gv += roff;
+  o.cnt += roff;
+  o.key += roff;
+#pragma unroll
+  for (int c = 0; c < MAXL; ++c) {
+    if (p.lane[c]) p.lane[c] += roff;
+    if (o.sum[c]) o.sum[c] += roff;
+    if (o.nn[c]) o.nn[c] += roff;
+  }
   const unsigned long long epoch = s_epoch;
   const long long start = tile * TILE;
   const int m = (int)min((long long)TILE, p.n - start);  // < TILE only for the last tile
@@ -511,15 +549,15 @@ __global__ void __launch_bounds__(THREADS, 4) k2_scan(Params p, Outs o, unsigned
   if (threadIdx.x < 32) {
     if (threadIdx.x == 0) {
       if (total.f)
-        publish(&rec[tile].status, &rec[tile].pre, total, epoch << 2 | ST_PRE);
+        publish(&rec[g].status, &rec[g].pre, total, epoch << 2 | ST_PRE);
       else
-        publish(&rec[tile].status, &rec[tile].agg, total, epoch << 2 | ST_AGG);
+        publish(&rec[g].status, &rec[g].agg, total, epoch << 2 | ST_AGG);
     }
     Run x = identity();
-    if (tile > 0) x = look_back(rec, tile, epoch);
+    if (tile > 0) x = look_back(rec, g, first, epoch);
     if (threadIdx.x == 0) {
       s_carry = x;
-      if (!total.f) publish(&rec[tile].status, &rec[tile].pre, combine(x, total), epoch << 2 | ST_PRE);
+      if (!total.f) publish(&rec[g].status, &rec[g].pre, combine(x, total), epoch << 2 | ST_PRE);
     }
   }
   __syncthreads();
@@ -585,15 +623,17 @@ __global__ void __launch_bounds__(THREADS, 4) k2_scan(Params p, Outs o, unsigned
 
   // 5. the flag and the join rows, off the look-back's path
   if (threadIdx.x == 0) {
-    if (flag) atomicOr(&sc->ovf, 1ull);
-    if (s_rows) atomicAdd(&sc->rows, (unsigned long long)s_rows);
+    if (flag) atomicOr(&acc[region].ovf, 1ull);
+    if (s_rows) atomicAdd(&acc[region].rows, (unsigned long long)s_rows);
     __threadfence();
     if (atomicAdd(&sc->done, 1ull) == gridDim.x - 1ull) {
-      // every block has read the epoch, taken its tile id, looked back and
-      // added its flag and rows
+      // every block of every region has read the epoch, taken its tile
+      // id, looked back and added its flag and rows
       __threadfence();
-      *o.ovf = atomicExch(&sc->ovf, 0ull) != 0;
-      *o.rows = (long long)atomicExch(&sc->rows, 0ull);
+      for (int r = 0; r < regions; ++r) {
+        o.ovf[r] = atomicExch(&acc[r].ovf, 0ull) != 0;
+        o.rows[r] = (long long)atomicExch(&acc[r].rows, 0ull);
+      }
       atomicAdd(&sc->epoch, 1ull);
       atomicExch(&sc->counter, 0ull);
       atomicExch(&sc->done, 0ull);
@@ -678,6 +718,15 @@ __global__ void __launch_bounds__(K3_THREADS) k3_kernel(const int* __restrict__ 
                                                         unsigned char* __restrict__ ok,
                                                         unsigned char* __restrict__ ovf, K3Scratch* sc) {
   constexpr int W = K3_ITEMS / 4;  // 4-row words a thread
+  // the region (blockIdx.y): its rows, its ok bytes, its flag and its own
+  // ticket. Row indexes below are the region's own, so the window before
+  // a warp and the run-head search never cross the region's start.
+  const long long region = blockIdx.y;
+  spk += region * n;
+  bad += region * n;
+  ok += region * n;
+  ovf += region;
+  sc += region;
   __shared__ int s_any[K3_WARPS];  // each warp's overflow bit
   const int t = threadIdx.x, lane = t & 31, wp = t >> 5;
   const unsigned wb = blockIdx.x * (unsigned)K3_TILE + wp * (32u * K3_ITEMS);  // the warp's first row
@@ -777,25 +826,33 @@ __global__ void __launch_bounds__(K3_THREADS) k3_kernel(const int* __restrict__ 
 
 extern "C" int postsort_segscan_tile() { return TILE; }
 
-// Bytes of K2's scratch for n rows; it must be zeroed once when allocated.
-extern "C" long long postsort_segscan_scratch_bytes(long long n) {
+// Bytes of K2's scratch for B regions of n rows; it must be zeroed once
+// when allocated.
+extern "C" long long postsort_segscan_scratch_bytes(long long n, long long B) {
   const long long tiles = (n + TILE - 1) / TILE;
-  return (long long)sizeof(Scratch) + tiles * (long long)sizeof(TileRec);
+  return (long long)sizeof(Scratch) + B * tiles * (long long)sizeof(TileRec);
 }
 
-// K2. Every output is written in full (no initialisation needed): gv,
-// cnt, key, sum_c for c < nc, nn_c for a lane with bit_c >= 0, ovf (one
-// byte) and rows (one int64). sum1 / nn0 / nn1 may be null when unused.
-// scratch: at least postsort_segscan_scratch_bytes(n) bytes, zeroed when
-// allocated and then kept for every later call on the same stream, of any
-// n it fits. Returns cudaGetLastError(), -1 for bad arguments.
+// Bytes of a region's record of K2's second scratch (its flag and join
+// rows); B records, zeroed when allocated.
+extern "C" long long postsort_segscan_acc_bytes() { return (long long)sizeof(RegionAcc); }
+
+// K2 over B regions of n rows, one launch. Inputs and outputs are
+// region-major and contiguous ([B, n]). Every output is written in full
+// (no initialisation needed): gv, cnt, key, sum_c for c < nc, nn_c for a
+// lane with bit_c >= 0, ovf (a byte a region) and rows (an int64 a
+// region). sum1 / nn0 / nn1 may be null when unused. scratch: at least
+// postsort_segscan_scratch_bytes(n, B) bytes, acc: B *
+// postsort_segscan_acc_bytes(), both zeroed when allocated and then kept
+// for every later call on the same stream that they fit. Returns
+// cudaGetLastError(), -1 for bad arguments.
 extern "C" int postsort_segscan_launch(const void* spk, const void* lane0, const void* lane1,
                                        const void* bad, const void* nw, int nc, int bit0, int bit1,
-                                       long long n, void* gv, void* cnt, void* key, void* sum0,
+                                       long long n, int B, void* gv, void* cnt, void* key, void* sum0,
                                        void* sum1, void* nn0, void* nn1, void* ovf, void* rows,
-                                       void* scratch, void* stream) {
-  if (nc < 0 || nc > MAXL || n < 1 || n >= (1ll << 31)) return -1;
-  if (!scratch || ((uintptr_t)scratch & 15)) return -1;
+                                       void* scratch, void* acc, void* stream) {
+  if (nc < 0 || nc > MAXL || n < 1 || n >= (1ll << 31) || B < 1) return -1;
+  if (!scratch || ((uintptr_t)scratch & 15) || !acc || ((uintptr_t)acc & 15)) return -1;
   Params p;
   p.spk = (const int*)spk;
   p.lane[0] = (const int*)lane0;
@@ -806,6 +863,8 @@ extern "C" int postsort_segscan_launch(const void* spk, const void* lane0, const
   p.bit[0] = nc > 0 ? bit0 : -1;
   p.bit[1] = nc > 1 ? bit1 : -1;
   p.n = n;
+  p.tiles = (n + TILE - 1) / TILE;
+  if (p.tiles * B >= (1ll << 31)) return -1;
   if ((p.bit[0] >= 0 || p.bit[1] >= 0) && !nw) return -1;
   Outs o;
   o.gv = (unsigned char*)gv;
@@ -820,33 +879,37 @@ extern "C" int postsort_segscan_launch(const void* spk, const void* lane0, const
   if (!spk || !bad || !gv || !cnt || !key || !ovf || !rows) return -1;
   for (int c = 0; c < nc; ++c)
     if (!p.lane[c] || !o.sum[c] || (p.bit[c] >= 0 && !o.nn[c])) return -1;
-  const long long tiles = (n + TILE - 1) / TILE;
-  k2_scan<<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(p, o, (unsigned char*)scratch);
+  k2_scan<<<(unsigned)(p.tiles * B), THREADS, 0, (cudaStream_t)stream>>>(p, o, (unsigned char*)scratch,
+                                                                         (RegionAcc*)acc, B);
   return (int)cudaGetLastError();
 }
 
 extern "C" int membership_segscan_tile() { return K3_TILE; }
 
-// Bytes of K3's scratch; it must be zeroed once when allocated.
+// Bytes of a region's record of K3's scratch; B records, zeroed once when
+// allocated.
 extern "C" long long membership_segscan_scratch_bytes() { return (long long)sizeof(K3Scratch); }
 
-// K3, one launch on `stream`. spk int32 [n] sorted, bad byte [n]. Outputs,
-// written in full: ok uint8 [n] and ovf (one byte). scratch:
+// K3 over B regions of n rows, one launch on `stream` (grid: tiles x B).
+// spk int32 [B, n], each region sorted, bad byte [B, n]. Outputs, written
+// in full: ok uint8 [B, n] and ovf (a byte a region). scratch: B *
 // membership_segscan_scratch_bytes() bytes, zeroed when allocated and then
 // kept for every later call on the same stream. Returns cudaGetLastError(),
 // -1 for bad arguments.
-extern "C" int membership_segscan_launch(const void* spk, const void* bad, long long n, void* ok, void* ovf,
-                                         void* scratch, void* stream) {
-  if (n < 1 || n >= (1ll << 31) || !spk || !bad || !ok || !ovf) return -1;
+extern "C" int membership_segscan_launch(const void* spk, const void* bad, long long n, int B, void* ok,
+                                         void* ovf, void* scratch, void* stream) {
+  if (n < 1 || n >= (1ll << 31) || B < 1 || B > 65535 || !spk || !bad || !ok || !ovf) return -1;
   if (!scratch || ((uintptr_t)scratch & 15)) return -1;
   const unsigned tiles = (unsigned)((n + K3_TILE - 1) / K3_TILE);
-  const bool vec = aligned16(spk) && ((uintptr_t)bad & 3) == 0 && ((uintptr_t)ok & 3) == 0;
+  // a region's rows start n elements after the last one's
+  const bool vec = aligned16(spk) && ((uintptr_t)bad & 3) == 0 && ((uintptr_t)ok & 3) == 0 && (B == 1 || n % 4 == 0);
   cudaStream_t st = (cudaStream_t)stream;
   const int* s = (const int*)spk;
   const unsigned char* b = (const unsigned char*)bad;
+  const dim3 grid(tiles, B);
   if (vec)
-    k3_kernel<true><<<tiles, K3_THREADS, 0, st>>>(s, b, (int)n, (unsigned char*)ok, (unsigned char*)ovf, (K3Scratch*)scratch);
+    k3_kernel<true><<<grid, K3_THREADS, 0, st>>>(s, b, (int)n, (unsigned char*)ok, (unsigned char*)ovf, (K3Scratch*)scratch);
   else
-    k3_kernel<false><<<tiles, K3_THREADS, 0, st>>>(s, b, (int)n, (unsigned char*)ok, (unsigned char*)ovf, (K3Scratch*)scratch);
+    k3_kernel<false><<<grid, K3_THREADS, 0, st>>>(s, b, (int)n, (unsigned char*)ok, (unsigned char*)ovf, (K3Scratch*)scratch);
   return (int)cudaGetLastError();
 }

@@ -16,9 +16,14 @@ join + stream aggregation, the radix-partitioned join (ops/radix_join.py)
 and the general sort-merge kernel (ops/join.py). TopN takes the sampled
 threshold path (ops/topn.py) and sets its overflow flag when the check
 fails; topn_full=True builds the exact full-sort variant that
-drive_program_info retries with. There is no vmapped (region-batched) and no mesh variant.
-Programs cache by (DAG fingerprint, capacities, knobs, device, kernel
-route), with a single-flight miss so racing threads build once.
+drive_program_info retries with. vmap_batch=B builds the region-batched
+variant: torch.func.vmap over the same program, the probe batch mapped on
+its leading region axis and every build-side batch shared, so B regions
+run as one program execution and each hand kernel launches once over all
+of them (its custom op's vmap rule). There is no mesh variant.
+Programs cache by (DAG fingerprint, capacities, knobs, region batch,
+device, kernel route), with a single-flight miss so racing threads build
+once.
 """
 
 from __future__ import annotations
@@ -569,6 +574,41 @@ def _agg_result_cols(a, av: list[CompVal], st, group_valid, partial: bool) -> li
     return [CompVal(v, nl, a.ft)]
 
 
+def _flatten_batch(batch) -> tuple[list, list]:
+    """A DeviceBatch's tensors in a fixed order, and what rebuilds it:
+    per column its FieldType and whether it carries lengths."""
+    leaves, spec = [], []
+    for c in batch.cols:
+        leaves += [c.data, c.null] + ([c.length] if c.length is not None else [])
+        spec.append((c.ft, c.length is not None))
+    return leaves + [batch.row_valid, batch.n_rows], spec
+
+
+def _unflatten_batch(leaves, spec):
+    from ..chunk.device import DeviceBatch, DeviceColumn
+
+    cols, k = [], 0
+    for ft, has_len in spec:
+        cols.append(DeviceColumn(leaves[k], leaves[k + 1], leaves[k + 2] if has_len else None, ft))
+        k += 3 if has_len else 2
+    return DeviceBatch(cols, leaves[k], leaves[k + 1])
+
+
+def _region_batched(program):
+    """The program over a region-stacked probe batch (chunk/device.py
+    to_stacked_device_batch): torch.func.vmap maps every leaf of the probe
+    batch on its leading region axis; the build-side batches are closed
+    over, so every region shares them (in_dims None, the broadcast
+    operand every region task of a join carries). Every output gains the
+    region axis."""
+
+    def fn(stacked, *aux):
+        leaves, spec = _flatten_batch(stacked)
+        return torch.func.vmap(lambda *lv: program(_unflatten_batch(lv, spec), *aux))(*leaves)
+
+    return fn
+
+
 def build_program(
     dag: DAGRequest,
     capacities,
@@ -578,13 +618,20 @@ def build_program(
     small_groups: int | None = None,
     unique_joins: bool = True,
     radix_joins: bool = True,
+    vmap_batch: int | None = None,
 ) -> CompiledDAG:
     """The whole DAG (probe pipeline and every join build pipeline) as one
     closure over a tuple of device batches. topn_full=True runs every TopN
     as the exact full sort (the TopN-overflow retry). unique_joins=False
     ignores the planner's unique-build hints and radix_joins=False the
     radix path: the join-overflow retry drops both and lands on the general
-    kernel."""
+    kernel.
+
+    vmap_batch=B builds the REGION-BATCHED variant: the first (probe)
+    batch carries a leading region axis of size B and the program runs
+    under torch.func.vmap over it, build-side batches shared. All outputs
+    (packed columns, valid, n_out, the six flags, ex_rows) gain the
+    leading region axis, so overflow is per region."""
     if isinstance(capacities, int):
         capacities = (capacities,)
     capacities = tuple(capacities)
@@ -607,7 +654,8 @@ def build_program(
                 state.join_need, state.radix_escapes)
         return packed, valid, n_out, ovfs, torch.stack(state.ex_rows)
 
-    return CompiledDAG(program, dag.output_fts(), capacities, group_capacity, join_capacity, radix_info)
+    fn = program if vmap_batch is None else _region_batched(program)
+    return CompiledDAG(fn, dag.output_fts(), capacities, group_capacity, join_capacity, radix_info)
 
 
 def kernel_route(device) -> str:
@@ -619,10 +667,11 @@ def kernel_route(device) -> str:
 class ProgramCache:
     """Fingerprint -> CompiledDAG (ref: coprocessor cache keying).
 
-    The key is the JAX package's (builder.py:900) less the region batch
-    and mesh knobs this port has no programs for, with the device and the
-    kernel route in place of the pallas mode; topn_full keeps its place
-    after the join capacity. Builds are single-flight per key: the first
+    The key is the JAX package's (builder.py:900) less the mesh knobs this
+    port has no programs for, with the device and the kernel route in place
+    of the pallas mode; topn_full keeps its place after the join capacity
+    and vmap_batch (the region batch, None for a single region) follows the
+    radix knob. Builds are single-flight per key: the first
     thread to miss claims the key, racers wait on its event and land as
     hits."""
 
@@ -635,13 +684,15 @@ class ProgramCache:
 
     def get(self, dag: DAGRequest, capacities, group_capacity: int = DEFAULT_GROUP_CAPACITY,
             join_capacity: int | None = None, topn_full: bool = False, small_groups: int | None = None,
-            device="cuda", unique_joins: bool = True, radix_joins: bool = True) -> CompiledDAG:
+            device="cuda", unique_joins: bool = True, radix_joins: bool = True,
+            vmap_batch: int | None = None) -> CompiledDAG:
         return self.get_info(dag, capacities, group_capacity, join_capacity, topn_full, small_groups,
-                             device, unique_joins, radix_joins)[0]
+                             device, unique_joins, radix_joins, vmap_batch)[0]
 
     def get_info(self, dag: DAGRequest, capacities, group_capacity: int = DEFAULT_GROUP_CAPACITY,
                  join_capacity: int | None = None, topn_full: bool = False, small_groups: int | None = None,
-                 device="cuda", unique_joins: bool = True, radix_joins: bool = True) -> tuple:
+                 device="cuda", unique_joins: bool = True, radix_joins: bool = True,
+                 vmap_batch: int | None = None) -> tuple:
         """(program, cache_hit, build_ns)."""
         import time as _t
 
@@ -650,7 +701,7 @@ class ProgramCache:
         capacities = tuple(capacities)
         dev = str(torch.device(device))
         key = (dag.fingerprint(), capacities, group_capacity, join_capacity, topn_full, small_groups,
-               unique_joins, radix_joins, dev, kernel_route(dev))
+               unique_joins, radix_joins, vmap_batch, dev, kernel_route(dev))
         while True:
             prog = self._cache.get(key)
             if prog is not None:
@@ -670,7 +721,7 @@ class ProgramCache:
                 self.compiles += 1
             t0 = _t.perf_counter_ns()
             prog = build_program(dag, capacities, group_capacity, join_capacity, topn_full, small_groups,
-                                 unique_joins, radix_joins)
+                                 unique_joins, radix_joins, vmap_batch)
             build_ns = _t.perf_counter_ns() - t0
             self._cache[key] = prog
         finally:

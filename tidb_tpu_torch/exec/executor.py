@@ -1,11 +1,14 @@
 """Host-side DAG drivers (port of tidb_tpu/exec/executor.py).
 
 run_dag_on_chunk(s): pad host Chunks into DeviceBatches, run the program,
-decode outputs back to a host Chunk. drive_program_info handles the
-overflow contract: on overflow it retries on the capacity ladder
-(exec/ladder.py), drops a wrong small-G hint, drops the unique-build and
-radix join hints when no rung can clear a join overflow, and rebuilds a
-TopN whose sampled threshold missed as the exact full sort. Exhausted
+decode outputs back to a host Chunk. drive_batched_program_info runs the
+region-batched program once over a stack of regions and slices each
+region's result out; a region whose flags fired answers None.
+drive_program_info handles the overflow contract: on overflow it retries
+on the capacity ladder (exec/ladder.py), drops a wrong small-G hint,
+drops the unique-build and radix join hints when no rung can clear a
+join overflow, and rebuilds a TopN whose sampled threshold missed as the
+exact full sort. Exhausted
 retries raise OverflowRetryError, and operators the device program does
 not express raise NotImplementedError.
 
@@ -164,6 +167,66 @@ def drive_program_info(cache: ProgramCache, dag: DAGRequest, batches, group_capa
         if t_ovf:
             tf = True  # TopN candidate overflow: the exact full-sort variant
     raise OverflowRetryError("DAG overflow not resolved after retries")
+
+
+def _slice_region(packed, b: int) -> list:
+    """Region lane `b` of the region-batched program's packed outputs
+    (host arrays): each leaf loses its leading region axis, which gives
+    the single-region layout decode_outputs consumes."""
+    return [tuple(a[b] for a in out) for out in packed]
+
+
+def drive_batched_program_info(cache: ProgramCache, dag: DAGRequest, stacked, aux_batches, group_capacity: int,
+                               join_capacity: int | None = None, small_groups: int | None = None):
+    """ONE execution of the region-batched program over a region-stacked
+    probe batch (chunk/device.py to_stacked_device_batch), the build-side
+    batches shared: the device half of the batch coprocessor. Where the
+    per-region path runs the program once per region, this runs it once
+    for all of them, then slices each region's result out.
+
+    The flag vectors, ex_rows and the radix escapes come back in one host
+    fetch. Returns (per_region, info): per_region[b] is (chunk,
+    per-executor row counts) for a lane that completed, or None for a lane
+    whose group, join or TopN flag fired (overflow is data-dependent per
+    region, so only that region falls out; the caller retries it through
+    the single-region ladder, drive_program_info). info is the batch's
+    {"cache_hit", "compile_ns"[, "radix"]}; "radix" carries
+    "escapes_by_lane", aligned with per_region."""
+    B, cap = stacked.row_valid.shape
+    caps = (int(cap),) + tuple(b.capacity for b in aux_batches)
+    jc = rung_for(join_capacity or max(caps))
+    prog, hit, build_ns = cache.get_info(dag, caps, rung_for(group_capacity), jc, False, small_groups,
+                                         device=stacked.device, vmap_batch=int(B))
+    t0 = time.perf_counter_ns()
+    packed, valid, _n, (g_ovf, j_ovf, t_ovf, _g_need, _j_need, radix_esc), ex_rows = prog.fn(stacked, *aux_batches)
+    # one fetch: the three flags, the escapes and ex_rows side by side
+    head = torch.stack([g_ovf.to(torch.int64), j_ovf.to(torch.int64), t_ovf.to(torch.int64),
+                        radix_esc.to(torch.int64)], dim=1)
+    fetched = _np(torch.cat([head, ex_rows.to(torch.int64)], dim=1))
+    info = {"cache_hit": hit, "compile_ns": 0}
+    if not hit:
+        # the fetch above waited for the program: the first call's time
+        # counts as build time, as drive_program_info counts it
+        info["compile_ns"] = build_ns + (time.perf_counter_ns() - t0)
+    fell = fetched[:, :3].any(axis=1)
+    host_packed = [tuple(_np(a) for a in out) for out in packed] if not fell.all() else []
+    valid_np = _np(valid) if not fell.all() else None
+    per_region: list = []
+    esc_by_lane: list = []
+    for b in range(int(B)):
+        if fell[b]:
+            per_region.append(None)
+            esc_by_lane.append(0)
+            continue
+        esc_by_lane.append(int(fetched[b, 3]))
+        chunk = decode_outputs(_slice_region(host_packed, b), valid_np[b], prog.out_fts)
+        per_region.append((chunk, [int(x) for x in fetched[b, 4:]]))
+    _radix_attribution(prog, jc, sum(esc_by_lane), info)
+    if "radix" in info:
+        # each lane's own escapes (the batch total stamped on every lane
+        # would multiply in a sum over the lanes' summaries)
+        info["radix"]["escapes_by_lane"] = esc_by_lane
+    return per_region, info
 
 
 def run_dag_on_chunks(

@@ -111,22 +111,63 @@ def check(t: torch.Tensor, shape, dtypes, what: str):
 class StreamScratch:
     """A kernel's zeroed scratch buffer, one per (device, stream), made
     with torch.zeros at the stream's first launch; the kernel leaves it
-    zeroed for the next launch. A launch that failed may leave it dirty,
-    so its caller drops it. `nbytes()` gives the size (the kernel library's
-    own entry point)."""
+    zeroed for the next launch. A region-batched launch takes one record
+    of `nbytes()` bytes (the kernel library's own entry point) per region:
+    a call that needs more records than the buffer holds replaces it with
+    a larger zeroed one. A launch that failed may leave it dirty, so its
+    caller drops it."""
 
     def __init__(self, nbytes):
         self.nbytes = nbytes
         self.bufs: dict = {}
 
-    def get(self, dev, stream: int) -> torch.Tensor:
+    def get(self, dev, stream: int, records: int = 1) -> torch.Tensor:
+        need = records * self.nbytes()
         buf = self.bufs.get((dev.index, stream))
-        if buf is None:
-            buf = self.bufs[(dev.index, stream)] = torch.zeros(self.nbytes(), dtype=torch.uint8, device=dev)
+        if buf is None or buf.numel() < need:
+            buf = self.bufs[(dev.index, stream)] = torch.zeros(need, dtype=torch.uint8, device=dev)
         return buf
 
     def drop(self, dev, stream: int):
         self.bufs.pop((dev.index, stream), None)
+
+
+def region_major(x: torch.Tensor, in_dim, batch: int) -> torch.Tensor:
+    """An input of a vmapped kernel call as the region-batched launch takes
+    it: the region axis first and the tensor contiguous; an input with no
+    region axis (in_dim None) is repeated for every region."""
+    if in_dim is None:
+        return x.unsqueeze(0).expand(batch, *x.shape).contiguous()
+    return x.movedim(in_dim, 0).contiguous()
+
+
+def _select(x, d, b: int):
+    """Lane b of an argument (a list argument: of each element)."""
+    if d is None:
+        return x
+    if isinstance(x, (list, tuple)):
+        return [_select(v, dd, b) for v, dd in zip(x, d)]
+    return x.select(d, b)
+
+
+def _stack(outs: list):
+    """Per-lane outputs (tensors, or tuples / lists of them) stacked on a
+    new leading axis: (values, out_dims) of the same structure."""
+    first = outs[0]
+    if isinstance(first, (list, tuple)):
+        parts = [_stack([o[i] for o in outs]) for i in range(len(first))]
+        vals, dims = [p[0] for p in parts], [p[1] for p in parts]
+        return (tuple(vals), tuple(dims)) if isinstance(first, tuple) else (vals, dims)
+    return torch.stack(outs), 0
+
+
+def lanewise(op, batch: int, in_dims, args):
+    """A vmap rule's plain path: `op` called once per region lane on that
+    lane's slice of every batched argument (unbatched ones as they are),
+    the outputs stacked on a new leading region axis. Returns (outputs,
+    out_dims) as torch.library.register_vmap wants them."""
+    outs = [op(*_select(list(args), list(in_dims), b)) for b in range(batch)]
+    return _stack(outs)
 
 
 _typed: dict = {}

@@ -86,7 +86,9 @@ def _as_f64(a: CompVal):
 
 
 def _zeros_bool(n: int, like: torch.Tensor):
-    return torch.zeros(n, dtype=torch.bool, device=like.device)
+    # new_zeros: a vmapped `like` (the region-batched program) gives a
+    # buffer with its region axis, so the in-place writes below stay legal
+    return like.new_zeros(n, dtype=torch.bool)
 
 
 def _agg_states_raw(desc: AggDesc, args: list[CompVal], valid, ctx: SegCtx):

@@ -21,7 +21,9 @@ byte: N * (17 + 9 * NC) bytes — ~0.22 GB and ~66 us for Q1 at 2^22 rows
 
 `dense_agg` launches the kernel for CUDA tensors and runs the plain torch
 version `_dense_agg_plain` only for CPU tensors; on CUDA it launches or
-raises. `dense_agg.launches` counts kernel launches.
+raises. It is a custom op with a vmap rule: under torch.func.vmap (the
+region-batched program) one launch serves every region, on a grid that
+gains a region axis. `dense_agg.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -170,7 +172,7 @@ _vpp = ctypes.POINTER(ctypes.c_void_p)
 # csrc/dense_agg.cu's entry points: (restype, argtypes)
 _SIGNATURES = {
     "dense_agg_scratch_bytes": (_i64, []),
-    "dense_agg_launch": (_i32, [_vp, _vp, _vp, _i64, _vpp, _vpp, _i32, _i32,
+    "dense_agg_launch": (_i32, [_vp, _vp, _vp, _i64, _vpp, _vpp, _i32, _i32, _i32,
                                 _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
 }
 
@@ -182,18 +184,20 @@ def _fn(name: str):
     return entry("dense_agg", name, _SIGNATURES[name])
 
 
-# the 64-slot table the blocks merge into, per device and stream; the
-# kernel's last block leaves it zeroed for the next call
+# the 64-slot table the blocks merge into, one record per region, per
+# device and stream; each region's last block leaves its record zeroed
 _k1_scratch = StreamScratch(lambda: _fn("dense_agg_scratch_bytes")())
 
 
-def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
-    """One launch of the kernel and no other device operation; valid rows'
-    hp must have bit 63 clear (as group_hash gives them). The kernel writes
-    every output in full, so they are allocated empty."""
+def _dense_agg_cuda_batched(hp, hv, row_valid, vals, nulls, g_cap: int):
+    """One launch of the kernel over B regions and no other device
+    operation. Every input is [B, n], region-major and contiguous; the
+    outputs gain the leading region axis. Valid rows' hp must have bit 63
+    clear (as group_hash gives them). The kernel writes every output in
+    full, so they are allocated empty."""
     from ..kernels import check
 
-    n = hp.shape[0]
+    B, n = hp.shape
     G = int(g_cap)
     nc = len(vals)
     if not 1 <= G <= MAX_G:
@@ -202,30 +206,32 @@ def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
         raise ValueError(f"{nc} value lanes / {len(nulls)} null lanes (max {MAX_COMBOS})")
     if n >= 1 << 31:
         raise ValueError("row index must fit int32 (group_rep)")
+    if not 1 <= B < 1 << 16:
+        raise ValueError(f"{B} regions outside 1..65535")
     byte = (torch.bool, torch.uint8)
-    check(hp, (n,), (torch.int64,), "hp")
-    check(hv, (n,), (torch.int64,), "hv")
-    check(row_valid, (n,), byte, "row_valid")
+    check(hp, (B, n), (torch.int64,), "hp")
+    check(hv, (B, n), (torch.int64,), "hv")
+    check(row_valid, (B, n), byte, "row_valid")
     for c in range(nc):
-        check(vals[c], (n,), (torch.int64,), f"vals[{c}]")
-        check(nulls[c], (n,), byte, f"nulls[{c}]")
+        check(vals[c], (B, n), (torch.int64,), f"vals[{c}]")
+        check(nulls[c], (B, n), byte, f"nulls[{c}]")
     dev = hp.device
     # six allocations cost the host less than views of one buffer would
     i64, i32 = torch.int64, torch.int32
-    group_rep = torch.empty(G, dtype=i32, device=dev)
-    n_groups = torch.empty((), dtype=i32, device=dev)
-    overflow = torch.empty((), dtype=torch.bool, device=dev)
-    counts = torch.empty(G, dtype=i64, device=dev)
-    sums = torch.empty((nc, G), dtype=i64, device=dev)
-    nns = torch.empty((nc, G), dtype=i64, device=dev)
+    group_rep = torch.empty((B, G), dtype=i32, device=dev)
+    n_groups = torch.empty(B, dtype=i32, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    counts = torch.empty((B, G), dtype=i64, device=dev)
+    sums = torch.empty((B, nc, G), dtype=i64, device=dev)
+    nns = torch.empty((B, nc, G), dtype=i64, device=dev)
     varr = (_vp * MAX_COMBOS)(*[v.data_ptr() for v in vals])
     narr = (_vp * MAX_COMBOS)(*[m.data_ptr() for m in nulls])
     with torch.cuda.device(dev):
         st = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn("dense_agg_launch")(hp.data_ptr(), hv.data_ptr(), row_valid.data_ptr(), n, varr, narr, nc, G,
+        err = _fn("dense_agg_launch")(hp.data_ptr(), hv.data_ptr(), row_valid.data_ptr(), n, varr, narr, nc, G, B,
                                       group_rep.data_ptr(), n_groups.data_ptr(), overflow.data_ptr(),
                                       counts.data_ptr(), sums.data_ptr(), nns.data_ptr(),
-                                      _k1_scratch.get(dev, st).data_ptr(), st)
+                                      _k1_scratch.get(dev, st, B).data_ptr(), st)
     if err != 0:
         # a launch that failed may leave the table dirty: never reuse it
         _k1_scratch.drop(dev, st)
@@ -234,14 +240,56 @@ def _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap: int):
     return group_rep, n_groups, overflow, counts, sums, nns
 
 
+_T = torch.Tensor
+
+
+@torch.library.custom_op("tidb_tpu_torch::dense_agg", mutates_args=())
+def _dense_agg_op(hp: _T, hv: _T, row_valid: _T, vals: list[_T], nulls: list[_T],
+                  g_cap: int) -> tuple[_T, _T, _T, _T, _T, _T]:
+    if hp.device.type == "cuda":  # the launch over one region
+        outs = _dense_agg_cuda_batched(hp[None], hv[None], row_valid[None], [v[None] for v in vals],
+                                       [m[None] for m in nulls], g_cap)
+        return tuple(o[0] for o in outs)
+    return _dense_agg_plain(hp, hv, row_valid, vals, nulls, g_cap)
+
+
+@_dense_agg_op.register_fake
+def _dense_agg_fake(hp, hv, row_valid, vals, nulls, g_cap):
+    G, nc = int(g_cap), len(vals)
+    i64, i32 = torch.int64, torch.int32
+    return (hp.new_empty(G, dtype=i32), hp.new_empty((), dtype=i32), hp.new_empty((), dtype=torch.bool),
+            hp.new_empty(G, dtype=i64), hp.new_empty((nc, G), dtype=i64), hp.new_empty((nc, G), dtype=i64))
+
+
+def _dense_agg_vmap(info, in_dims, hp, hv, row_valid, vals, nulls, g_cap):
+    """The region axis: one launch over every region on the card (the
+    counterpart of the grid axis that pallas_call's batching rule adds),
+    the plain version lane by lane on the CPU."""
+    from ..kernels import lanewise, region_major
+
+    B = info.batch_size
+    if hp.device.type != "cuda":
+        return lanewise(_dense_agg_op, B, in_dims, (hp, hv, row_valid, vals, nulls, g_cap))
+    d_hp, d_hv, d_valid, d_vals, d_nulls, _ = in_dims
+    outs = _dense_agg_cuda_batched(region_major(hp, d_hp, B), region_major(hv, d_hv, B),
+                                   region_major(row_valid, d_valid, B),
+                                   [region_major(v, d, B) for v, d in zip(vals, d_vals)],
+                                   [region_major(m, d, B) for m, d in zip(nulls, d_nulls)], g_cap)
+    return outs, (0,) * 6
+
+
+torch.library.register_vmap(_dense_agg_op, _dense_agg_vmap)
+
+
 def dense_agg(hp, hv, row_valid, vals, nulls, g_cap: int):
-    """The kernel's function (see _dense_agg_plain for the contract):
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if hp.device.type == "cuda":
-        return _dense_agg_cuda(hp, hv, row_valid, vals, nulls, g_cap)
-    if hp.device.type == "cpu":
-        return _dense_agg_plain(hp, hv, row_valid, vals, nulls, g_cap)
-    raise ValueError(f"dense_agg: unsupported device {hp.device}")
+    """The kernel's function (see _dense_agg_plain for the contract): the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors, as
+    the custom op `tidb_tpu_torch::dense_agg`, so that torch.func.vmap
+    over the region-batched program launches the kernel once over every
+    region (_dense_agg_vmap)."""
+    if hp.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"dense_agg: unsupported device {hp.device}")
+    return _dense_agg_op(hp, hv, row_valid, list(vals), list(nulls), int(g_cap))
 
 
 dense_agg.launches = 0

@@ -17,7 +17,8 @@ its own; other shapes take the "search" probe (ops/radix_join.py).
 `probe_tables` launches the kernel for CUDA tensors and runs the plain
 torch version `_probe_tables_plain` only for CPU tensors; on CUDA it
 launches or raises; a CUDA call is that one launch and no other device
-operation. `probe_tables.launches` counts kernel launches.
+operation. It is a custom op with a vmap rule: under torch.func.vmap (the
+region-batched program) one launch serves every region. `probe_tables.launches` counts kernel launches.
 `probe_tables_bytes` counts the bytes a probe of given tables must move
 (the kernel's bound).
 """
@@ -82,7 +83,7 @@ _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # csrc/join_probe.cu's entry points: (restype, argtypes)
 _SIGNATURES = {
     "probe_tables_scratch_bytes": (_i64, []),
-    "probe_tables_launch": (_i32, [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _vp, _vp, _vp, _vp]),
+    "probe_tables_launch": (_i32, [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp, _vp, _vp, _vp]),
 }
 
 
@@ -93,35 +94,43 @@ def _fn(name: str):
     return entry("join_probe", name, _SIGNATURES[name])
 
 
-# the dup word and the CTA ticket, per device and stream; the kernel's
-# last CTA leaves them zeroed for the next call
+# the dup word and the CTA ticket, one record per region, per device and
+# stream; each region's last CTA leaves its record zeroed for the next call
 _k4_scratch = StreamScratch(lambda: _fn("probe_tables_scratch_bytes")())
 
 
-def _probe_tables_cuda(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
-    """One launch of the kernel and no other device operation: it writes
-    bpos and dup in full, so both are allocated empty."""
+def _probe_tables_cuda_batched(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok, batch: int):
+    """One launch over `batch` regions and no other device operation. The
+    probe tables are [B, P, probe_cap]; a build table is [B, P, part_cap],
+    or [P, part_cap] when every region shares it (read in place, once per
+    region). It writes bpos [B, P, probe_cap] and dup [B] in full, so both
+    are allocated empty."""
     from ..kernels import check
 
-    P, part_cap = b_key_tbl.shape
-    probe_cap = p_key_tbl.shape[1]
+    B = int(batch)
+    P, part_cap = b_key_tbl.shape[-2:]
+    probe_cap = p_key_tbl.shape[-1]
     if not 1 <= part_cap <= MAX_PART_CAP:
         raise ValueError(f"part_cap {part_cap} outside 1..{MAX_PART_CAP}")
     if not 1 <= P < (1 << 31) or probe_cap < 1 or P * probe_cap >= (1 << 31):
         raise ValueError(f"table shape {P} x {probe_cap} outside the kernel's range")
+    if not 1 <= B < (1 << 16):
+        raise ValueError(f"{B} regions outside 1..65535")
     byte = (torch.bool, torch.uint8)
-    check(b_key_tbl, (P, part_cap), (torch.int64,), "b_key_tbl")
-    check(b_slot_ok, (P, part_cap), byte, "b_slot_ok")
-    check(p_key_tbl, (P, probe_cap), (torch.int64,), "p_key_tbl")
-    check(p_slot_ok, (P, probe_cap), byte, "p_slot_ok")
+    shared_key, shared_ok = b_key_tbl.dim() == 2, b_slot_ok.dim() == 2
+    check(b_key_tbl, (P, part_cap) if shared_key else (B, P, part_cap), (torch.int64,), "b_key_tbl")
+    check(b_slot_ok, (P, part_cap) if shared_ok else (B, P, part_cap), byte, "b_slot_ok")
+    check(p_key_tbl, (B, P, probe_cap), (torch.int64,), "p_key_tbl")
+    check(p_slot_ok, (B, P, probe_cap), byte, "p_slot_ok")
     dev = b_key_tbl.device
-    bpos = torch.empty((P, probe_cap), dtype=torch.int32, device=dev)
-    dup = torch.empty((), dtype=torch.bool, device=dev)
+    bpos = torch.empty((B, P, probe_cap), dtype=torch.int32, device=dev)
+    dup = torch.empty(B, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         st = torch.cuda.current_stream(dev).cuda_stream
         err = _fn("probe_tables_launch")(b_key_tbl.data_ptr(), b_slot_ok.data_ptr(), p_key_tbl.data_ptr(),
-                                         p_slot_ok.data_ptr(), P, part_cap, probe_cap, bpos.data_ptr(),
-                                         dup.data_ptr(), _k4_scratch.get(dev, st).data_ptr(), st)
+                                         p_slot_ok.data_ptr(), P, part_cap, probe_cap, B, int(shared_key),
+                                         int(shared_ok), bpos.data_ptr(), dup.data_ptr(),
+                                         _k4_scratch.get(dev, st, B).data_ptr(), st)
     if err != 0:
         # a launch that failed may leave the scratch dirty: never reuse it
         _k4_scratch.drop(dev, st)
@@ -130,16 +139,52 @@ def _probe_tables_cuda(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
     return bpos, dup
 
 
+_T = torch.Tensor
+
+
+@torch.library.custom_op("tidb_tpu_torch::probe_tables", mutates_args=())
+def _probe_tables_op(b_key_tbl: _T, b_slot_ok: _T, p_key_tbl: _T, p_slot_ok: _T) -> tuple[_T, _T]:
+    if b_key_tbl.device.type == "cuda":
+        bpos, dup = _probe_tables_cuda_batched(b_key_tbl, b_slot_ok, p_key_tbl[None], p_slot_ok[None], 1)
+        return bpos[0], dup[0]
+    return _probe_tables_plain(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok)
+
+
+@_probe_tables_op.register_fake
+def _probe_tables_fake(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
+    return p_key_tbl.new_empty(p_key_tbl.shape, dtype=torch.int32), p_key_tbl.new_empty((), dtype=torch.bool)
+
+
+def _probe_tables_vmap(info, in_dims, b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
+    """The region axis: one launch over every region on the card, a build
+    table with no region axis (the broadcast build side) shared in place;
+    the plain version lane by lane on the CPU."""
+    from ..kernels import lanewise, region_major
+
+    B = info.batch_size
+    if b_key_tbl.device.type != "cuda":
+        return lanewise(_probe_tables_op, B, in_dims, (b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok))
+    d_bk, d_bo, d_pk, d_po = in_dims
+    bk = b_key_tbl.contiguous() if d_bk is None else region_major(b_key_tbl, d_bk, B)
+    bo = b_slot_ok.contiguous() if d_bo is None else region_major(b_slot_ok, d_bo, B)
+    outs = _probe_tables_cuda_batched(bk, bo, region_major(p_key_tbl, d_pk, B), region_major(p_slot_ok, d_po, B), B)
+    return outs, (0, 0)
+
+
+torch.library.register_vmap(_probe_tables_op, _probe_tables_vmap)
+
+
 def probe_tables(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok):
     """The kernel's function (see _probe_tables_plain): int64 key tables
     [P, part_cap] / [P, probe_cap] with their bool slot masks -> (bpos
     int32 [P, probe_cap], dup bool). The CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if b_key_tbl.device.type == "cuda":
-        return _probe_tables_cuda(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok)
-    if b_key_tbl.device.type == "cpu":
-        return _probe_tables_plain(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok)
-    raise ValueError(f"probe_tables: unsupported device {b_key_tbl.device}")
+    plain version for CPU tensors, as the custom op
+    `tidb_tpu_torch::probe_tables` (under torch.func.vmap one launch
+    serves every region, and a build table without the region axis is
+    shared)."""
+    if b_key_tbl.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"probe_tables: unsupported device {b_key_tbl.device}")
+    return _probe_tables_op(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok)
 
 
 probe_tables.launches = 0

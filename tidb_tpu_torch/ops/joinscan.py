@@ -25,8 +25,10 @@ of the (unsorted) bad lane. join_rows counts every real probe row.
 `postsort_segscan` and `membership_segscan` launch the kernels for CUDA
 tensors and run the plain torch versions only for CPU tensors; on CUDA
 they launch or raise, and a call is that one launch and no other device
-operation (each keeps a zeroed scratch per device and stream). `.launches`
-on each counts kernel launches.
+operation (each keeps a zeroed scratch per device and stream). Each is a
+custom op with a vmap rule: under torch.func.vmap (the region-batched
+program) one launch serves every region. `.launches` on each counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -103,12 +105,13 @@ _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # csrc/joinscan.cu's entry points: (restype, argtypes)
 _SIGNATURES = {
     "postsort_segscan_tile": (_i32, []),
-    "postsort_segscan_scratch_bytes": (_i64, [_i64]),
-    "postsort_segscan_launch": (_i32, [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i64, _vp, _vp, _vp,
-                                       _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
+    "postsort_segscan_scratch_bytes": (_i64, [_i64, _i64]),
+    "postsort_segscan_acc_bytes": (_i64, []),
+    "postsort_segscan_launch": (_i32, [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i64, _i32, _vp, _vp, _vp,
+                                       _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp]),
     "membership_segscan_tile": (_i32, []),
     "membership_segscan_scratch_bytes": (_i64, []),
-    "membership_segscan_launch": (_i32, [_vp, _vp, _i64, _vp, _vp, _vp, _vp]),
+    "membership_segscan_launch": (_i32, [_vp, _vp, _i64, _i32, _vp, _vp, _vp, _vp]),
 }
 
 
@@ -123,74 +126,130 @@ K2_TILE = 2048  # csrc/joinscan.cu TILE: the rows of one look-back tile
 # (device index, stream) -> zeroed scratch: K2 tags its tile status words
 # with an epoch that the kernel keeps in the buffer, so it is never reset
 _k2_scratch: dict = {}
+# each region's flag and join rows, one record per region, per device and
+# stream; the kernel's last block leaves them zeroed
+_k2_acc = StreamScratch(lambda: _fn("postsort_segscan_acc_bytes")())
 
 
-def _k2_scratch_for(dev, n: int):
-    """K2's scratch on dev's current stream, large enough for n rows."""
+def _k2_scratch_for(dev, n: int, regions: int = 1):
+    """K2's scratch on dev's current stream, large enough for `regions`
+    regions of n rows."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    need = _fn("postsort_segscan_scratch_bytes")(n)
+    need = _fn("postsort_segscan_scratch_bytes")(n, regions)
     buf = _k2_scratch.get(key)
     if buf is None or buf.numel() < need:
         buf = _k2_scratch[key] = torch.zeros(need, dtype=torch.uint8, device=dev)
     return buf
 
 
-def _postsort_segscan_cuda(spk, lanes_s, bad_lane, nw_s=None, nn_bits=()):
+def _postsort_segscan_cuda_batched(spk, lanes_s, bad_lane, nw_s, bits):
+    """One launch over B regions: every input [B, n], region-major and
+    contiguous; outputs [B, n], overflow and join_rows [B]. Returns (gv,
+    cnt, key32, sums, nns of the lanes whose bit is >= 0, overflow,
+    join_rows)."""
     from ..kernels import check, ptr, stream
 
-    n = spk.shape[0]
+    B, n = spk.shape
     nc = len(lanes_s)
-    bits = [nn_bits[c] if c < len(nn_bits) else -1 for c in range(nc)]
     if nc > MAX_LANES:
         raise ValueError(f"{nc} value lanes (the kernel takes <= {MAX_LANES})")
     if not 1 <= n < (1 << 31):
         raise ValueError(f"row count {n} outside 1..2^31-1")
     if any(not -1 <= b < 8 for b in bits):
         raise ValueError(f"null bits {bits} outside -1..7")
-    check(spk, (n,), (torch.int32,), "spk")
-    check(bad_lane, (n,), (torch.bool, torch.uint8), "bad_lane")
+    check(spk, (B, n), (torch.int32,), "spk")
+    check(bad_lane, (B, n), (torch.bool, torch.uint8), "bad_lane")
     for c in range(nc):
-        check(lanes_s[c], (n,), (torch.int32,), f"lanes_s[{c}]")
+        check(lanes_s[c], (B, n), (torch.int32,), f"lanes_s[{c}]")
     if any(b >= 0 for b in bits):
-        check(nw_s, (n,), (torch.uint8,), "nw_s")
+        check(nw_s, (B, n), (torch.uint8,), "nw_s")
     dev = spk.device
     i64 = torch.int64
-    gv = torch.empty(n, dtype=torch.bool, device=dev)
-    cnt = torch.empty(n, dtype=i64, device=dev)
-    key32 = torch.empty(n, dtype=torch.int32, device=dev)
-    sums = [torch.empty(n, dtype=i64, device=dev) for _ in range(nc)]
-    nn_out = [torch.empty(n, dtype=i64, device=dev) if b >= 0 else None for b in bits]
-    overflow = torch.empty((), dtype=torch.bool, device=dev)
-    join_rows = torch.empty((), dtype=i64, device=dev)
+    gv = torch.empty((B, n), dtype=torch.bool, device=dev)
+    cnt = torch.empty((B, n), dtype=i64, device=dev)
+    key32 = torch.empty((B, n), dtype=torch.int32, device=dev)
+    sums = [torch.empty((B, n), dtype=i64, device=dev) for _ in range(nc)]
+    nn_out = [torch.empty((B, n), dtype=i64, device=dev) if b >= 0 else None for b in bits]
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    join_rows = torch.empty(B, dtype=i64, device=dev)
     pad = [None] * (MAX_LANES - nc)
     lanes, sums_p, nns_p = list(lanes_s) + pad, sums + pad, nn_out + pad
-    bits_p = bits + [-1] * (MAX_LANES - nc)
+    bits_p = list(bits) + [-1] * (MAX_LANES - nc)
     with torch.cuda.device(dev):
-        scratch = _k2_scratch_for(dev, n)
+        scratch = _k2_scratch_for(dev, n, B)
+        acc = _k2_acc.get(dev, torch.cuda.current_stream(dev).cuda_stream, B)
         err = _fn("postsort_segscan_launch")(
-            ptr(spk), ptr(lanes[0]), ptr(lanes[1]), ptr(bad_lane), ptr(nw_s), nc, bits_p[0], bits_p[1], n,
+            ptr(spk), ptr(lanes[0]), ptr(lanes[1]), ptr(bad_lane), ptr(nw_s), nc, bits_p[0], bits_p[1], n, B,
             ptr(gv), ptr(cnt), ptr(key32), ptr(sums_p[0]), ptr(sums_p[1]), ptr(nns_p[0]), ptr(nns_p[1]),
-            ptr(overflow), ptr(join_rows), ptr(scratch), stream(dev))
+            ptr(overflow), ptr(join_rows), ptr(scratch), ptr(acc), stream(dev))
     if err != 0:
         raise RuntimeError(f"postsort_segscan kernel launch failed (CUDA error {err})")
     postsort_segscan.launches += 1
-    nns = [cnt if nn is None else nn for nn in nn_out]
-    return gv, cnt, key32, sums, nns, overflow, join_rows
+    return gv, cnt, key32, sums, [nn for nn in nn_out if nn is not None], overflow, join_rows
+
+
+_T = torch.Tensor
+
+
+@torch.library.custom_op("tidb_tpu_torch::postsort_segscan", mutates_args=())
+def _postsort_segscan_op(spk: _T, lanes_s: list[_T], bad_lane: _T, nw_s: _T | None,
+                         bits: list[int]) -> tuple[_T, _T, _T, list[_T], list[_T], _T, _T]:
+    """K2 as one op: the null counts come back only for the lanes whose
+    bit is >= 0 (the others are the run count, which the caller reuses)."""
+    if spk.device.type == "cuda":
+        outs = _postsort_segscan_cuda_batched(spk[None], [x[None] for x in lanes_s], bad_lane[None],
+                                              None if nw_s is None else nw_s[None], bits)
+        return (outs[0][0], outs[1][0], outs[2][0], [x[0] for x in outs[3]], [x[0] for x in outs[4]],
+                outs[5][0], outs[6][0])
+    gv, cnt, key32, sums, nns, overflow, join_rows = _postsort_segscan_plain(spk, lanes_s, bad_lane, nw_s, bits)
+    return gv, cnt, key32, sums, [nn for nn, b in zip(nns, bits) if b >= 0], overflow, join_rows
+
+
+@_postsort_segscan_op.register_fake
+def _postsort_segscan_fake(spk, lanes_s, bad_lane, nw_s, bits):
+    n = spk.shape[0]
+    i64 = torch.int64
+    return (spk.new_empty(n, dtype=torch.bool), spk.new_empty(n, dtype=i64), spk.new_empty(n, dtype=torch.int32),
+            [spk.new_empty(n, dtype=i64) for _ in lanes_s], [spk.new_empty(n, dtype=i64) for b in bits if b >= 0],
+            spk.new_empty((), dtype=torch.bool), spk.new_empty((), dtype=i64))
+
+
+def _postsort_segscan_vmap(info, in_dims, spk, lanes_s, bad_lane, nw_s, bits):
+    """The region axis: one launch over every region on the card, the
+    plain version lane by lane on the CPU."""
+    from ..kernels import lanewise, region_major
+
+    B = info.batch_size
+    if spk.device.type != "cuda":
+        return lanewise(_postsort_segscan_op, B, in_dims, (spk, lanes_s, bad_lane, nw_s, bits))
+    d_spk, d_lanes, d_bad, d_nw, _ = in_dims
+    outs = _postsort_segscan_cuda_batched(
+        region_major(spk, d_spk, B), [region_major(x, d, B) for x, d in zip(lanes_s, d_lanes)],
+        region_major(bad_lane, d_bad, B), None if nw_s is None else region_major(nw_s, d_nw, B), bits)
+    return outs, (0, 0, 0, [0] * len(outs[3]), [0] * len(outs[4]), 0, 0)
+
+
+torch.library.register_vmap(_postsort_segscan_op, _postsort_segscan_vmap)
 
 
 def postsort_segscan(spk, lanes_s, bad_lane, nw_s=None, nn_bits=()):
     """K2 (see _postsort_segscan_plain for the contract): the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors.
+    for CUDA tensors, the plain version for CPU tensors, as the custom op
+    `tidb_tpu_torch::postsort_segscan` (under torch.func.vmap one launch
+    serves every region).
 
     spk int32 [n] sorted packed keys; lanes_s: 0-2 int32 [n] value lanes
     in sorted order, pre-masked to 0 on null and hay rows; bad_lane bool
     [n] (unsorted pre-sort overflow bits); nw_s uint8 [n] sorted null-bit
     word, nn_bits[c] the bit of lane c (-1 = NOT NULL)."""
-    if spk.device.type == "cuda":
-        return _postsort_segscan_cuda(spk, lanes_s, bad_lane, nw_s, nn_bits)
-    if spk.device.type == "cpu":
-        return _postsort_segscan_plain(spk, lanes_s, bad_lane, nw_s, nn_bits)
-    raise ValueError(f"postsort_segscan: unsupported device {spk.device}")
+    if spk.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"postsort_segscan: unsupported device {spk.device}")
+    bits = [int(nn_bits[c]) if c < len(nn_bits) else -1 for c in range(len(lanes_s))]
+    gv, cnt, key32, sums, nn_real, overflow, join_rows = _postsort_segscan_op(
+        spk, list(lanes_s), bad_lane, nw_s if any(b >= 0 for b in bits) else None, bits)
+    it = iter(nn_real)
+    nns = [cnt if b < 0 else next(it) for b in bits]
+    return gv, cnt, key32, list(sums), nns, overflow, join_rows
 
 
 postsort_segscan.launches = 0
@@ -220,28 +279,31 @@ def _membership_segscan_plain(spk, bad_lane):
 
 
 K3_TILE = 2048  # csrc/joinscan.cu K3_TILE: the rows of one K3 CTA
-# the CTA ticket (count and flag), per device and stream; the kernel's
-# last CTA leaves it zeroed for the next call
+# the CTA ticket (count and flag), one record per region, per device and
+# stream; each region's last CTA leaves its record zeroed for the next call
 _k3_scratch = StreamScratch(lambda: _fn("membership_segscan_scratch_bytes")())
 
 
-def _membership_segscan_cuda(spk, bad_lane):
-    """One launch of the kernel and no other device operation: it writes
-    ok_out and the overflow flag in full, so both are allocated empty."""
+def _membership_segscan_cuda_batched(spk, bad_lane):
+    """One launch over B regions ([B, n] inputs, region-major and
+    contiguous) and no other device operation: it writes ok_out [B, n] and
+    the overflow flags [B] in full, so both are allocated empty."""
     from ..kernels import check
 
-    n = spk.shape[0]
+    B, n = spk.shape
     if not 1 <= n < (1 << 31):
         raise ValueError(f"row count {n} outside 1..2^31-1")
-    check(spk, (n,), (torch.int32,), "spk")
-    check(bad_lane, (n,), (torch.bool, torch.uint8), "bad_lane")
+    if not 1 <= B < (1 << 16):
+        raise ValueError(f"{B} regions outside 1..65535")
+    check(spk, (B, n), (torch.int32,), "spk")
+    check(bad_lane, (B, n), (torch.bool, torch.uint8), "bad_lane")
     dev = spk.device
-    ok_out = torch.empty(n, dtype=torch.bool, device=dev)
-    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    ok_out = torch.empty((B, n), dtype=torch.bool, device=dev)
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         st = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn("membership_segscan_launch")(spk.data_ptr(), bad_lane.data_ptr(), n, ok_out.data_ptr(),
-                                               overflow.data_ptr(), _k3_scratch.get(dev, st).data_ptr(), st)
+        err = _fn("membership_segscan_launch")(spk.data_ptr(), bad_lane.data_ptr(), n, B, ok_out.data_ptr(),
+                                               overflow.data_ptr(), _k3_scratch.get(dev, st, B).data_ptr(), st)
     if err != 0:
         # a launch that failed may leave the scratch dirty: never reuse it
         _k3_scratch.drop(dev, st)
@@ -250,17 +312,44 @@ def _membership_segscan_cuda(spk, bad_lane):
     return ok_out, overflow
 
 
+@torch.library.custom_op("tidb_tpu_torch::membership_segscan", mutates_args=())
+def _membership_segscan_op(spk: _T, bad_lane: _T) -> tuple[_T, _T]:
+    if spk.device.type == "cuda":
+        ok_out, overflow = _membership_segscan_cuda_batched(spk[None], bad_lane[None])
+        return ok_out[0], overflow[0]
+    return _membership_segscan_plain(spk, bad_lane)
+
+
+@_membership_segscan_op.register_fake
+def _membership_segscan_fake(spk, bad_lane):
+    return spk.new_empty(spk.shape[0], dtype=torch.bool), spk.new_empty((), dtype=torch.bool)
+
+
+def _membership_segscan_vmap(info, in_dims, spk, bad_lane):
+    """The region axis: one launch over every region on the card, the
+    plain version lane by lane on the CPU."""
+    from ..kernels import lanewise, region_major
+
+    B = info.batch_size
+    if spk.device.type != "cuda":
+        return lanewise(_membership_segscan_op, B, in_dims, (spk, bad_lane))
+    outs = _membership_segscan_cuda_batched(region_major(spk, in_dims[0], B), region_major(bad_lane, in_dims[1], B))
+    return outs, (0, 0)
+
+
+torch.library.register_vmap(_membership_segscan_op, _membership_segscan_vmap)
+
+
 def membership_segscan(spk, bad_lane):
     """K3 (see _membership_segscan_plain for the contract): the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors. spk int32 [n]
-    sorted, as membership_lanes gives it (the kernel finds the start of a
-    run longer than 32 rows by a search that relies on the order); bad_lane
-    bool [n]."""
-    if spk.device.type == "cuda":
-        return _membership_segscan_cuda(spk, bad_lane)
-    if spk.device.type == "cpu":
-        return _membership_segscan_plain(spk, bad_lane)
-    raise ValueError(f"membership_segscan: unsupported device {spk.device}")
+    for CUDA tensors, the plain version for CPU tensors, as the custom op
+    `tidb_tpu_torch::membership_segscan` (under torch.func.vmap one launch
+    serves every region). spk int32 [n] sorted, as membership_lanes gives
+    it (the kernel finds the start of a run longer than 32 rows by a
+    search that relies on the order); bad_lane bool [n]."""
+    if spk.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"membership_segscan: unsupported device {spk.device}")
+    return _membership_segscan_op(spk, bad_lane)
 
 
 membership_segscan.launches = 0

@@ -72,8 +72,8 @@ def segments_from_sorted(sorted_keys: list[torch.Tensor], valid: torch.Tensor):
     n = valid.shape[0]
     diff = torch.zeros(n, dtype=torch.bool, device=valid.device)
     for k in sorted_keys:
-        d = torch.ones(n, dtype=torch.bool, device=valid.device)
-        d[1:] = k[1:] != k[:-1]
+        # out of place (a vmapped batch's region axis rides through cat)
+        d = torch.cat([torch.ones_like(k[:1], dtype=torch.bool), k[1:] != k[:-1]])
         diff = diff | d
     new_seg = diff & valid
     seg = torch.cumsum(new_seg.to(torch.int64), 0) - 1

@@ -97,7 +97,7 @@ def _escape_rows(order_idx, start, count, esc_part, n_parts: int, esc_cap: int, 
     (buf_idx int32 original-row indices, slot_ok, n_esc int32)."""
     dev = order_idx.device
     esc_cnt = torch.where(esc_part, count, 0).to(torch.int32)
-    off = torch.zeros(n_parts + 1, dtype=torch.int32, device=dev)
+    off = esc_cnt.new_zeros(n_parts + 1)  # esc_cnt's region axis under vmap
     off[1:] = torch.cumsum(esc_cnt, 0, dtype=torch.int32)
     n_esc = off[-1]
     k = torch.arange(esc_cap, dtype=torch.int32, device=dev)
@@ -210,11 +210,15 @@ def _probe_partitioned(bw, b_usable, pw, p_usable, plan: tuple, join_capacity: i
     flat = pid_c * probe_cap + torch.clamp(r, 0, probe_cap - 1).to(torch.int64)
     res_sorted = torch.where(in_tbl & matched_tbl.reshape(-1)[flat], b_orig_tbl.reshape(-1)[flat], -1)
     # inverse permutation restores the probe-identity layout
-    build_idx = torch.empty(np_, dtype=torch.int32, device=dev)
+    build_idx = res_sorted.new_empty(np_, dtype=torch.int32)  # res_sorted's region axis under vmap
     build_idx[p_oidx.to(torch.int64)] = res_sorted.to(torch.int32)
-    # escape overlay: distinct targets; unused slots are dropped
+    # escape overlay: distinct targets; unused slots write a spare slot past
+    # the end that is cut off (no boolean-mask index: a fixed shape, so the
+    # region-batched program maps it)
     esc_val = torch.where(m_e, b_orig_e, -1).to(torch.int32)
-    build_idx[p_buf[p_ok_e].to(torch.int64)] = esc_val[p_ok_e]
+    spill = torch.cat([build_idx, build_idx[:1]])
+    spill[torch.where(p_ok_e, p_buf, np_).to(torch.int64)] = esc_val
+    build_idx = spill[:np_]
 
     matched = build_idx >= 0
     return build_idx, matched, dup | dup_e, esc_over, need, escapes

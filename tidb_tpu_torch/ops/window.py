@@ -99,7 +99,8 @@ def window_cols(part_vals: list, order_pairs: list, funcs: list, valid: torch.Te
     perm = lexsort(keys, extra_key=arange)
 
     def diff_of(vals_keys):
-        d = torch.zeros(n, dtype=torch.bool, device=dev)
+        # the buffer takes perm's region axis under vmap, so the writes stay legal
+        d = torch.zeros_like(perm, dtype=torch.bool)
         d[0] = True
         for k in vals_keys:
             ks = k[perm]
@@ -124,18 +125,20 @@ def window_cols(part_vals: list, order_pairs: list, funcs: list, valid: torch.Te
 
     sv = valid[perm]
 
+    # the scatter buffers are made from perm, so under vmap they carry its
+    # region axis and the index writes stay legal
     def scatter(v_sorted, null_sorted, ft) -> CompVal:
-        value = torch.zeros(n, dtype=v_sorted.dtype, device=dev)
+        value = perm.new_zeros(n, dtype=v_sorted.dtype)
         value[perm] = v_sorted
-        null = torch.ones(n, dtype=torch.bool, device=dev)
+        null = perm.new_ones(n, dtype=torch.bool)
         null[perm] = null_sorted
         return CompVal(value, null, ft)
 
     def gather_result(cv: CompVal, j_sorted, src_null_sorted) -> CompVal:
         """Sorted-space source index -> original-order gathered CompVal."""
-        src_orig = torch.zeros(n, dtype=torch.int64, device=dev)
+        src_orig = perm.new_zeros(n, dtype=torch.int64)
         src_orig[perm] = perm[torch.clamp(j_sorted, 0, n - 1)]
-        xnull = torch.ones(n, dtype=torch.bool, device=dev)
+        xnull = perm.new_ones(n, dtype=torch.bool)
         xnull[perm] = src_null_sorted
         return _gather_cv(cv, src_orig, xnull)
 
@@ -237,7 +240,7 @@ def window_cols(part_vals: list, order_pairs: list, funcs: list, valid: torch.Te
                 if res.raw is not None:
                     raise NotImplementedError("string LEAD/LAG defaults run on the oracle")
                 d = argvals[1]
-                dnull = torch.ones(n, dtype=torch.bool, device=dev)
+                dnull = perm.new_ones(n, dtype=torch.bool)
                 dnull[perm] = ~same
                 out.append(CompVal(torch.where(dnull, d.value, res.value),
                                    torch.where(dnull, d.null, res.null), desc.ft))

@@ -13,10 +13,18 @@ summaries (ref: unistore/cophandler/cop_handler.go:89 HandleCopRequest).
 DAG the device program cannot run (an op it does not express, or capacity
 retries that run out) is answered by the row oracle, run_dag_reference.
 
-Left out, beside the reference: `batch_coprocessor` and its region-batched
-programs, the mesh tier, replica reads (a follower read answers
-other_error), failpoints, metrics, Top SQL and PD flow recording, and the
-write path's quorum and CDC guards.
+`batch_coprocessor` (and `batch_coprocessor_bytes`) serves a store's
+region tasks together (ref: copr/batch_coprocessor.go): tasks of one DAG
+and snapshot are grouped, bucketed by power-of-two capacity, and each
+bucket of regions runs ONE execution of the region-batched program
+(drive_batched_program_info); a lane whose flags fired, and a whole
+bucket on any error, take the single-request path.
+
+Left out, beside the reference: the mesh tier (a request with `mesh` set
+takes the batched tier, as the reference does when its mesh tier
+declines), replica reads (a follower read answers other_error),
+failpoints, metrics (the batched tier's counts are in stats()), Top SQL
+and PD flow recording, and the write path's quorum and CDC guards.
 """
 
 from __future__ import annotations
@@ -26,13 +34,14 @@ import threading
 import time
 from dataclasses import dataclass, field, replace
 
-from ..chunk import Chunk, to_device_batch
+from ..chunk import Chunk, to_device_batch, to_stacked_device_batch
 from ..chunk.device import DeviceBatch
 from ..codec import tablecodec
 from ..codec.rowcodec import RowEncoder, decode_row_to_datum_map, fill_origin_default
 from ..exec.builder import DEFAULT_GROUP_CAPACITY, ProgramCache
 from ..exec.dag import DAGRequest
-from ..exec.executor import OverflowRetryError, _pow2, drive_program_info, run_dag_reference
+from ..exec.executor import (OverflowRetryError, _pow2, drive_batched_program_info, drive_program_info,
+                             run_dag_reference)
 from ..runtime import resolve_device
 from ..types import Datum
 from .kv import MemKV
@@ -62,8 +71,9 @@ class CopRequest:
     cop_handler.go:210 lastRange). Row-local DAGs only — aggregations
     cannot produce correct partials from a partial scan.
 
-    mesh and mesh_min_rows belong to the reference's batched tier; this
-    store has none, but they travel on the wire, so they are kept."""
+    mesh and mesh_min_rows belong to the reference's mesh tier; this store
+    has none (batch_coprocessor serves a mesh request in its batched tier),
+    but they travel on the wire, so they are kept."""
 
     dag: DAGRequest
     ranges: list
@@ -110,8 +120,8 @@ class CopResponse:
     other_error: str | None = None
     exec_summaries: list = field(default_factory=list)
     last_range: list | None = None  # [KeyRange] resume cursor; None = drained
-    batched: int = 0  # the reference's batched-tier markers, carried on
-    mesh_merged: int = 0  # the wire; always 0 here
+    batched: int = 0  # the bucket's id when the batched tier served it
+    mesh_merged: int = 0  # the reference's mesh-tier marker; always 0 here
 
 
 def _apply_radix_attribution(summaries: list, walk, info) -> None:
@@ -133,10 +143,36 @@ def _apply_radix_attribution(summaries: list, walk, info) -> None:
             return
 
 
-# the counts stats() returns: what served each request, and how often the
-# caches missed
+def split_by_rows(total_ns: int, rows: list) -> list:
+    """Split one launch's elapsed time across its lanes in proportion to
+    each lane's decoded rows, exactly: the shares sum to `total_ns`
+    (largest-remainder rounding, deterministic); all-zero row counts split
+    equally. (A copy of tidb_tpu/topsql/reporter.py split_by_rows.)"""
+    n = len(rows)
+    if n == 0:
+        return []
+    w = [max(int(r), 0) for r in rows]
+    s = sum(w)
+    if s == 0:
+        w = [1] * n
+        s = n
+    shares = [total_ns * wi // s for wi in w]
+    rem = total_ns - sum(shares)
+    if rem:
+        order = sorted(range(n), key=lambda i: (-(total_ns * w[i] % s), i))
+        for j in range(rem):  # rem < n by floor arithmetic
+            shares[order[j]] += 1
+    return shares
+
+
+# the counts stats() returns: what served each request, how often the
+# caches missed, and the batched tier's buckets (batch_batches: program
+# executions over a bucket; batch_regions: lanes a bucket served;
+# batch_launches_saved: executions a bucket spared over one per region;
+# batch_fallbacks: groups or buckets that an error sent to the single path)
 STAT_KEYS = ("device_served", "oracle_fallbacks", "result_cache_hits", "other_errors", "chunk_decodes",
-             "native_decodes", "device_uploads", "aux_uploads")
+             "native_decodes", "device_uploads", "aux_uploads", "batch_batches", "batch_regions",
+             "batch_launches_saved", "batch_fallbacks")
 
 
 class TPUStore:
@@ -172,9 +208,9 @@ class TPUStore:
         self._stats_lock = threading.Lock()
 
     # -- counts -----------------------------------------------------------------
-    def _count(self, key: str) -> None:
+    def _count(self, key: str, by: int = 1) -> None:
         with self._stats_lock:
-            self._stats[key] += 1
+            self._stats[key] += by
 
     def stats(self) -> dict:
         """The counts since the store was made (plain integers)."""
@@ -633,3 +669,177 @@ class TPUStore:
         resp = CopResponse(chunk=chunk, exec_summaries=summaries, last_range=last_range)
         self._cop_cache_put(req, resp, write_ver=ver)
         return resp
+
+    # -- the batched coprocessor endpoint -----------------------------------
+    def batch_coprocessor(self, reqs: list, group_capacity: int = DEFAULT_GROUP_CAPACITY) -> list:
+        """Serve a store's region tasks with ONE execution of the
+        region-batched program per (DAG, snapshot) group and power-of-two
+        capacity bucket (ref: copr/batch_coprocessor.go — all regions of a
+        store travel in one request). Each region decodes as usual, pads to
+        its bucket's capacity and stacks on a leading region axis; each
+        region's result slices back out, so the root-side merge is
+        unchanged.
+
+        Validation comes first: a missing region, a store fault, a stale
+        epoch or a result-cache hit answers at once and falls out of the
+        batch while the rest of the batch stands. Paging requests take the
+        single-request path (their resume cursors live there), as does a
+        group of one. Responses come back in request order."""
+        responses: list = [None] * len(reqs)
+        groups: dict = {}
+        for i, req in enumerate(reqs):
+            if req.paging_size is not None:
+                responses[i] = self.coprocessor(req, group_capacity)
+                continue
+            region = self.cluster.region_by_id(req.region_id)
+            if region is None:
+                responses[i] = CopResponse(region_error=f"region {req.region_id} not found")
+                continue
+            err = self._region_fault(req.region_id, req.peer_store, req.replica_read)
+            if err is not None:
+                # a typed store fault falls out like a stale epoch: the lane
+                # answers now, the rest of the batch stands
+                responses[i] = CopResponse(region_error=str(err))
+                continue
+            if req.region_epoch != region.epoch:
+                responses[i] = CopResponse(region_error=f"epoch_not_match: have {region.epoch}, got {req.region_epoch}")
+                continue
+            if req.replica_read and req.peer_store >= 0 and req.peer_store != self.cluster.leader_of(req.region_id):
+                responses[i] = self.coprocessor(req, group_capacity)  # its other_error
+                continue
+            cached = self._cop_cache_get(req)
+            if cached is not None:
+                self._count("result_cache_hits")
+                responses[i] = cached
+                continue
+            key = (req.dag.fingerprint(), req.start_ts, req.small_groups, bool(req.mesh),
+                   tuple(self._chunk_token(c) for c in req.aux_chunks))
+            groups.setdefault(key, []).append((i, req, region))
+        for entries in groups.values():
+            if len(entries) == 1:  # nothing to amortize: the plain path
+                i, req, _region = entries[0]
+                responses[i] = self.coprocessor(req, group_capacity)
+                continue
+            self._run_cop_batch(entries, responses, group_capacity)
+        return responses
+
+    def _lane_attribution(self, in_chunk, out_bytes: int, counts, share: int, compile_ns: int,
+                          cache_hit: bool, walk, radix_info=None) -> list:
+        """One served lane's ExecSummary list: its share of the bucket's
+        time on each executor, the compile attribution, and the bytes on
+        the data movers (the scan's decoded region bytes in, the final
+        executor's result out)."""
+        in_b = in_chunk.nbytes()
+        summaries = [
+            ExecSummary(
+                time_processed_ns=share, num_produced_rows=r,
+                time_compile_ns=compile_ns, cache_hit=cache_hit,
+                num_bytes=in_b if j == 0 else (out_bytes if j == len(counts) - 1 else 0),
+            )
+            for j, r in enumerate(counts)
+        ]
+        if radix_info:
+            _apply_radix_attribution(summaries, walk, radix_info)
+        return summaries
+
+    def _run_cop_batch(self, entries, responses, group_capacity: int) -> None:
+        """Decode a same-DAG group of region tasks, bucket them by
+        power-of-two capacity, and run the region-batched program once per
+        bucket. Without the buckets one large region would pad every lane
+        to its size. A bucket of one takes the plain path; a decode failure
+        sends the whole group through the single-request path, which owns
+        the capacity ladder and the oracle fallback."""
+        req0 = entries[0][1]
+        ver = self._snapshot_write_ver()  # pre-read snapshot: gates the cache inserts
+        try:
+            chunks = [self.region_chunk(region, req.ranges, req.dag, req.start_ts) for (_i, req, region) in entries]
+            aux_batches = [self._aux_batch(c) for c in req0.aux_chunks]
+        except Exception:  # noqa: BLE001 — degrade, never lose the batch
+            self._count("batch_fallbacks")
+            for i, req, _region in entries:
+                responses[i] = self.coprocessor(req, group_capacity)
+            return
+        buckets: dict[int, list] = {}
+        for k, ch in enumerate(chunks):
+            buckets.setdefault(_pow2(max(ch.num_rows(), 1)), []).append(k)
+        batch_id = 0
+        for cap, idxs in buckets.items():
+            if len(idxs) == 1:  # nothing to amortize at this capacity
+                i, req, _region = entries[idxs[0]]
+                responses[i] = self.coprocessor(req, group_capacity)
+                continue
+            batch_id += 1
+            self._launch_cop_bucket([entries[k] for k in idxs], [chunks[k] for k in idxs], cap, aux_batches,
+                                    responses, group_capacity, ver, batch_id)
+
+    def _launch_cop_bucket(self, entries, chunks, cap: int, aux_batches, responses, group_capacity: int,
+                           write_ver: int, batch_id: int) -> None:
+        """ONE execution of the region-batched program for a capacity
+        bucket of decoded regions."""
+        from ..exec.dag import executor_walk
+
+        req0 = entries[0][1]
+        dag = req0.dag
+        t0 = time.monotonic_ns()  # the bucket's own clock
+        try:
+            # a power-of-two lane axis: vmap_batch is in the program key, so
+            # batches of every size share a few programs; empty lanes pad it
+            lanes = list(chunks)
+            lanes += [Chunk.empty(chunks[0].field_types()) for _ in range(_pow2(len(chunks)) - len(chunks))]
+            stacked = to_stacked_device_batch(lanes, cap, device=self.device)
+            per_region, info = drive_batched_program_info(self.programs, dag, stacked, aux_batches,
+                                                          group_capacity, small_groups=req0.small_groups)
+        except Exception:  # noqa: BLE001 — degrade, never lose the bucket
+            # an op the device program does not express, non-ASCII CI data,
+            # any failure of the batched program: the single path answers
+            # each region with its own fallback and error contract
+            self._count("batch_fallbacks")
+            for i, req, _region in entries:
+                responses[i] = self.coprocessor(req, group_capacity)
+            return
+        elapsed = time.monotonic_ns() - t0
+        # each lane's share by decoded rows (the shares sum to the elapsed
+        # time); a lane that falls out keeps its share, its retry is billed
+        # on its own
+        shares = split_by_rows(elapsed, [ch.num_rows() for ch in chunks])
+        walk = executor_walk(dag.executors)
+        self._count("batch_batches")
+        served = 0
+        for lane, ((i, req, _region), ch, res) in enumerate(zip(entries, chunks, per_region)):
+            if res is None:
+                # this lane's group / join / TopN flag fired: it alone rides
+                # the single-request retry ladder
+                responses[i] = self.coprocessor(req, group_capacity)
+                continue
+            chunk, ex_rows = res
+            self._count("batch_regions")
+            self._count("device_served")
+            lane_info = info
+            if info.get("radix"):
+                # the lane's own escape count
+                lane_info = {"radix": dict(info["radix"], escapes=info["radix"]["escapes_by_lane"][lane])}
+            # the one program's build time goes on the first served lane;
+            # the others are cache hits by construction
+            summaries = self._lane_attribution(ch, chunk.nbytes(), ex_rows, shares[lane],
+                                               compile_ns=info["compile_ns"] if served == 0 else 0,
+                                               cache_hit=info["cache_hit"] if served == 0 else True,
+                                               walk=walk, radix_info=lane_info)
+            served += 1
+            resp = CopResponse(chunk=chunk, exec_summaries=summaries, batched=batch_id)
+            self._cop_cache_put(req, resp, write_ver=write_ver)
+            responses[i] = resp
+        if served > 1:
+            self._count("batch_launches_saved", served - 1)
+
+    def batch_coprocessor_bytes(self, req_bytes: bytes) -> bytes:
+        """The batched endpoint from wire bytes to wire bytes: one frame of
+        N cop requests in, one frame of N responses out (codec/wire.py
+        batch frames)."""
+        from ..codec.wire import decode_batch_cop_request, encode_batch_cop_response
+
+        try:
+            reqs = decode_batch_cop_request(req_bytes)
+        except Exception as exc:  # malformed bytes must not kill the server
+            self._count("other_errors")
+            return encode_batch_cop_response([CopResponse(other_error=f"bad batch request: {exc}")])
+        return encode_batch_cop_response(self.batch_coprocessor(reqs))

@@ -88,11 +88,32 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      through coprocessor(req), warm through coprocessor_bytes (its build
      sides decoded and uploaded again each call) and as a result-cache
      hit; with --profile, also a profile of Q1 and Q3 through
-     coprocessor_bytes with the bytes copied each way.
+     coprocessor_bytes with the bytes copied each way;
+  5b. (with phase 5) each kernel's region-batched launch over 4 different
+     lanes, bit-equal to its plain version lane by lane, one launch, its
+     device time beside the same lanes as single calls;
+  7. the batch endpoint: phase 6's table split into seven regions of 2^18
+     rows and two of 2^17, each DAG as ONE batch_coprocessor_bytes frame
+     over the nine regions plus a stale epoch, every region against numpy,
+     K1 / K2 / K3 once per capacity bucket, no oracle fallback,
+     other_error, bucket fallback or lane-by-lane vmap op; the warm batch
+     timed beside the nine single requests;
+  8. the statement's root half on phase 7's regions: each statement of
+     workloads.store_statements (Q1, Q6, BIT_AND/OR/XOR, DISTINCT grouped
+     and scalar, GROUP BY l_orderkey, and that merge forced to spill at
+     group capacity 2^18 with no retry) split by distsql/root.py
+     split_dag, its push half as one batch frame over the nine regions,
+     the answers concatenated in region order, the root DAG through
+     run_dag_on_chunks(device="cuda", oracle_fallback=False); every answer
+     against numpy (the spilled merge also against the unspilled one), K1
+     once per bucket in Q1's push half, SPILL_PARTITIONS +1 in the forced
+     spill and +0 elsewhere, no oracle fallback, other_error, bucket
+     fallback or lane-by-lane vmap op; then the median ms of the push
+     frame, the root merge alone and the whole statement.
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6); the last line is {"ok": true, "device":
-{...}}. Without CUDA the script exits 2 and prints no result.
+the main paths of phases 4, 6, 7 and 8); the last line is {"ok": true,
+"device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -139,6 +160,9 @@ BATCH_LANES = 4
 # padded from 7 to 8 lanes)
 BATCH_REGION = 1 << 18
 BATCH_SPLITS = tuple(k * BATCH_REGION for k in (1, 2, 3, 5, 6, 7)) + (7 * BATCH_REGION + BATCH_REGION // 2,)
+# phase 8, the statement's root half: the GROUP BY l_orderkey merge forced
+# to spill at this group capacity with no capacity retry
+ROOT_SPILL_CAPACITY = 1 << 18
 
 
 def log(*a):
@@ -676,6 +700,24 @@ def profile_path(name, fn, wall_ms: float, top: int = 12, copies: bool = False):
     return busy_ms, sum(r[1] for r in rows)
 
 
+def host_profile(name, fn, top: int = 10):
+    """One run of fn under cProfile: the `top` functions by their own host
+    time, the host side of a path the device profile cannot see."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, nc, f"{os.path.basename(fl)}:{ln} {fn_}") for (fl, ln, fn_), (_cc, nc, tt, _ct, _c)
+                   in stats.items()), reverse=True)[:top]
+    log(f"host profile {name}: {wall:.1f} ms under cProfile, by own time:")
+    for tt, nc, where in rows:
+        log(f"  {tt * 1e3:9.1f} ms  x{nc:<8d} {where}")
+
+
 class Counters:
     """The kernels' launch counters: zeroed just before a main path runs,
     read just after; timing and comparison launches are not counted."""
@@ -935,6 +977,7 @@ def store_phase(E, X, T, W, counters, dev, profile: bool) -> None:
         raise SystemExit(f"phase 6: an oracle fallback or an other_error while timing ({store.stats()})")
     log(f"phase 6 store counts: {store.stats()}")
     batch_store_phase(store, W, names, request, check, counters, profile)
+    return store
 
 
 def batch_store_phase(store, W, names, request, check, counters, profile: bool) -> None:
@@ -1068,6 +1111,190 @@ def batch_store_phase(store, W, names, request, check, counters, profile: bool) 
     if st["oracle_fallbacks"] != fallbacks or st["other_errors"] != others or st["batch_fallbacks"]:
         raise SystemExit(f"phase 7: an oracle fallback, an other_error or a bucket's fallback while timing ({st})")
     log(f"phase 7 store counts: {st}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the statement's root half
+# ---------------------------------------------------------------------------
+
+def numpy_statement(name, t, shifts):
+    """The exact answer of store statement `name` over the generated
+    columns, in decoded_statement's form."""
+    import numpy as np
+
+    if name == "q6":
+        return numpy_q6(t, shifts["T"])
+    if name == "q1":
+        return numpy_q1(t, shifts["T"], shifts["q1"])
+    if name == "distinct_scalar":
+        return len(np.unique(t["okey"]))
+    if name in ("okey", "okey spilled"):
+        keys, inv = np.unique(t["okey"], return_inverse=True)
+        s = np.zeros(len(keys), np.int64)
+        np.add.at(s, inv, t["price"] * (100 - t["disc"]))
+        return keys, s, np.bincount(inv, minlength=len(keys))
+    out = {}
+    gid = t["rflag"].astype(np.int64) * 2 + t["lstat"].astype(np.int64)
+    for g in np.unique(gid):
+        m = gid == g
+        key = ("ANR"[g // 2], "OF"[g % 2])
+        okey = t["okey"][m]
+        if name == "bit":
+            out[key] = [int(np.bitwise_and.reduce(okey)), int(np.bitwise_or.reduce(okey)),
+                        int(np.bitwise_xor.reduce(okey)), int(m.sum())]
+        else:  # distinct
+            disc = np.unique(t["disc"][m])
+            out[key] = [len(np.unique(okey)), int(np.unique(t["qty"][m]).sum()),
+                        round_div(int(disc.sum()) * 10 ** shifts["avg"], len(disc)), int(m.sum())]
+    return out
+
+
+def decoded_statement(name, chunk):
+    """A statement's root rows in numpy_statement's form."""
+    import numpy as np
+
+    cols = chunk.columns
+    if name == "q6":
+        return int(cols[0].data[0]), int(cols[1].data[0])
+    if name == "q1":
+        return decoded_q1(chunk)
+    if name == "distinct_scalar":
+        return int(cols[0].data[0])
+    if name in ("okey", "okey spilled"):
+        order = np.argsort(cols[2].data, kind="stable")
+        return cols[2].data[order], cols[0].data[order], cols[1].data[order]
+    return {(cols[4].get_bytes(j).decode(), cols[5].get_bytes(j).decode()): [int(cols[i].data[j]) for i in range(4)]
+            for j in range(chunk.num_rows())}
+
+
+def same_answer(got, want) -> bool:
+    if isinstance(want, tuple) and len(want) == 3:  # the okey arrays
+        return all(len(a) == len(b) and (a == b).all() for a, b in zip(got, want))
+    return got == want
+
+
+def root_phase(store, E, X, T, W, counters, profile: bool, card: str) -> None:
+    """Phase 8: each statement of workloads.store_statements on phase 7's
+    nine regions as the JAX package's root runs it: split_dag, the push
+    half as ONE batch_coprocessor_bytes frame over the regions, the answers
+    concatenated in region order, then the root DAG through
+    run_dag_on_chunks on the card with oracle_fallback=False; every answer
+    against numpy, no oracle fallback, other_error, bucket fallback or
+    lane-by-lane vmap op, K1 once per bucket in Q1's push half, and
+    SPILL_PARTITIONS moved by exactly 1 in the forced spill of the GROUP BY
+    l_orderkey merge and by 0 elsewhere. Then the median ms, over 10 runs,
+    of the push frame, of the root merge alone and of the whole statement
+    (each run times its push and its root apart), beside `card`, the
+    card's name and power limit from nvidia-smi."""
+    import torch
+
+    from tidb_tpu_torch import codec
+    from tidb_tpu_torch.chunk import Chunk
+    from tidb_tpu_torch.codec import wire
+    from tidb_tpu_torch.distsql import split_dag
+    from tidb_tpu_torch.exec.builder import ProgramCache
+    from tidb_tpu_torch.exec.executor import run_dag_on_chunks
+    from tidb_tpu_torch.store import CopRequest, KeyRange
+    from tidb_tpu_torch.util import metrics
+
+    tid = W.LINEITEM_TABLE_ID
+    t = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
+    table = [KeyRange(codec.record_prefix(tid), codec.record_prefix(tid + 1))]
+    regions = store.cluster.regions()
+    if len(regions) != 9:
+        raise SystemExit(f"phase 8: {len(regions)} regions, not phase 7's nine")
+    stmts = W.store_statements(E, X, T)
+    q1_avg = next(e for e in stmts["q1"].executors if isinstance(e, E.Aggregation)).aggs[3]
+    dis_avg = stmts["distinct"].executors[-1].aggs[2]
+    shifts = {"T": T, "q1": q1_avg.ft.decimal - q1_avg.partial_fts()[1].decimal,
+              "avg": dis_avg.ft.decimal - dis_avg.partial_fts()[1].decimal}
+    cache = ProgramCache()
+    ts = store.next_ts()
+    buckets = 2
+    st0 = store.stats()
+    unspilled = None  # the GROUP BY l_orderkey rows, before the forced spill
+    statements = list(stmts.items()) + [("okey spilled", stmts["okey"])]
+    for name, dag in statements:
+        plan = split_dag(dag)
+        spill = {"group_capacity": ROOT_SPILL_CAPACITY, "max_retries": 0} if name == "okey spilled" else {}
+        reqs = [CopRequest(plan.push_dag, table, ts, r.region_id, r.epoch, small_groups=G if name == "q1" else None)
+                for r in regions]
+        frame = wire.encode_batch_cop_request(reqs)
+
+        def push():
+            store.clear_result_cache()
+            resps = wire.decode_batch_cop_response(store.batch_coprocessor_bytes(frame))
+            for r in resps:
+                if r.other_error is not None or r.region_error is not None:
+                    raise SystemExit(f"phase 8 {name} push: {r.other_error!r} {r.region_error!r}")
+            return Chunk.concat([r.chunk for r in resps]), resps
+
+        def root(root_in):
+            return run_dag_on_chunks(plan.root_dag, [root_in], cache=cache, device=store.device,
+                                     oracle_fallback=False, **spill)
+
+        def statement():
+            root_in, resps = push()
+            return root(root_in), root_in, resps
+
+        spills = metrics.SPILL_PARTITIONS.value
+        t0 = time.perf_counter()
+        (out, root_in, resps), fallback = vmap_fallbacks(lambda: counters.path(
+            f"statement {name}", statement, need=("dense_agg",) if name == "q1" else (), phase=8))
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        spilled = metrics.SPILL_PARTITIONS.value - spills
+        if spilled != (1 if name == "okey spilled" else 0):
+            raise SystemExit(f"phase 8 {name}: SPILL_PARTITIONS moved by {spilled}")
+        if name == "q1":
+            require_launches("phase 8 q1 dense_agg, once per bucket", counters.last["dense_agg"], buckets)
+        if fallback:
+            raise SystemExit(f"phase 8 {name}: vmap ran {fallback} lane by lane")
+        got, want = decoded_statement(name, out), numpy_statement(name, t, shifts)
+        if not same_answer(got, want):
+            raise SystemExit(f"phase 8 {name}: the root's answer differs from numpy")
+        if name == "okey spilled" and not same_answer(got, unspilled):
+            raise SystemExit("phase 8: the spilled merge's rows differ from the unspilled run's")
+        unspilled = got
+        st = store.stats()
+        if any(st[k] != st0[k] for k in ("oracle_fallbacks", "other_errors", "batch_fallbacks")):
+            raise SystemExit(f"phase 8 {name}: an oracle fallback, an other_error or a bucket's fallback ({st})")
+        what = {"q6": "(sum, count)", "distinct_scalar": "count(distinct l_orderkey)"}.get(
+            name, f"{out.num_rows()} groups")
+        log(f"phase 8 {name}: push {[type(e).__name__ for e in plan.push_dag.executors]} over {len(regions)} "
+            f"regions (buckets {sorted({r.batched for r in resps})}), root {[type(e).__name__ for e in plan.root_dag.executors]} "
+            f"over {root_in.num_rows()} input rows -> {what} == numpy"
+            f"{' = ' + str(got) if name in ('q6', 'distinct_scalar') else ''}; SPILL_PARTITIONS +{spilled}; "
+            f"first run {first_ms:.1f} ms; vmap ran lane by lane: no op")
+
+        # each run: the push frame (its answers concatenated), then the
+        # root merge over them, each part ending in a synchronise
+        push_t, root_t, whole_t = [], [], []
+        for i in range(REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            part_in, _ = push()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            root(part_in)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i:  # run 0 warms up
+                push_t.append((t1 - t0) * 1e3)
+                root_t.append((t2 - t1) * 1e3)
+                whole_t.append((t2 - t0) * 1e3)
+        root_ms, whole_ms = statistics.median(root_t), statistics.median(whole_t)
+        log(f"phase 8 {name} ({REPS} runs): push frame {statistics.median(push_t):.3f} ms, root merge "
+            f"{root_ms:.3f} ms ({root_in.num_rows()} input rows), whole {whole_ms:.3f} ms "
+            f"({STORE_ROWS / whole_ms / 1e3:.1f} Mrows/s) on {card}")
+        if profile and name in ("okey", "distinct"):
+            profile_path(f"phase 8 {name} root merge ({root_in.num_rows()} input rows)", lambda: root(root_in),
+                         root_ms)
+            host_profile(f"phase 8 {name} push frame", push)
+    st = store.stats()
+    if any(st[k] != st0[k] for k in ("oracle_fallbacks", "other_errors", "batch_fallbacks")):
+        raise SystemExit(f"phase 8: an oracle fallback, an other_error or a bucket's fallback while timing ({st})")
+    log(f"phase 8 store counts: {st}")
 
 
 def main() -> int:
@@ -1790,8 +2017,10 @@ def main() -> int:
             profile_path(name, fn, wall[name])
     counters.zero()
 
-    # phase 6: the store's coprocessor endpoint
-    store_phase(E, X, T, W, counters, dev, "--profile" in sys.argv[1:])
+    # phases 6 and 7: the store's coprocessor endpoints
+    store = store_phase(E, X, T, W, counters, dev, "--profile" in sys.argv[1:])
+    # phase 8: the statement's root half on phase 7's regions
+    root_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

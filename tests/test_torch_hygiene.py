@@ -52,6 +52,7 @@ def test_import_leaves_jax_unloaded():
         "import tidb_tpu_torch.ops.join, tidb_tpu_torch.ops.joinagg, tidb_tpu_torch.ops.joinscan\n"
         "import tidb_tpu_torch.ops.join_probe, tidb_tpu_torch.ops.radix_join\n"
         "import tidb_tpu_torch.ops.topn, tidb_tpu_torch.ops.window\n"
+        "import tidb_tpu_torch.distsql, tidb_tpu_torch.util.metrics\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -91,6 +92,74 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert out.num_rows() == 1
     out = run_dag_on_chunks(dag, [chunk], device="cpu")
     assert out.num_rows() == 1
+
+
+@pytest.mark.parametrize("dag_kind", ["spill", "host_only"])
+def test_run_dag_on_chunks_fallbacks_do_not_catch_the_no_cuda_error(dag_kind, monkeypatch):
+    """run_dag_on_chunks catches OverflowRetryError (spill, then the
+    oracle) and NotImplementedError (the oracle); the no-CUDA error is
+    neither and propagates, from the first pass and from inside a spill
+    (the device passes through every recursive call)."""
+    import tidb_tpu_torch.exec as E
+    import tidb_tpu_torch.expr as X
+    from tidb_tpu_torch import chunk as C
+    from tidb_tpu_torch import types as T
+    from tidb_tpu_torch.exec import executor
+
+    LL = T.new_longlong()
+    scan = E.TableScan(1, (E.ColumnInfo(1, LL), E.ColumnInfo(2, LL)))
+    agg_name = "count" if dag_kind == "spill" else "group_concat"
+    agg = E.Aggregation(group_by=(X.col(0, LL),), aggs=(X.AggDesc(agg_name, (X.col(1, LL),)),))
+    dag = E.DAGRequest((scan, agg), output_offsets=(0, 1))
+    chunk = C.Chunk.from_rows([LL, LL], [[T.Datum.i64(i % 7), T.Datum.i64(i)] for i in range(40)])
+    assert executor.run_dag_on_chunks(dag, [chunk], device="cpu").num_rows() == 7  # device or oracle
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        executor.run_dag_on_chunks(dag, [chunk])
+    if dag_kind == "spill":
+        # the first pass runs on the CPU and "overflows"; each spill part
+        # then asks for the card
+        real_drive, real_batch = executor.drive_program, executor.to_device_batch
+        overflowed = []
+
+        def drive(*a, **k):
+            if not overflowed:
+                overflowed.append(True)
+                raise executor.OverflowRetryError("forced")
+            return real_drive(*a, **k)
+
+        def batch(c, capacity, device):
+            return real_batch(c, capacity=capacity, device=device if overflowed else "cpu")
+
+        monkeypatch.setattr(executor, "drive_program", drive)
+        monkeypatch.setattr(executor, "to_device_batch", batch)
+        with pytest.raises(RuntimeError, match="CUDA") as ei:
+            executor.run_dag_on_chunks(dag, [chunk])
+        assert not isinstance(ei.value, executor.OverflowRetryError)
+        assert overflowed == [True]
+
+
+@pytest.mark.parametrize("exc", [RuntimeError("kernel build failed: nvcc exited 1"),
+                                 ValueError("kernel input must be a CUDA tensor")], ids=["build", "launch"])
+def test_run_dag_on_chunks_lets_kernel_errors_through(exc, monkeypatch):
+    """A kernel's build or launch failure is not a fallback case: neither
+    the spill nor the oracle answers in its place."""
+    from tidb_tpu_torch import types as T
+    from tidb_tpu_torch import workloads as W
+    from tidb_tpu_torch.exec import executor
+    import tidb_tpu_torch.chunk as C
+    import tidb_tpu_torch.exec as E
+    import tidb_tpu_torch.expr as X
+
+    def fail(*a, **k):
+        raise exc
+
+    dag, fts = W.q6_dag(E, X, T)
+    chunk = W.make_chunk(C, fts, W.q6_columns(W.make_tables(16)))
+    monkeypatch.setattr(executor, "drive_program", fail)
+    with pytest.raises(type(exc), match="kernel") as ei:
+        executor.run_dag_on_chunks(dag, [chunk], device="cpu")
+    assert ei.value is exc
 
 
 @pytest.mark.parametrize("which", ["q3", "join_bench"])

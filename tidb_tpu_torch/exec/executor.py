@@ -12,11 +12,16 @@ exact full sort. Exhausted
 retries raise OverflowRetryError, and operators the device program does
 not express raise NotImplementedError.
 
+run_dag_on_chunks catches both: an exhausted overflow first spills
+(_spill_partitioned: the input partitions on the host and the same
+program runs once per part), and what neither the device nor the spill
+can run goes to the oracle.
+
 run_dag_reference: the row-at-a-time oracle, copied from the JAX package
 (`tidb_tpu/exec/executor.py`, datum_group_key .. _ref_join). It
-interprets the same DAG with RefEvaluator; the store falls back to it
-when the device path raises either error. There is no spill
-(`_spill_partitioned`) in this port.
+interprets the same DAG with RefEvaluator; the store and
+run_dag_on_chunks fall back to it when the device path raises either
+error.
 """
 
 from __future__ import annotations
@@ -29,9 +34,11 @@ import torch
 from ..chunk import Chunk, Column, to_device_batch
 from ..expr.agg import AggDesc
 from ..expr.eval_ref import RefEvaluator, compare, _truth
+from ..expr.ir import ColumnRef
 from ..types import Datum, DatumKind, FieldType, MyDecimal
+from ..util import metrics
 from .builder import DEFAULT_GROUP_CAPACITY, ProgramCache
-from .dag import Aggregation, DAGRequest, Join, Limit, Projection, Selection, Sort, TopN, Window, current_schema_fts
+from .dag import Aggregation, DAGRequest, Join, Limit, Projection, Selection, Sort, TableScan, TopN, Window, current_schema_fts
 from .ladder import overflow_step, rung_for
 
 
@@ -99,8 +106,8 @@ DEFAULT_PROGRAM_CACHE = ProgramCache()
 
 
 class OverflowRetryError(RuntimeError):
-    """Capacity growth retries exhausted (this port has no spill; the
-    store falls back to the row oracle, run_dag_reference)."""
+    """Capacity growth retries exhausted (run_dag_on_chunks spills, then
+    falls back to the row oracle; the store goes to the oracle)."""
 
 
 def drive_program(cache: ProgramCache, dag: DAGRequest, batches, group_capacity: int, max_retries: int = 3, join_capacity: int | None = None, small_groups: int | None = None):
@@ -229,19 +236,122 @@ def drive_batched_program_info(cache: ProgramCache, dag: DAGRequest, stacked, au
     return per_region, info
 
 
+def _group_key_partition(chunk: Chunk, key_cols: list[int], n_parts: int, salt: int = 0) -> list[Chunk]:
+    """Split rows by a host-side hash of the named columns: equal keys land
+    in the same part, so per-part aggregation results are disjoint. `salt`
+    varies per recursion depth — an unsalted re-partition of one part maps
+    every row back into a single bucket. The hash is the JAX package's,
+    Python's (per-process salted) hash() of string bytes included, so in
+    one process both packages partition alike."""
+    n = chunk.num_rows()
+    h = np.full(n, 1469598103934665603 ^ (salt * 0x9E3779B97F4A7C15 & 0xFFFFFFFFFFFFFFFF), np.uint64)
+    prime = np.uint64(1099511628211)
+    for ci in key_cols:
+        col = chunk.columns[ci]
+        if col.is_varlen():
+            w = np.fromiter(
+                (0 if col.null[i] else hash(col.get_bytes(i)) & 0xFFFFFFFFFFFFFFFF
+                 for i in range(n)),
+                np.uint64, count=n,
+            )
+        else:
+            w = np.where(col.null, 0, col.data).astype(np.uint64)
+        h = (h ^ w) * prime
+    part = (h % np.uint64(n_parts)).astype(np.int64)
+    return [chunk.take(np.nonzero(part == p)[0]) for p in range(n_parts)]
+
+
+def _spill_partitioned(dag: DAGRequest, chunks, cache, group_capacity, small_groups, depth, device) -> Chunk:
+    """Out-of-capacity execution — the spill analog (ref:
+    pkg/executor/aggregate/agg_spill.go, join/hash_join_spill.go): when
+    device capacity retries exhaust, the input partitions on the HOST and
+    the same program runs once per partition — device kernels only, never
+    the row-at-a-time oracle.
+
+      * Partial-mode aggregation: ANY row split works (the downstream
+        Final merge combines duplicate groups), so halve the probe chunk.
+      * Complete/Final aggregation over bare column group keys: partition
+        rows by a host hash of the key columns into 4 parts — per-part
+        group sets are disjoint and results concatenate.
+      * Join/Selection/Projection-terminal DAGs whose every executor is
+        row-local: halve the probe side (each probe row's matches are
+        independent); slices concatenate in probe order.
+
+    Each level counts once in SPILL_PARTITIONS; at most 4 levels. Raises
+    OverflowRetryError when no safe decomposition exists."""
+    if depth >= 4:
+        raise OverflowRetryError("spill partitioning depth exhausted")
+    probe = chunks[0]
+    n = probe.num_rows()
+    if n < 2:
+        raise OverflowRetryError("cannot partition a <2-row input")
+    last = dag.executors[-1]
+
+    def run_parts(parts: list) -> Chunk:
+        outs = [
+            run_dag_on_chunks(dag, [p] + list(chunks[1:]), cache=cache, group_capacity=group_capacity,
+                              oracle_fallback=False, small_groups=small_groups, device=device,
+                              _spill_depth=depth + 1)
+            for p in parts if p.num_rows()
+        ]
+        return Chunk.concat(outs) if outs else Chunk.empty(dag.output_fts())
+
+    if isinstance(last, Aggregation):
+        simple_pipeline = all(isinstance(e, (TableScan, Selection)) for e in dag.executors[:-1])
+        if last.partial and simple_pipeline:
+            metrics.SPILL_PARTITIONS.inc()
+            return run_parts([probe.slice(0, n // 2), probe.slice(n // 2, n)])
+        if simple_pipeline and last.group_by and all(isinstance(g, ColumnRef) for g in last.group_by):
+            metrics.SPILL_PARTITIONS.inc()
+            keys = [g.index for g in last.group_by]
+            return run_parts(_group_key_partition(probe, keys, 4, salt=depth + 1))
+        raise OverflowRetryError("no safe spill decomposition for this aggregation")
+    row_local = all(isinstance(e, (TableScan, Selection, Projection, Join)) for e in dag.executors)
+    if row_local and isinstance(last, (Join, Selection, Projection)):
+        # probe-halving is only sound when EVERY main-pipeline executor is
+        # row-local: a mid-pipeline Aggregation/TopN/Limit/Window would
+        # make per-half results non-concatenable
+        metrics.SPILL_PARTITIONS.inc()
+        return run_parts([probe.slice(0, n // 2), probe.slice(n // 2, n)])
+    raise OverflowRetryError(f"no spill decomposition for {type(last).__name__}")
+
+
 def run_dag_on_chunks(
     dag: DAGRequest,
     chunks: list,
     cache: ProgramCache | None = None,
     group_capacity: int = DEFAULT_GROUP_CAPACITY,
     max_retries: int = 3,
+    oracle_fallback: bool = True,
     small_groups: int | None = None,
     device="cuda",
+    _spill_depth: int = 0,
 ) -> Chunk:
-    """Device path over one chunk per scan."""
+    """Device path over one chunk per scan. Capacity-retry exhaustion
+    first tries host-partitioned multi-pass device execution (the spill
+    analog); the row oracle is the last resort, also for operators the
+    device program does not express. With oracle_fallback=False both
+    errors propagate. Nothing else is caught: the no-CUDA error, kernel
+    build and launch failures pass through."""
     cache = cache or DEFAULT_PROGRAM_CACHE
-    batches = [to_device_batch(c, capacity=_pow2(max(c.num_rows(), 1)), device=device) for c in chunks]
-    return drive_program(cache, dag, batches, group_capacity, max_retries, small_groups=small_groups)[0]
+    try:
+        batches = [to_device_batch(c, capacity=_pow2(max(c.num_rows(), 1)), device=device) for c in chunks]
+        return drive_program(cache, dag, batches, group_capacity, max_retries, small_groups=small_groups)[0]
+    except OverflowRetryError:  # a RuntimeError, caught alone: a missing card or a kernel's failure passes
+        try:
+            return _spill_partitioned(dag, chunks, cache, group_capacity, small_groups, _spill_depth, device)
+        except OverflowRetryError:
+            if not oracle_fallback:
+                raise
+        rows = run_dag_reference(dag, chunks)
+        return Chunk.from_rows(dag.output_fts(), rows)
+    except NotImplementedError:
+        # a host-only operator (replace, group_concat): the row-at-a-time
+        # oracle is the documented fallback
+        if not oracle_fallback:
+            raise
+        rows = run_dag_reference(dag, chunks)
+        return Chunk.from_rows(dag.output_fts(), rows)
 
 
 def run_dag_on_chunk(

@@ -9,13 +9,23 @@ compare on an independently salted second hash and surface as the
 overflow flag; the retry driver's larger capacity re-salts both hashes.
 
 With a small-G hint (<= 32) and an eligible aggregate mix, the one-pass
-CUDA kernel (ops/dense_agg.py) runs instead; its overflow flag sends the
-driver back here. The JAX package's other routes — the XLA dense kernel
-and the stream kernel — are not ported: their inputs take the sort path,
-which gives the same rows in the same first-encounter order. DISTINCT
-aggregates and merge mode raise NotImplementedError.
+CUDA kernel (ops/dense_agg.py) runs instead; its overflow flag sends
+drive_program_info back here. Input already sorted on the group keys
+takes the stream kernel. The JAX package's XLA dense kernel is not
+ported: its inputs take the sort path, which gives the same rows in the
+same first-encounter order.
 
-Partial states (expr/agg.py): count=[n], sum=[s], avg=[n,s], min/max=[v].
+Two phases mirror the reference's partial/final split:
+  raw phase    (Complete/Partial1)  raw rows in
+  merge phase  (Partial2/Final)     partial-state columns in, reduced by
+                                    state-specific merge (+, +, min, max...)
+COUNT/SUM/AVG/VAR(DISTINCT) take a second sort by (group hash, arg hash)
+(_distinct_states); they are not decomposable, so merge mode refuses them.
+BIT_AND/OR/XOR reduce with a segmented doubling scan (ops/seg.py).
+group_concat raises NotImplementedError: the row oracle evaluates it.
+
+Partial states (expr/agg.py): count=[n], sum=[s], avg=[n,s], min/max=[v],
+var/stddev=[n,s,q], bit_*=[v].
 Output groups are ordered by first encounter (earliest contributing input
 row), matching the row-at-a-time oracle's insertion order.
 """
@@ -36,6 +46,7 @@ from .seg import (
     group_hash,
     hash_words,
     make_segctx,
+    seg_bitreduce,
     seg_first_match,
     seg_max,
     seg_min,
@@ -87,8 +98,30 @@ def _as_f64(a: CompVal):
 
 def _zeros_bool(n: int, like: torch.Tensor):
     # new_zeros: a vmapped `like` (the region-batched program) gives a
-    # buffer with its region axis, so the in-place writes below stay legal
+    # buffer with its region axis
     return like.new_zeros(n, dtype=torch.bool)
+
+
+def _shifted_ne(x: torch.Tensor) -> torch.Tensor:
+    """[False, x[1:] != x[:-1]], out of place."""
+    return torch.cat([torch.zeros_like(x[:1], dtype=torch.bool), x[1:] != x[:-1]])
+
+
+def _shifted_eq(x: torch.Tensor) -> torch.Tensor:
+    """[False, x[1:] == x[:-1]], out of place."""
+    return torch.cat([torch.zeros_like(x[:1], dtype=torch.bool), x[1:] == x[:-1]])
+
+
+def _pair_valid(valid_s: torch.Tensor) -> torch.Tensor:
+    """Rows whose predecessor is valid too (row 0 has none)."""
+    return valid_s & torch.cat([torch.zeros_like(valid_s[:1]), valid_s[:-1]])
+
+
+_BIT_OPS = {
+    "bit_and": (torch.bitwise_and, -1),  # identity all-ones (MySQL empty BIT_AND = 2^64-1)
+    "bit_or": (torch.bitwise_or, 0),
+    "bit_xor": (torch.bitwise_xor, 0),
+}
 
 
 def _agg_states_raw(desc: AggDesc, args: list[CompVal], valid, ctx: SegCtx):
@@ -136,6 +169,13 @@ def _agg_states_raw(desc: AggDesc, args: list[CompVal], valid, ctx: SegCtx):
         s = seg_sum(ctx, torch.where(mask, v, 0.0))
         q = seg_sum(ctx, torch.where(mask, v * v, 0.0))
         return [(cnt, _zeros_bool(nseg, valid)), (s, empty), (q, empty)]
+    if name == "group_concat":
+        raise NotImplementedError("group_concat on device (root-only, oracle-evaluated)")
+    if name in _BIT_OPS:
+        red, fill = _BIT_OPS[name]
+        v = seg_bitreduce(ctx, red, torch.where(mask, a.value.to(torch.int64), fill), fill)
+        # MySQL BIT_* never return NULL: an empty set yields the identity
+        return [(v, _zeros_bool(nseg, valid))]
     raise NotImplementedError(f"aggregate {name} on device")
 
 
@@ -161,6 +201,97 @@ def _arg_extreme_mask(words_s, cand, ctx: SegCtx, maximize: bool):
             best = seg_min(ctx, torch.where(cand, w, I64_MAX))
         cand = cand & (w == best[seg])
     return cand
+
+
+def _distinct_states(desc: AggDesc, args: list, row_valid, hp, nseg: int, salt: int):
+    """COUNT/SUM/AVG/VAR(DISTINCT ...) states via a second sort by (group
+    hash, arg hash): the first row of each distinct (group, args)
+    combination contributes exactly once.
+
+    The sort is two stable passes, by the arg hash and then by the group
+    hash of that order, so rows cluster by group hash exactly as the main
+    sort clusters them: segment ids are hash ranks in both, and the groups
+    number alike. Returns (states, collision_flag): arg-hash collisions are
+    caught by a neighbour compare on a second arg hash and clear on the
+    salted retry."""
+    argkeys: list = []
+    amask = row_valid
+    for a in args:
+        amask = amask & ~a.null
+        argkeys.extend(sort_key_arrays(a))
+    ah = hash_words(argkeys, salt + 1)
+    ah2 = hash_words(argkeys, salt + 2)
+    need_val = desc.name != "count"
+    a0 = args[0]
+    if need_val and a0.value.dim() != 1:
+        raise NotImplementedError(f"DISTINCT {desc.name} over string values")
+    by_arg = torch.sort(ah, stable=True).indices
+    perm = by_arg[torch.sort(hp[by_arg], stable=True).indices]
+    hps, ahs, ah2s, amask_s = hp[perm], ah[perm], ah2[perm], amask[perm]
+    valid2 = hps != I64_MAX
+    seg2, _ = segments_from_sorted([hps], valid2)
+    seg2 = torch.clamp(seg2, max=nseg - 1)
+    ctx2 = make_segctx(seg2, nseg)
+    same_run = _shifted_eq(hps) & _shifted_eq(ahs)
+    collision = torch.any(same_run & _shifted_ne(ah2s) & _pair_valid(valid2))
+    uniq = ~same_run & valid2 & amask_s
+    cnt = seg_sum(ctx2, uniq.to(torch.int64))
+    zeros = _zeros_bool(nseg, row_valid)
+    if desc.name == "count":
+        return [(cnt, zeros)], collision
+    a2 = a0.value[perm]
+    empty = cnt == 0
+    if desc.name in _VAR_FUNCS:
+        v2 = _as_f64(CompVal(a2, torch.zeros_like(amask_s), a0.ft))
+        s = seg_sum(ctx2, torch.where(uniq, v2, 0.0))
+        q = seg_sum(ctx2, torch.where(uniq, v2 * v2, 0.0))
+        return [(cnt, zeros), (s, empty), (q, empty)], collision
+    if a0.eval_type == "real":
+        s = seg_sum(ctx2, torch.where(uniq, a2, 0.0))
+    else:
+        s = seg_sum(ctx2, torch.where(uniq, a2.to(torch.int64), 0))
+    if desc.name == "sum":
+        return [(s, empty)], collision
+    return [(cnt, zeros), (s, empty)], collision
+
+
+def _agg_states_merge(desc: AggDesc, args: list[CompVal], valid, ctx: SegCtx):
+    """Merge partial-state columns (Partial2/Final): args are state cols."""
+    name = desc.name
+    nseg = ctx.nseg
+    if name == "count":
+        a = args[0]
+        return [(seg_sum(ctx, torch.where(valid, a.value, 0)), _zeros_bool(nseg, valid))]
+    if name in ("sum", "avg"):
+        out = []
+        for a in args:  # count then sum for avg; sum only for sum
+            mask = valid & ~a.null
+            present = seg_sum(ctx, mask.to(torch.int64)) > 0
+            if a.eval_type == "real":
+                s = seg_sum(ctx, torch.where(mask, a.value, 0.0))
+            else:
+                s = seg_sum(ctx, torch.where(mask, a.value.to(torch.int64), 0))
+            out.append((s, ~present))
+        if name == "avg":
+            out[0] = (out[0][0], _zeros_bool(nseg, valid))  # the count state is never NULL
+        return out
+    if name in ("min", "max"):
+        return _agg_states_raw(desc, args, valid, ctx)
+    if name in _VAR_FUNCS:
+        # additive moment states: sum each of [count, sum, sum_sq]
+        cnt_a, s_a, q_a = args
+        mask = valid & ~s_a.null
+        cnt = seg_sum(ctx, torch.where(valid, cnt_a.value.to(torch.int64), 0))
+        s = seg_sum(ctx, torch.where(mask, s_a.value, 0.0))
+        q = seg_sum(ctx, torch.where(mask, q_a.value, 0.0))
+        nn = cnt == 0
+        return [(cnt, _zeros_bool(nseg, valid)), (s, nn), (q, nn)]
+    if name == "first_row":
+        raise AssertionError("first_row merge is routed via GatherState")
+    if name in _BIT_OPS:
+        # a reduce of reduces: the same segmented bitwise scan over the states
+        return _agg_states_raw(desc, args, valid, ctx)
+    raise NotImplementedError(f"merge of {name} on device")
 
 
 def finalize_agg(desc: AggDesc, states: list, group_valid) -> tuple:
@@ -220,12 +351,15 @@ def _needs_gather_state(desc, arg_vals) -> bool:
     return desc.name in ("min", "max") and bool(arg_vals) and arg_vals[-1].value.dim() == 2
 
 
-def _check_supported(aggs, merge: bool):
-    if merge:
-        raise NotImplementedError("merge-mode aggregation not on device in this port")
-    for desc, avs in aggs:
-        if desc.distinct and avs and desc.name in ({"count", "sum", "avg"} | _VAR_FUNCS):
-            raise NotImplementedError(f"{desc.name}(DISTINCT) not on device in this port")
+def _is_distinct_special(desc, arg_vals, merge) -> bool:
+    if desc.distinct and desc.name in ({"count", "sum", "avg"} | _VAR_FUNCS) and arg_vals:
+        if merge:
+            raise NotImplementedError(
+                "DISTINCT aggregates are not decomposable into mergeable partials; "
+                "plan them in Complete mode (ref: AggregationPushDownSolver skips distinct)"
+            )
+        return True
+    return False
 
 
 def _group_aggregate_stream(group_bys, aggs, row_valid, group_capacity: int, merge: bool, compact: bool = True):
@@ -236,7 +370,6 @@ def _group_aggregate_stream(group_bys, aggs, row_valid, group_capacity: int, mer
     through the first-encounter reorder. compact=False returns the raw
     per-run has-flags as group_valid, in key order (ops/joinagg.py
     reorders itself)."""
-    _check_supported(aggs, merge)
     n = row_valid.shape[0]
     dev = row_valid.device
     keys: list[torch.Tensor] = []
@@ -263,11 +396,16 @@ def _group_aggregate_stream(group_bys, aggs, row_valid, group_capacity: int, mer
 
     states = []
     for desc, arg_vals in aggs:
+        if _is_distinct_special(desc, arg_vals, merge):
+            # DISTINCT needs the hash machinery's group-id alignment; the
+            # planner never sets stream for distinct aggs (guard)
+            raise NotImplementedError("DISTINCT aggregates in stream mode")
         if _needs_gather_state(desc, arg_vals):
             st = _gather_state_sorted(desc, arg_vals, row_valid, ctx, perm, n, merge)
             states.append(GatherState(st.idx[:group_capacity], st.has[:group_capacity] & has_g))
             continue
-        st = _agg_states_raw(desc, arg_vals, row_valid, ctx)
+        fn = _agg_states_merge if merge else _agg_states_raw
+        st = fn(desc, arg_vals, row_valid, ctx)
         states.append([(v[:group_capacity], nl[:group_capacity] | ~has_g) for v, nl in st])
 
     if not compact:
@@ -304,7 +442,6 @@ def group_aggregate(
     overflow flag routes the driver back here.
     stream: input pre-sorted on the group keys (planner-proven, e.g. below
     a Sort): the boundary-scan stream kernel runs, no sort and no hash."""
-    _check_supported(aggs, merge)
     if stream and group_bys and not any(d.distinct for d, _ in aggs):
         return _group_aggregate_stream(group_bys, aggs, row_valid, group_capacity, merge)
     if small_groups and group_bys and small_groups <= 32:
@@ -333,14 +470,7 @@ def group_aggregate(
 
     # exact-grouping check: equal primary hash but different secondary hash
     # anywhere inside a cluster => collision => overflow (salted retry)
-    same_prev = _zeros_bool(n, row_valid)
-    same_prev[1:] = h_s[1:] == h_s[:-1]
-    mism = _zeros_bool(n, row_valid)
-    mism[1:] = hv_s[1:] != hv_s[:-1]
-    pair_valid = valid_s.clone()
-    pair_valid[0] = False
-    pair_valid[1:] &= valid_s[:-1]
-    overflow = overflow | torch.any(same_prev & mism & pair_valid)
+    overflow = overflow | torch.any(_shifted_eq(h_s) & _shifted_ne(hv_s) & _pair_valid(valid_s))
 
     # earliest original row per group (deterministic oracle parity)
     group_rep_full, _ = _first_match_idx(valid_s, perm, ctx, n)
@@ -356,23 +486,30 @@ def group_aggregate(
             sorted_cache[key] = CompVal(a.value[perm], a.null[perm], a.ft)
         return sorted_cache[key]
 
+    distinct = [_is_distinct_special(desc, arg_vals, merge) for desc, arg_vals in aggs]
+    fn = _agg_states_merge if merge else _agg_states_raw
+
     # dry pass records every seg_sum request; resolve() batches them into
     # one [A, N] cumsum; the replay pass below gets the real results
     ctx.sums = SumBatch(ctx)
-    for desc, arg_vals in aggs:
-        if _needs_gather_state(desc, arg_vals):
+    for (desc, arg_vals), dis in zip(aggs, distinct):
+        if dis or _needs_gather_state(desc, arg_vals):
             continue
-        _agg_states_raw(desc, [resort(a) for a in arg_vals], valid_s, ctx)
+        fn(desc, [resort(a) for a in arg_vals], valid_s, ctx)
     ctx.sums.resolve()
 
     states = []
-    for desc, arg_vals in aggs:
-        av_s = [resort(a) for a in arg_vals]
-        if _needs_gather_state(desc, arg_vals):
-            st = _gather_state_sorted(desc, av_s, valid_s, ctx, perm, n, merge)
-            states.append(GatherState(st.idx[:group_capacity], st.has[:group_capacity] & group_valid))
-            continue
-        st = _agg_states_raw(desc, av_s, valid_s, ctx)
+    for (desc, arg_vals), dis in zip(aggs, distinct):
+        if dis:
+            st, coll_flag = _distinct_states(desc, arg_vals, row_valid, hp, nseg, group_capacity)
+            overflow = overflow | coll_flag
+        else:
+            av_s = [resort(a) for a in arg_vals]
+            if _needs_gather_state(desc, arg_vals):
+                st = _gather_state_sorted(desc, av_s, valid_s, ctx, perm, n, merge)
+                states.append(GatherState(st.idx[:group_capacity], st.has[:group_capacity] & group_valid))
+                continue
+            st = fn(desc, av_s, valid_s, ctx)
         states.append([(v[:group_capacity], nl[:group_capacity] | ~group_valid) for v, nl in st])
     ctx.sums = None
 
@@ -393,9 +530,10 @@ def group_aggregate(
 def scalar_aggregate(aggs: list, row_valid: torch.Tensor, merge: bool = False, salt: int = 1):
     """Aggregation without GROUP BY: always exactly one output row.
 
-    One segment spanning the batch. Returns (states, overflow); overflow
-    is always False here (it comes only from DISTINCT, not ported)."""
-    _check_supported(aggs, merge)
+    One segment spanning the batch. States come back [1]-shaped; first_row
+    and string min/max come back as a GatherState. Returns (states,
+    overflow): overflow only from DISTINCT arg-hash collisions, cleared by
+    the salted retry."""
     n = row_valid.shape[0]
     dev = row_valid.device
     ctx = SegCtx(
@@ -406,11 +544,18 @@ def scalar_aggregate(aggs: list, row_valid: torch.Tensor, merge: bool = False, s
         counts=torch.full((1,), n, dtype=torch.int64, device=dev),
     )
     perm = torch.arange(n, dtype=torch.int32, device=dev)
+    hp = torch.where(row_valid, 0, I64_MAX)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
     states = []
     for desc, arg_vals in aggs:
-        if _needs_gather_state(desc, arg_vals):
+        if _is_distinct_special(desc, arg_vals, merge):
+            st, coll_flag = _distinct_states(desc, arg_vals, row_valid, hp, 2, salt)
+            overflow = overflow | coll_flag
+            states.append([(v[:1], nl[:1]) for v, nl in st])
+        elif _needs_gather_state(desc, arg_vals):
             st = _gather_state_sorted(desc, arg_vals, row_valid, ctx, perm, n, merge)
             states.append(GatherState(st.idx[:1], st.has[:1]))
         else:
-            states.append(_agg_states_raw(desc, arg_vals, row_valid, ctx))
-    return states, torch.zeros((), dtype=torch.bool, device=dev)
+            fn = _agg_states_merge if merge else _agg_states_raw
+            states.append(fn(desc, arg_vals, row_valid, ctx))
+    return states, overflow

@@ -185,8 +185,8 @@ def make_segctx(seg: torch.Tensor, nseg: int) -> SegCtx:
         q = torch.arange(nseg, dtype=seg.dtype, device=dev)
         starts = torch.searchsorted(seg.contiguous(), q).to(torch.int32)
     else:
-        bnd = torch.ones(n, dtype=torch.bool, device=dev)
-        bnd[1:] = seg[1:] != seg[:-1]
+        # out of place (a vmapped batch's region axis rides through cat)
+        bnd = torch.cat([torch.ones_like(seg[:1], dtype=torch.bool), seg[1:] != seg[:-1]])
         pos = torch.argsort((~bnd).to(torch.int8), stable=True).to(torch.int32)
         n_runs = seg[-1].to(torch.int32) + 1
         if nseg > n:
@@ -255,3 +255,29 @@ def seg_first_match(ctx: SegCtx, mask_s: torch.Tensor):
     first = rcm[torch.clamp(ctx.starts, 0, n - 1).to(torch.int64)]
     has = (ctx.counts > 0) & (first <= ctx.ends)
     return torch.where(has, torch.clamp(first, 0, n - 1), 0).to(torch.int32), has
+
+
+def _seg_scan_reduce(ctx: SegCtx, vals: torch.Tensor, combine, neutral, empty_fill) -> torch.Tensor:
+    """Per-segment reduce of an associative `combine` via a Hillis-Steele
+    doubling scan: log2(N) steps of a shifted cat and a where, each row
+    combining with the row d before it when both lie in one segment. Built
+    out of place, so it stays legal under torch.func.vmap."""
+    n = vals.shape[0]
+    v = vals
+    s = ctx.seg
+    d = 1
+    while d < n:
+        pv = torch.cat([torch.full_like(v[:d], neutral), v[:-d]])
+        ps = torch.cat([torch.full_like(s[:d], -1), s[:-d]])
+        v = torch.where(s == ps, combine(v, pv), v)
+        d *= 2
+    out = v[torch.clamp(ctx.ends, 0, n - 1).to(torch.int64)]
+    return torch.where(ctx.counts > 0, out, empty_fill)
+
+
+def seg_bitreduce(ctx: SegCtx, red, vals: torch.Tensor, fill: int) -> torch.Tensor:
+    """Segmented bitwise and / or / xor (torch has no scatter_reduce for
+    them; callers pre-mask invalid lanes to the identity `fill`). The
+    doubling scan handles nseg == 1 too: one segment is a plain scan whose
+    last element is the total."""
+    return _seg_scan_reduce(ctx, vals, red, fill, fill)

@@ -376,6 +376,51 @@ def store_dags(exec_mod, expr_mod, types_mod, topn_limit: int = 100) -> dict:
     return out
 
 
+def store_statements(exec_mod, expr_mod, types_mod) -> dict:
+    """name -> a Complete-mode statement over the store table, whose root
+    half runs at the root after distsql/root.py split_dag:
+
+      q1, q6           store_dags' Q1 and Q6 (Partial1 on the regions, then a
+                       Final merge at the root)
+      bit              GROUP BY l_returnflag, l_linestatus: BIT_AND, BIT_OR,
+                       BIT_XOR(l_orderkey), COUNT(*) (bit states merged)
+      distinct         GROUP BY l_returnflag, l_linestatus: COUNT(DISTINCT
+                       l_orderkey), SUM(DISTINCT l_quantity), AVG(DISTINCT
+                       l_discount), COUNT(*) (not decomposable: a plain scan
+                       on the regions, the whole aggregation at the root)
+      distinct_scalar  COUNT(DISTINCT l_orderkey)
+      okey             GROUP BY l_orderkey: SUM(l_extendedprice * (1 -
+                       l_discount)), COUNT(*) (a Final merge of ~ a group a
+                       row)"""
+    E, X, T = exec_mod, expr_mod, types_mod
+    dags = store_dags(E, X, T)
+    LL, D15, V1 = T.new_longlong(notnull=True), T.new_decimal(15, 2), T.new_varchar(1)
+    A = X.AggDesc
+
+    def scan(names, fts):
+        cols = tuple(E.ColumnInfo(LINEITEM_COL_IDS[nm], ft) for nm, ft in zip(names, fts))
+        return E.TableScan(LINEITEM_TABLE_ID, cols), [X.col(i, ft) for i, ft in enumerate(fts)]
+
+    def statement(sc, group_by, aggs):
+        agg = E.Aggregation(group_by=tuple(group_by), aggs=tuple(aggs))
+        return E.DAGRequest((sc, agg), output_offsets=tuple(range(len(aggs) + len(group_by))))
+
+    out = {"q1": dags["q1"][0], "q6": dags["q6"][0]}
+    sc, (rf, ls, okey) = scan(("rflag", "lstat", "okey"), (V1, V1, LL))
+    out["bit"] = statement(sc, (rf, ls), (A("bit_and", (okey,)), A("bit_or", (okey,)), A("bit_xor", (okey,)),
+                                          A("count", ())))
+    sc, (rf, ls, okey, qty, disc) = scan(("rflag", "lstat", "okey", "qty", "disc"), (V1, V1, LL, D15, D15))
+    out["distinct"] = statement(sc, (rf, ls), (A("count", (okey,), distinct=True), A("sum", (qty,), distinct=True),
+                                               A("avg", (disc,), distinct=True), A("count", ())))
+    sc, (okey,) = scan(("okey",), (LL,))
+    out["distinct_scalar"] = statement(sc, (), (A("count", (okey,), distinct=True),))
+    sc, (okey, price, disc) = scan(("okey", "price", "disc"), (LL, D15, D15))
+    one_minus = X.func("minus", T.new_decimal(16, 2), X.lit(1, T.new_longlong()), disc)
+    out["okey"] = statement(sc, (okey,), (A("sum", (X.func("mul", T.new_decimal(31, 4), price, one_minus),)),
+                                          A("count", ())))
+    return out
+
+
 def store_selection_dag(exec_mod, expr_mod, types_mod):
     """A row-local DAG for paged requests: SELECT okey, price, shipdate
     WHERE shipdate > '1995-03-15' AND disc >= 0.05 over the store table."""

@@ -109,10 +109,31 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      once per bucket in Q1's push half, SPILL_PARTITIONS +1 in the forced
      spill and +0 elsewhere, no oracle fallback, other_error, bucket
      fallback or lane-by-lane vmap op; then the median ms of the push
-     frame, the root merge alone and the whole statement.
+     frame, the root merge alone and the whole statement;
+  9. the dispatch loop on phase 7's regions: each statement of phase 8,
+     Q3 (orders and customer as aux chunks, a root TopN 10 by revenue) and
+     the store TopN through distsql execute_root in the pool tier (4
+     threads, the session's default), the batch tier and the single tier,
+     every answer against numpy; K1 once per region (pool, single) or per
+     capacity bucket (batch) in Q1, K2 and K3 likewise in Q3; no oracle
+     fallback, other_error or bucket fallback in the store, no lane-by-lane
+     vmap op, and no call of the root's row oracle (run_dag_reference is
+     wrapped and counted); Q1's push half through select(use_wire=True) in
+     the single and batch tiers; low_memory=True (the Partial2 fold over
+     select_stream) for Q1 and GROUP BY l_orderkey; the median ms of
+     execute_root per statement in each tier beside phase 8's hand-joined
+     whole (with --profile, a device profile of Q1 and Q3 in the pool tier,
+     and Q1 and BIT_* in the pool tier again at a 0.1 ms interpreter
+     switch interval and with one intra-op CPU thread, and their CUDA
+     runtime calls in the pool and single tiers); and last, a region split by
+     the distsql.before_task
+     failpoint on its first evaluation, in the pool and batch tiers: the
+     stale task answers epoch_not_match, is re-split and retried,
+     REGION_ERRORS{kind="epoch_not_match"} rises by one, and Q1 still
+     equals numpy.
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4, 6, 7 and 8); the last line is {"ok": true,
+the main paths of phases 4, 6, 7, 8 and 9); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
@@ -149,7 +170,7 @@ STORE_PAGE = 8192
 STORE_PAGED_ROWS = 1 << 16     # the paged request covers each region's first 2^16 rows
 STORE_LOAD_CHUNK = 1 << 18     # rows a load worker encodes at a time
 LOAD_WORKERS = 8
-COLD_REPS = 10
+COLD_REPS = 5
 # K3's operations a row for its bound, whatever the design: the key-run
 # test, inner, real, the duplicate test, the bad byte, the head and ok
 K3_OPS_PER_ROW = 8
@@ -163,6 +184,16 @@ BATCH_SPLITS = tuple(k * BATCH_REGION for k in (1, 2, 3, 5, 6, 7)) + (7 * BATCH_
 # phase 8, the statement's root half: the GROUP BY l_orderkey merge forced
 # to spill at this group capacity with no capacity retry
 ROOT_SPILL_CAPACITY = 1 << 18
+# phase 9, the dispatch loop: execute_root's keyword arguments for each tier
+# (the pool tier is the session's default: tidb_distsql_scan_concurrency 4,
+# tidb_allow_batch_cop off), the timed runs a statement (DISTINCT grouped
+# takes 4-5 s a run), and the handles the failpoint splits at (inside phase
+# 7's fourth and sixth regions)
+DISPATCH_TIERS = {"pool": {"concurrency": 4, "batch_cop": False}, "batch": {"batch_cop": True},
+                  "single": {"concurrency": 1}}
+DISPATCH_REPS = 5
+DISPATCH_DISTINCT_REPS = 3
+DISPATCH_SPLITS = (5 * BATCH_REGION // 2, 11 * BATCH_REGION // 2)
 
 
 def log(*a):
@@ -718,6 +749,29 @@ def host_profile(name, fn, top: int = 10):
         log(f"  {tt * 1e3:9.1f} ms  x{nc:<8d} {where}")
 
 
+def runtime_calls(name, fn, top: int = 6):
+    """One torch.profiler run of fn: the CUDA runtime calls of every thread
+    (CUPTI traces them process-wide; torch ops are recorded only on the
+    profiling thread), the `top` by their own CPU time and their total, the
+    host side of a path that runs on several threads."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((ev.self_cpu_time_total, ev.count, ev.key) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CPU and ev.key.startswith("cuda")), reverse=True)
+    log(f"runtime calls {name}: {wall:.1f} ms wall under the profiler, {sum(r[0] for r in rows) / 1e3:.3f} ms in "
+        f"{sum(r[1] for r in rows)} CUDA runtime calls over every thread:")
+    for us, count, key in rows[:top]:
+        log(f"  {us / 1e3:9.3f} ms  x{count:<6d} {key[:80]}")
+
+
 class Counters:
     """The kernels' launch counters: zeroed just before a main path runs,
     read just after; timing and comparison launches are not counted."""
@@ -1167,13 +1221,22 @@ def decoded_statement(name, chunk):
             for j in range(chunk.num_rows())}
 
 
+def statement_shifts(E, T, stmts) -> dict:
+    """numpy_statement's decimal shifts for the AVG results of Q1 and of
+    the DISTINCT statement."""
+    q1_avg = next(e for e in stmts["q1"].executors if isinstance(e, E.Aggregation)).aggs[3]
+    dis_avg = stmts["distinct"].executors[-1].aggs[2]
+    return {"T": T, "q1": q1_avg.ft.decimal - q1_avg.partial_fts()[1].decimal,
+            "avg": dis_avg.ft.decimal - dis_avg.partial_fts()[1].decimal}
+
+
 def same_answer(got, want) -> bool:
     if isinstance(want, tuple) and len(want) == 3:  # the okey arrays
         return all(len(a) == len(b) and (a == b).all() for a, b in zip(got, want))
     return got == want
 
 
-def root_phase(store, E, X, T, W, counters, profile: bool, card: str) -> None:
+def root_phase(store, E, X, T, W, counters, profile: bool, card: str) -> dict:
     """Phase 8: each statement of workloads.store_statements on phase 7's
     nine regions as the JAX package's root runs it: split_dag, the push
     half as ONE batch_coprocessor_bytes frame over the regions, the answers
@@ -1185,7 +1248,8 @@ def root_phase(store, E, X, T, W, counters, profile: bool, card: str) -> None:
     l_orderkey merge and by 0 elsewhere. Then the median ms, over 10 runs,
     of the push frame, of the root merge alone and of the whole statement
     (each run times its push and its root apart), beside `card`, the
-    card's name and power limit from nvidia-smi."""
+    card's name and power limit from nvidia-smi. Returns {statement: the
+    whole's median ms}."""
     import torch
 
     from tidb_tpu_torch import codec
@@ -1204,15 +1268,13 @@ def root_phase(store, E, X, T, W, counters, profile: bool, card: str) -> None:
     if len(regions) != 9:
         raise SystemExit(f"phase 8: {len(regions)} regions, not phase 7's nine")
     stmts = W.store_statements(E, X, T)
-    q1_avg = next(e for e in stmts["q1"].executors if isinstance(e, E.Aggregation)).aggs[3]
-    dis_avg = stmts["distinct"].executors[-1].aggs[2]
-    shifts = {"T": T, "q1": q1_avg.ft.decimal - q1_avg.partial_fts()[1].decimal,
-              "avg": dis_avg.ft.decimal - dis_avg.partial_fts()[1].decimal}
+    shifts = statement_shifts(E, T, stmts)
     cache = ProgramCache()
     ts = store.next_ts()
     buckets = 2
     st0 = store.stats()
     unspilled = None  # the GROUP BY l_orderkey rows, before the forced spill
+    wholes = {}
     statements = list(stmts.items()) + [("okey spilled", stmts["okey"])]
     for name, dag in statements:
         plan = split_dag(dag)
@@ -1284,6 +1346,7 @@ def root_phase(store, E, X, T, W, counters, profile: bool, card: str) -> None:
                 root_t.append((t2 - t1) * 1e3)
                 whole_t.append((t2 - t0) * 1e3)
         root_ms, whole_ms = statistics.median(root_t), statistics.median(whole_t)
+        wholes[name] = whole_ms
         log(f"phase 8 {name} ({REPS} runs): push frame {statistics.median(push_t):.3f} ms, root merge "
             f"{root_ms:.3f} ms ({root_in.num_rows()} input rows), whole {whole_ms:.3f} ms "
             f"({STORE_ROWS / whole_ms / 1e3:.1f} Mrows/s) on {card}")
@@ -1295,6 +1358,242 @@ def root_phase(store, E, X, T, W, counters, profile: bool, card: str) -> None:
     if any(st[k] != st0[k] for k in ("oracle_fallbacks", "other_errors", "batch_fallbacks")):
         raise SystemExit(f"phase 8: an oracle fallback, an other_error or a bucket's fallback while timing ({st})")
     log(f"phase 8 store counts: {st}")
+    return wholes
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the dispatch loop
+# ---------------------------------------------------------------------------
+
+def dispatch_phase(store, E, X, T, W, counters, profile: bool, card: str, phase8_wholes: dict) -> None:
+    """Phase 9: statements through distsql execute_root on phase 7's nine
+    regions, in the pool, batch and single tiers (see the module
+    docstring), every answer against numpy, the kernels' launches per
+    region or per bucket, no fallback of any kind and no call of the
+    root's row oracle; the wire route, the low-memory fold, the timings,
+    and last the failpoint's mid-statement split."""
+    import threading
+
+    import torch
+
+    import tidb_tpu_torch.chunk as C
+    import tidb_tpu_torch.exec.executor as EX
+    from tidb_tpu_torch import codec
+    from tidb_tpu_torch.distsql import KVRequest, execute_root, full_table_ranges, select, split_dag
+    from tidb_tpu_torch.exec.builder import ProgramCache
+    from tidb_tpu_torch.exec.executor import _pow2
+    from tidb_tpu_torch.util import failpoint, metrics
+
+    tid = W.LINEITEM_TABLE_ID
+    t = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
+    bounds = sorted(set(BATCH_SPLITS) | {0, STORE_SPLIT, STORE_ROWS})
+    if len(store.cluster.regions()) != len(bounds) - 1:
+        raise SystemExit(f"phase 9: {len(store.cluster.regions())} regions, not phase 7's {len(bounds) - 1}")
+    ranges = full_table_ranges(tid)
+    stmts = W.store_statements(E, X, T)
+    shifts = statement_shifts(E, T, stmts)
+    dags = W.store_dags(E, X, T)
+    q3_dag, q3_fts = dags["q3"]
+    q3_build = W.store_q3_build_columns(STORE_ORDERS, STORE_CUSTOMERS)
+    q3_aux = [W.make_chunk(C, f, c) for c, f in zip(q3_build, q3_fts)]
+    revenue = X.col(0, q3_dag.executors[-1].aggs[0].ft)
+    q3_top = E.DAGRequest(q3_dag.executors + (E.TopN(order_by=((revenue, True),), limit=10),),
+                          output_offsets=q3_dag.output_offsets)
+    q3_want = numpy_q3([[W.fixed_col(t[k]) for k in ("okey", "price", "disc", "shipdate")]] + q3_build, T)
+    entries = [(name, dag, {"small_groups": G} if name == "q1" else {}) for name, dag in stmts.items()]
+    entries += [("q3", q3_top, {"aux_chunks": q3_aux}), ("topn", dags["topn"][0], {})]
+    need = {"q1": ("dense_agg",), "q3": ("postsort_segscan", "membership_segscan")}
+    cache = ProgramCache()
+    ts = store.next_ts()
+
+    def answer(name, out) -> str:
+        """Hold a root answer against numpy; returns what was compared."""
+        if name == "topn":
+            check_rows(f"phase 9 {name}", out, numpy_order(t["price"], t["shipdate"], TOPN_K), t["price"],
+                       t["shipdate"])
+            return f"the first {TOPN_K} rows"
+        if name == "q3":
+            got = decoded_q3(out)
+            top = sorted(q3_want.values(), reverse=True)[:10]
+            if sorted(got.values(), reverse=True) != top or any(q3_want.get(k) != v for k, v in got.items()):
+                raise SystemExit(f"phase 9 q3: the root's top 10 differ from numpy ({got})")
+            return f"the top 10 of {len(q3_want)} groups"
+        got = decoded_statement(name, out)
+        if not same_answer(got, numpy_statement(name, t, shifts)):
+            raise SystemExit(f"phase 9 {name}: the root's answer differs from numpy")
+        return {"q6": "(sum, count)", "distinct_scalar": "count(distinct l_orderkey)"}.get(
+            name, f"{out.num_rows()} groups")
+
+    def buckets_of(sizes) -> int:
+        """Kernel launches of the batch tier: one per capacity bucket (a
+        bucket of one region runs the single path, also one launch)."""
+        return len({_pow2(n) for n in sizes})
+
+    oracle_calls = [0]
+    real_oracle = EX.run_dag_reference
+
+    def counted_oracle(*a, **k):
+        oracle_calls[0] += 1
+        return real_oracle(*a, **k)
+
+    def clean(what, st0, o0):
+        st = store.stats()
+        if any(st[k] != st0[k] for k in ("oracle_fallbacks", "other_errors", "batch_fallbacks")):
+            raise SystemExit(f"phase 9 {what}: an oracle fallback, an other_error or a bucket's fallback ({st})")
+        if oracle_calls[0] != o0:
+            raise SystemExit(f"phase 9 {what}: the root's row oracle ran {oracle_calls[0] - o0} times")
+
+    def run(name, dag, extra, tier, **more):
+        store.clear_result_cache()  # every run sends its programs
+        return execute_root(store, dag, ranges, ts, cache=cache, **extra, **DISPATCH_TIERS[tier], **more)
+
+    def checked(name, dag, extra, tier, launches, kernels=None, **more):
+        """One main-path run with the counters zeroed: the answer, the
+        launches of the statement's kernels (`kernels`, by default those
+        of `need`), no fallback and no oracle call."""
+        kernels = need.get(name, ()) if kernels is None else kernels
+        st0, o0 = store.stats(), oracle_calls[0]
+        t0 = time.perf_counter()
+        out, fallback = vmap_fallbacks(lambda: counters.path(
+            f"execute_root {name} {tier}{' ' + str(more) if more else ''}",
+            lambda: run(name, dag, extra, tier, **more), need=kernels, phase=9))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for k in kernels:
+            require_launches(f"phase 9 {name} {tier} {k}", counters.last[k], launches)
+        if fallback:
+            raise SystemExit(f"phase 9 {name} {tier}: vmap ran {fallback} lane by lane")
+        what = answer(name, out)
+        clean(f"{name} {tier}", st0, o0)
+        return out, what, ms
+
+    sizes = [hi - lo for lo, hi in zip(bounds[:-1], bounds[1:])]
+    EX.run_dag_reference = counted_oracle
+    try:
+        # every statement in every tier
+        for name, dag, extra in entries:
+            for tier in DISPATCH_TIERS:
+                launches = buckets_of(sizes) if tier == "batch" else len(sizes)
+                out, what, ms = checked(name, dag, extra, tier, launches)
+                log(f"phase 9 {name} {tier}: execute_root over {len(sizes)} regions -> {what} == numpy; launches "
+                    f"{counters.last}; {ms:.1f} ms; no oracle call, fallback or lane-by-lane vmap op")
+
+        # Q1's push half over the wire, in the single and the batch tier
+        plan = split_dag(stmts["q1"])
+        for tier in ("single", "batch"):
+            st0, o0 = store.stats(), oracle_calls[0]
+
+            def wire_statement():
+                store.clear_result_cache()
+                res = select(store, KVRequest(plan.push_dag, ranges, ts, use_wire=True, small_groups=G,
+                                              **DISPATCH_TIERS[tier]))
+                merged = C.Chunk.concat(res.chunks)
+                return EX.run_dag_on_chunks(plan.root_dag, [merged], cache=cache, device=store.device,
+                                            oracle_fallback=False), res
+
+            out, res = counters.path(f"select(use_wire=True) q1 {tier}", wire_statement, need=need["q1"], phase=9)
+            require_launches(f"phase 9 q1 over the wire {tier} dense_agg", counters.last["dense_agg"],
+                             buckets_of(sizes) if tier == "batch" else len(sizes))
+            what = answer("q1", out)
+            clean(f"q1 over the wire {tier}", st0, o0)
+            log(f"phase 9 q1 {tier} over the wire: select(use_wire=True) -> {len(res.chunks)} chunks, batch stats "
+                f"{res.batch_stats}, root merge -> {what} == numpy")
+
+        # the low-memory fold: one region at a time over select_stream; its
+        # requests carry no small-groups hint (the JAX package's fold builds
+        # them without one), so Q1's push half takes the sort path, not K1
+        for name in ("q1", "okey"):
+            dag, extra = stmts[name], ({"small_groups": G} if name == "q1" else {})
+            out, what, ms = checked(name, dag, extra, "single", 0, kernels=(), low_memory=True)
+            log(f"phase 9 {name} low_memory=True: the Partial2 fold over {len(sizes)} regions -> {what} == numpy; "
+                f"launches {counters.last}; {ms:.1f} ms")
+
+        # times: execute_root per statement in each tier, in turns
+        med = statistics.median
+
+        def timed_runs(dag, extra, tier, reps):
+            runs = []
+            for _ in range(reps):
+                store.clear_result_cache()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                execute_root(store, dag, ranges, ts, cache=cache, **extra, **DISPATCH_TIERS[tier])
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            return med(runs)
+
+        st0, o0 = store.stats(), oracle_calls[0]
+        for name, dag, extra in entries:
+            reps = DISPATCH_DISTINCT_REPS if name == "distinct" else DISPATCH_REPS
+            times = {tier: timed_runs(dag, extra, tier, reps) for tier in DISPATCH_TIERS}
+            hand = phase8_wholes.get(name)
+            log(f"phase 9 {name} ({reps} runs): execute_root median pool {times['pool']:.3f} ms, batch "
+                f"{times['batch']:.3f} ms, single {times['single']:.3f} ms; phase 8's hand-joined whole "
+                f"{'%.3f ms' % hand if hand is not None else '(not in phase 8)'}; on {card}")
+            if profile and name in ("q1", "q3"):
+                store.clear_result_cache()
+                profile_path(f"phase 9 {name} execute_root, pool tier",
+                             lambda: run(name, dag, extra, "pool"), times["pool"])
+            if profile and name in ("q1", "bit"):
+                # why the pool tier is slower than one thread: the
+                # interpreter lock's switch interval (5 ms by default; at
+                # 0.1 ms a thread back from the card gets the lock sooner),
+                # torch's intra-op CPU threads (one per core, in each of the
+                # pool's threads), and the host records of each tier
+                interval, cpu_threads = sys.getswitchinterval(), torch.get_num_threads()
+                sys.setswitchinterval(1e-4)
+                try:
+                    fast = timed_runs(dag, extra, "pool", reps)
+                finally:
+                    sys.setswitchinterval(interval)
+                torch.set_num_threads(1)
+                try:
+                    one = timed_runs(dag, extra, "pool", reps)
+                finally:
+                    torch.set_num_threads(cpu_threads)
+                log(f"phase 9 {name} pool tier ({reps} runs): {fast:.3f} ms at a 0.1 ms switch interval, {one:.3f} ms "
+                    f"with one intra-op CPU thread, against {times['pool']:.3f} ms at {interval * 1e3:.1f} ms and "
+                    f"{cpu_threads} threads")
+                for tier in ("pool", "single"):
+                    store.clear_result_cache()
+                    runtime_calls(f"phase 9 {name} {tier} tier", lambda: run(name, dag, extra, tier))
+        clean("timing", st0, o0)
+
+        # last: a region split mid-statement by the failpoint's first
+        # evaluation (every evaluation waits for the split, so no task is
+        # sent before it); the stale task answers epoch_not_match and is
+        # re-split and retried
+        for tier, handle in zip(("pool", "batch"), DISPATCH_SPLITS):
+            j = next(i for i in range(len(sizes)) if bounds[i] < handle < bounds[i + 1])
+            stale = sizes[j]
+            lock, done = threading.Lock(), []
+
+            def split_once():
+                with lock:
+                    if not done:
+                        done.append(store.cluster.split(codec.encode_row_key(tid, handle)))
+
+            epochs = metrics.REGION_ERRORS.labels("epoch_not_match").value
+            n_regions = len(store.cluster.regions())
+            others = sizes[:j] + sizes[j + 1:]
+            launches = (buckets_of(others) + 2) if tier == "batch" else len(sizes) + 1
+            failpoint.enable("distsql.before_task", split_once)
+            try:
+                out, what, ms = checked("q1", stmts["q1"], {"small_groups": G}, tier, launches)
+            finally:
+                failpoint.disable("distsql.before_task")
+            rose = metrics.REGION_ERRORS.labels("epoch_not_match").value - epochs
+            if not done or len(store.cluster.regions()) != n_regions + 1 or rose != 1:
+                raise SystemExit(f"phase 9 split {tier}: split {bool(done)}, regions {len(store.cluster.regions())}, "
+                                 f"epoch_not_match +{rose}")
+            bounds = sorted(set(bounds) | {handle})
+            sizes = [hi - lo for lo, hi in zip(bounds[:-1], bounds[1:])]
+            log(f"phase 9 q1 {tier}, a {stale}-row region split at handle {handle} by the failpoint mid-statement: "
+                f"REGION_ERRORS{{kind=\"epoch_not_match\"}} +{rose}, {what} == numpy, launches {counters.last}; "
+                f"{len(sizes)} regions now")
+    finally:
+        EX.run_dag_reference = real_oracle
+    log(f"phase 9 store counts: {store.stats()}")
 
 
 def main() -> int:
@@ -2020,7 +2319,9 @@ def main() -> int:
     # phases 6 and 7: the store's coprocessor endpoints
     store = store_phase(E, X, T, W, counters, dev, "--profile" in sys.argv[1:])
     # phase 8: the statement's root half on phase 7's regions
-    root_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    wholes = root_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    # phase 9: the dispatch loop, execute_root in every tier
+    dispatch_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, wholes)
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -53,6 +53,8 @@ def test_import_leaves_jax_unloaded():
         "import tidb_tpu_torch.ops.join_probe, tidb_tpu_torch.ops.radix_join\n"
         "import tidb_tpu_torch.ops.topn, tidb_tpu_torch.ops.window\n"
         "import tidb_tpu_torch.distsql, tidb_tpu_torch.util.metrics\n"
+        "import tidb_tpu_torch.distsql.planner, tidb_tpu_torch.distsql.runaway, tidb_tpu_torch.topsql\n"
+        "import tidb_tpu_torch.util.backoff, tidb_tpu_torch.util.failpoint, tidb_tpu_torch.util.tracing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )

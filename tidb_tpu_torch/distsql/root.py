@@ -18,22 +18,32 @@ Executors after the merge point run at root unchanged: the Final merge
 reproduces the Complete aggregation's output schema, so HAVING selections,
 root TopN/Limit and output offsets apply as written.
 
-The root merge runs the root DAG over the concatenated per-region results:
-`exec.executor.run_dag_on_chunks(plan.root_dag, [Chunk.concat(partials)])`,
+`execute_root` joins the two halves: it splits the statement, dispatches
+the push half over the store's regions (`dispatch.select`, in the tier the
+planner picks), and runs the root DAG over the concatenated per-region
+results with `exec.executor.run_dag_on_chunks(..., device=store.device)`,
 whose spill and oracle fallback serve a merge that outgrows every capacity
-retry. The dispatch half — `execute_root`, `_execute_root` and
-`_execute_root_lowmem` in the JAX package — needs the region dispatch
-loop (`distsql/dispatch.py select`), which is not ported yet.
+retry. A store made on `cuda` merges on the card, one made with
+`device="cpu"` on the host. `low_memory` folds the regions' partial
+states one region at a time over `dispatch.select_stream` (Partial2).
+
+Left out, beside the reference: the columnar replica. `isolation_engines`
+is accepted, and a request that allows `columnar` is served by the row
+store, as the reference serves it when its replica declines.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+from ..chunk import Chunk
+from ..exec.builder import DEFAULT_GROUP_CAPACITY, ProgramCache
 from ..exec.dag import (Aggregation, ColumnInfo, DAGRequest, IndexScan, Join, Limit, Projection, Selection, Sort,
                         TableScan, TopN, Window, current_schema_fts)
 from ..expr.agg import AggDesc, AggMode
+from ..exec.executor import run_dag_on_chunks
 from ..expr.ir import EXTENSION_OPS, ScalarFunc, col
+from .dispatch import KVRequest, SelectResult, select
 
 # ops evaluated only by the host oracle (the runtime-blocklist analog of
 # infer_pushdown.go IsPushDownEnabled): JSON + regexp follow the per-store
@@ -154,6 +164,121 @@ def split_dag(dag: DAGRequest) -> RootPlan:
     return RootPlan(push_dag, root_dag)
 
 
+def execute_root(
+    store,
+    dag: DAGRequest,
+    ranges: list,
+    start_ts: int,
+    aux_chunks: list | None = None,
+    concurrency: int = 4,
+    cache: ProgramCache | None = None,
+    group_capacity: int = DEFAULT_GROUP_CAPACITY,
+    paging_size: int | None = None,
+    batch_cop: bool = False,
+    summary_sink: list | None = None,
+    tracker=None,
+    low_memory: bool = False,
+    small_groups: int | None = None,
+    checker=None,
+    backoff_weight: int = 2,
+    replica_read: str = "leader",
+    mesh: bool | None = None,
+    mesh_min_rows: int = 0,
+    isolation_engines: tuple = ("tpu",),
+) -> Chunk:
+    """Run a logical (Complete-mode) DAG over the store: split, dispatch the
+    pushdown half per region, merge at root. The caller-visible result is
+    identical to running the whole DAG over all rows at once.
+
+    isolation_engines (tidb_isolation_read_engines): the port has no
+    columnar replica, so every engine list is served by the row store.
+
+    mesh (tidb_enable_tpu_mesh) lets the dispatch planner pick the mesh
+    tier for eligible partial-agg/TopN pushdowns on >= 2 devices; the
+    port's store serves it as its batched tier.
+
+    paging_size applies only when the pushdown half is row-local (the store
+    rejects paged aggregation/TopN/Limit); otherwise it is ignored here.
+    tracker accounts per-region result bytes; low_memory switches to a
+    sequential dispatch with an INCREMENTAL Partial2 fold of per-region agg
+    states, so the working set stays O(one region + the group table)
+    instead of O(all regions) (ref: util/memory action chain +
+    agg_spill.go's bounded-memory intent)."""
+    from ..util import tracing
+
+    with tracing.span("distsql.execute_root", n_ranges=len(ranges),
+                      start_ts=start_ts, low_memory=low_memory) as sp:
+        out = _execute_root(
+            store, dag, ranges, start_ts, aux_chunks, concurrency, cache,
+            group_capacity, paging_size, batch_cop, summary_sink, tracker,
+            low_memory, small_groups, checker, backoff_weight, replica_read,
+            mesh, mesh_min_rows, isolation_engines,
+        )
+        if sp is not None:
+            sp.set("rows", out.num_rows())
+        return out
+
+
+def _execute_root(
+    store, dag, ranges, start_ts, aux_chunks, concurrency, cache,
+    group_capacity, paging_size, batch_cop, summary_sink, tracker,
+    low_memory, small_groups, checker, backoff_weight=2,
+    replica_read="leader", mesh=None, mesh_min_rows=0,
+    isolation_engines=("tpu",),
+) -> Chunk:
+    # isolation_engines: no columnar replica in the port — the row store
+    # serves, as the reference's does when its replica declines
+    plan = split_dag(dag)
+    if low_memory and plan.root_dag is not None:
+        folded = _execute_root_lowmem(store, plan, ranges, start_ts, aux_chunks or [], cache, group_capacity,
+                                      tracker)
+        if folded is not None:
+            return folded
+    if paging_size is not None:
+        from ..exec.dag import executor_walk
+
+        if any(isinstance(e, (Aggregation, TopN, Limit, Sort)) for e in executor_walk(plan.push_dag.executors)):
+            paging_size = None
+    res: SelectResult = select(
+        store,
+        KVRequest(
+            plan.push_dag, ranges, start_ts, concurrency=concurrency,
+            aux_chunks=aux_chunks or [], paging_size=paging_size,
+            batch_cop=batch_cop, small_groups=small_groups, checker=checker,
+            backoff_weight=backoff_weight, replica_read=replica_read,
+            mesh=mesh, mesh_min_rows=mesh_min_rows,
+        ),
+    )
+    if summary_sink is not None:
+        # per-task ExecutorExecutionSummary lists (ref: tipb exec summaries
+        # consumed by EXPLAIN ANALYZE, select_result.go:499)
+        summary_sink.extend(res.exec_summaries)
+        if res.batch_stats is not None:
+            # dict entry = batched-dispatch attribution
+            summary_sink.append(res.batch_stats)
+    if tracker is not None:
+        for c in res.chunks:
+            if c is not None:
+                tracker.consume(c.nbytes())
+    merged = res.merged()
+    if merged is None:
+        merged = Chunk.empty(plan.push_dag.output_fts())
+    out = merged
+    if plan.root_dag is not None:
+        from ..util import tracing
+
+        # run_dag_on_chunks has the oracle fallback — a root merge whose
+        # group count outgrows every capacity retry degrades, not crashes
+        with tracing.span("distsql.root_merge", in_rows=merged.num_rows()):
+            out = run_dag_on_chunks(plan.root_dag, [merged], cache=cache, group_capacity=group_capacity,
+                                    small_groups=small_groups, device=store.device)
+    if tracker is not None:
+        for c in res.chunks:
+            if c is not None:
+                tracker.consume(-c.nbytes())
+    return out
+
+
 def _partial2_dag(plan: RootPlan) -> DAGRequest | None:
     """Fold DAG for an incremental merge: over the push half's
     partial-state schema, re-aggregate in merge mode EMITTING partial
@@ -168,3 +293,35 @@ def _partial2_dag(plan: RootPlan) -> DAGRequest | None:
     scan = plan.root_dag.executors[0]
     n_out = len(p2.output_fts())
     return DAGRequest((scan, p2), output_offsets=tuple(range(n_out)))
+
+
+def _execute_root_lowmem(store, plan: RootPlan, ranges, start_ts, aux_chunks, cache, group_capacity,
+                         tracker) -> Chunk | None:
+    """Sequential region dispatch + pairwise Partial2 fold; None when the
+    plan has no foldable merge point (caller uses the normal path)."""
+    from .dispatch import select_stream
+
+    p2 = _partial2_dag(plan)
+    if p2 is None:
+        return None
+    # mesh=False: the whole point here is ONE region's result live at a
+    # time — a mesh batch would stack every region back into memory
+    req = KVRequest(plan.push_dag, ranges, start_ts, concurrency=1,
+                    aux_chunks=aux_chunks, mesh=False)
+    acc: Chunk | None = None
+    for chunk, _sums in select_stream(store, req):
+        if tracker is not None:
+            tracker.consume(chunk.nbytes())
+        if acc is None:
+            acc = chunk
+        else:
+            both = Chunk.concat([acc, chunk])
+            folded = run_dag_on_chunks(p2, [both], cache=cache, group_capacity=group_capacity, device=store.device)
+            if tracker is not None:
+                tracker.consume(-acc.nbytes())
+                tracker.consume(-chunk.nbytes())
+                tracker.consume(folded.nbytes())
+            acc = folded
+    if acc is None:
+        acc = Chunk.empty(plan.push_dag.output_fts())
+    return run_dag_on_chunks(plan.root_dag, [acc], cache=cache, group_capacity=group_capacity, device=store.device)

@@ -115,21 +115,41 @@ class StreamScratch:
     of `nbytes()` bytes (the kernel library's own entry point) per region:
     a call that needs more records than the buffer holds replaces it with
     a larger zeroed one. A launch that failed may leave it dirty, so its
-    caller drops it."""
+    caller drops it.
+
+    Several dispatch threads may launch on one stream: the lookup is
+    locked, so a stream gets one buffer, and a caller holds the tensor it
+    got until its launch is enqueued (a replaced buffer is freed only
+    then, so no later allocation on the stream can alias it first)."""
 
     def __init__(self, nbytes):
         self.nbytes = nbytes
-        self.bufs: dict = {}
+        self.bufs: dict = {}  # guarded_by: _lock
+        self._lock = threading.Lock()
 
     def get(self, dev, stream: int, records: int = 1) -> torch.Tensor:
         need = records * self.nbytes()
-        buf = self.bufs.get((dev.index, stream))
-        if buf is None or buf.numel() < need:
-            buf = self.bufs[(dev.index, stream)] = torch.zeros(need, dtype=torch.uint8, device=dev)
-        return buf
+        with self._lock:
+            buf = self.bufs.get((dev.index, stream))
+            if buf is None or buf.numel() < need:
+                buf = self.bufs[(dev.index, stream)] = torch.zeros(need, dtype=torch.uint8, device=dev)
+            return buf
 
     def drop(self, dev, stream: int):
-        self.bufs.pop((dev.index, stream), None)
+        with self._lock:
+            self.bufs.pop((dev.index, stream), None)
+
+
+_launch_lock = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """Add one launch to a kernel wrapper's `fn.launches`. The dispatch
+    pool launches from several threads, and `+= 1` on an attribute is a
+    read and a write that another thread can come between, so it is
+    done under a lock."""
+    with _launch_lock:
+        fn.launches += 1
 
 
 def region_major(x: torch.Tensor, in_dim, batch: int) -> torch.Tensor:

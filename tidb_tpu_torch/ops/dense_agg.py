@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from ..kernels import StreamScratch
+from ..kernels import StreamScratch, count_launch
 from .keys import sort_key_arrays
 from .seg import _lsr, group_hash, hash_words
 
@@ -228,15 +228,15 @@ def _dense_agg_cuda_batched(hp, hv, row_valid, vals, nulls, g_cap: int):
     narr = (_vp * MAX_COMBOS)(*[m.data_ptr() for m in nulls])
     with torch.cuda.device(dev):
         st = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _k1_scratch.get(dev, st, B)
         err = _fn("dense_agg_launch")(hp.data_ptr(), hv.data_ptr(), row_valid.data_ptr(), n, varr, narr, nc, G, B,
                                       group_rep.data_ptr(), n_groups.data_ptr(), overflow.data_ptr(),
-                                      counts.data_ptr(), sums.data_ptr(), nns.data_ptr(),
-                                      _k1_scratch.get(dev, st, B).data_ptr(), st)
+                                      counts.data_ptr(), sums.data_ptr(), nns.data_ptr(), scratch.data_ptr(), st)
     if err != 0:
         # a launch that failed may leave the table dirty: never reuse it
         _k1_scratch.drop(dev, st)
         raise RuntimeError(f"dense_agg kernel launch failed (CUDA error {err})")
-    dense_agg.launches += 1
+    count_launch(dense_agg)
     return group_rep, n_groups, overflow, counts, sums, nns
 
 

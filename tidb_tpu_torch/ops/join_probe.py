@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from ..kernels import StreamScratch
+from ..kernels import StreamScratch, count_launch
 
 MAX_PART_CAP = 256     # build slots per partition (a 512-entry shared hash table)
 MAX_ROWS = 1 << 26     # probe-slot bound of the TPU kernel's gate
@@ -127,15 +127,15 @@ def _probe_tables_cuda_batched(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok, batch
     dup = torch.empty(B, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         st = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _k4_scratch.get(dev, st, B)
         err = _fn("probe_tables_launch")(b_key_tbl.data_ptr(), b_slot_ok.data_ptr(), p_key_tbl.data_ptr(),
                                          p_slot_ok.data_ptr(), P, part_cap, probe_cap, B, int(shared_key),
-                                         int(shared_ok), bpos.data_ptr(), dup.data_ptr(),
-                                         _k4_scratch.get(dev, st, B).data_ptr(), st)
+                                         int(shared_ok), bpos.data_ptr(), dup.data_ptr(), scratch.data_ptr(), st)
     if err != 0:
         # a launch that failed may leave the scratch dirty: never reuse it
         _k4_scratch.drop(dev, st)
         raise RuntimeError(f"probe_tables kernel launch failed (CUDA error {err})")
-    probe_tables.launches += 1
+    count_launch(probe_tables)
     return bpos, dup
 
 

@@ -34,10 +34,11 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
-from ..kernels import StreamScratch
+from ..kernels import StreamScratch, count_launch
 
 PIN = (1 << 31) - 4    # joinagg._PIN_HAY: pk >= PIN is an unusable row
 _PREV0 = -(1 << 31)    # "previous pk" of element 0: below every real pk
@@ -125,7 +126,8 @@ def _fn(name: str):
 K2_TILE = 2048  # csrc/joinscan.cu TILE: the rows of one look-back tile
 # (device index, stream) -> zeroed scratch: K2 tags its tile status words
 # with an epoch that the kernel keeps in the buffer, so it is never reset
-_k2_scratch: dict = {}
+_k2_scratch: dict = {}  # guarded_by: _k2_lock
+_k2_lock = threading.Lock()
 # each region's flag and join rows, one record per region, per device and
 # stream; the kernel's last block leaves them zeroed
 _k2_acc = StreamScratch(lambda: _fn("postsort_segscan_acc_bytes")())
@@ -136,10 +138,11 @@ def _k2_scratch_for(dev, n: int, regions: int = 1):
     regions of n rows."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     need = _fn("postsort_segscan_scratch_bytes")(n, regions)
-    buf = _k2_scratch.get(key)
-    if buf is None or buf.numel() < need:
-        buf = _k2_scratch[key] = torch.zeros(need, dtype=torch.uint8, device=dev)
-    return buf
+    with _k2_lock:  # dispatch threads share a stream: one buffer for it
+        buf = _k2_scratch.get(key)
+        if buf is None or buf.numel() < need:
+            buf = _k2_scratch[key] = torch.zeros(need, dtype=torch.uint8, device=dev)
+        return buf
 
 
 def _postsort_segscan_cuda_batched(spk, lanes_s, bad_lane, nw_s, bits):
@@ -184,7 +187,7 @@ def _postsort_segscan_cuda_batched(spk, lanes_s, bad_lane, nw_s, bits):
             ptr(overflow), ptr(join_rows), ptr(scratch), ptr(acc), stream(dev))
     if err != 0:
         raise RuntimeError(f"postsort_segscan kernel launch failed (CUDA error {err})")
-    postsort_segscan.launches += 1
+    count_launch(postsort_segscan)
     return gv, cnt, key32, sums, [nn for nn in nn_out if nn is not None], overflow, join_rows
 
 
@@ -302,13 +305,14 @@ def _membership_segscan_cuda_batched(spk, bad_lane):
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         st = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _k3_scratch.get(dev, st, B)
         err = _fn("membership_segscan_launch")(spk.data_ptr(), bad_lane.data_ptr(), n, B, ok_out.data_ptr(),
-                                               overflow.data_ptr(), _k3_scratch.get(dev, st, B).data_ptr(), st)
+                                               overflow.data_ptr(), scratch.data_ptr(), st)
     if err != 0:
         # a launch that failed may leave the scratch dirty: never reuse it
         _k3_scratch.drop(dev, st)
         raise RuntimeError(f"membership_segscan kernel launch failed (CUDA error {err})")
-    membership_segscan.launches += 1
+    count_launch(membership_segscan)
     return ok_out, overflow
 
 

@@ -204,6 +204,12 @@ class TPUStore:
         # with a typed StoreUnavailable region error
         self._down_stores: set[int] = set()  # guarded_by: _down_lock
         self._down_lock = threading.Lock()
+        # per-store circuit breakers — client-side state, but shared by
+        # every dispatch thread on this store (runtime import: the distsql
+        # layer imports this module at load time)
+        from ..distsql.dispatch import BreakerBoard
+
+        self.breakers = BreakerBoard()
         self._stats = dict.fromkeys(STAT_KEYS, 0)  # guarded_by: _stats_lock
         self._stats_lock = threading.Lock()
 
@@ -231,6 +237,10 @@ class TPUStore:
     def store_down(self, store_id: int) -> bool:
         with self._down_lock:
             return store_id in self._down_stores
+
+    def down_stores(self) -> set:
+        with self._down_lock:
+            return set(self._down_stores)
 
     def evict_caches(self) -> None:
         """Drop the decoded-chunk, device-batch, build-side and result

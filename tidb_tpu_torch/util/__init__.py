@@ -1,2 +1,3 @@
-"""Utilities copied from the JAX package's JAX-free `tidb_tpu/util/`: so far
-`metrics` (the registry and its families)."""
+"""Utilities copied from the JAX package's JAX-free `tidb_tpu/util/`:
+`metrics` (the registry and its families), `failpoint`, `tracing` and
+`backoff`."""

@@ -130,11 +130,27 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      failpoint on its first evaluation, in the pool and batch tiers: the
      stale task answers epoch_not_match, is re-split and retried,
      REGION_ERRORS{kind="epoch_not_match"} rises by one, and Q1 still
-     equals numpy.
+     equals numpy;
+ 10. the expression families: a TPC-H customer table of 2^20 rows in four
+     regions loaded into the same store (the Python row encoder in 8
+     processes, the native decoder required); every op of the math, bit,
+     string and date families, string -> number and string truthiness in
+     WHERE over 2^20 rows on the card and on the CPU through
+     decode_outputs (equal; exp, ln, log and pow within 2 ulp; the card's
+     sqrt bit-equal to np.sqrt); then workloads.store_expr_statements
+     (q22_cntry and year with the small-groups hint 7, text, numeric)
+     through execute_root in the single and batch tiers against numpy,
+     K1 once a region or a bucket in q22_cntry and year, no oracle
+     fallback, other_error, bucket fallback, lane-by-lane vmap op or call
+     of the root's row oracle; the median ms per statement and tier, and
+     the device operations of one `text` region request split into
+     parse_f64_prefix's and the rest (with --profile, a host and a device
+     profile of the text statement in both tiers and q22_cntry's batch).
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4, 6, 7, 8 and 9); the last line is {"ok": true,
-"device": {...}}. Without CUDA the script exits 2 and prints no result.
+the main paths of phases 4, 6, 7, 8, 9 and 10); the last line is {"ok":
+true, "device": {...}}. Without CUDA the script exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -194,6 +210,15 @@ DISPATCH_TIERS = {"pool": {"concurrency": 4, "batch_cop": False}, "batch": {"bat
 DISPATCH_REPS = 5
 DISPATCH_DISTINCT_REPS = 3
 DISPATCH_SPLITS = (5 * BATCH_REGION // 2, 11 * BATCH_REGION // 2)
+# phase 10, the expression families: the customer table (TPC-H SF ~7) in
+# four regions, the op check's rows, the small-groups hint of q22_cntry and
+# year (seven groups each), the timed runs per statement and tier, and the
+# ulp bound of exp, ln, log and pow between the card and the CPU
+EXPR_ROWS = 1 << 20
+EXPR_REGION = 1 << 18
+EXPR_HINT = 7
+EXPR_REPS = 3
+ULP_TOL = 2
 
 
 def log(*a):
@@ -831,19 +856,36 @@ def _load_encode(span):
     return W.store_items(codec, W.store_rows(types, _LOAD_TABLE, lo, hi))
 
 
-def load_store(store, n: int, n_orders: int):
+def _customer_init(n: int):
+    """A load worker's copy of the customer table (the same seeded draws)."""
+    global _LOAD_TABLE
+    from tidb_tpu_torch import workloads as W
+
+    _LOAD_TABLE = W.store_customer(n)
+
+
+def _customer_encode(span):
+    """Customer rows lo..hi as (row key, rowcodec value) pairs."""
+    from tidb_tpu_torch import codec, types, workloads as W
+
+    lo, hi = span
+    return W.customer_items(codec, W.customer_rows(types, _LOAD_TABLE, lo, hi))
+
+
+def load_store(store, n: int, n_orders: int, init=_load_init, initargs=None, encode=_load_encode):
     """Encode the table's rows with the port's Python row encoder in
     LOAD_WORKERS processes and bulk-ingest them at one commit ts; returns
-    (seconds, bytes of keys and values)."""
+    (seconds, bytes of keys and values). The lineitem table by default;
+    `init`, `initargs` and `encode` name another table's workers."""
     import multiprocessing as mp
 
     spans = [(lo, min(lo + STORE_LOAD_CHUNK, n)) for lo in range(0, n, STORE_LOAD_CHUNK)]
     ts = store.next_ts()
     nbytes = 0
     t0 = time.perf_counter()
-    with mp.get_context("spawn").Pool(min(LOAD_WORKERS, len(spans)), initializer=_load_init,
-                                      initargs=(n, n_orders)) as pool:
-        for items in pool.imap(_load_encode, spans):
+    with mp.get_context("spawn").Pool(min(LOAD_WORKERS, len(spans)), initializer=init,
+                                      initargs=(n, n_orders) if initargs is None else initargs) as pool:
+        for items in pool.imap(encode, spans):
             nbytes += sum(len(k) + len(v) for k, v in items)
             store.bulk_ingest(items, ts)
     return time.perf_counter() - t0, nbytes
@@ -1365,13 +1407,14 @@ def root_phase(store, E, X, T, W, counters, profile: bool, card: str) -> dict:
 # phase 9: the dispatch loop
 # ---------------------------------------------------------------------------
 
-def dispatch_phase(store, E, X, T, W, counters, profile: bool, card: str, phase8_wholes: dict) -> None:
+def dispatch_phase(store, E, X, T, W, counters, profile: bool, card: str, phase8_wholes: dict) -> list:
     """Phase 9: statements through distsql execute_root on phase 7's nine
     regions, in the pool, batch and single tiers (see the module
     docstring), every answer against numpy, the kernels' launches per
     region or per bucket, no fallback of any kind and no call of the
     root's row oracle; the wire route, the low-memory fold, the timings,
-    and last the failpoint's mid-statement split."""
+    and last the failpoint's mid-statement split. Returns the lineitem
+    regions' row counts after the splits."""
     import threading
 
     import torch
@@ -1594,6 +1637,425 @@ def dispatch_phase(store, E, X, T, W, counters, profile: bool, card: str, phase8
     finally:
         EX.run_dag_reference = real_oracle
     log(f"phase 9 store counts: {store.stats()}")
+    return sizes
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the expression families
+# ---------------------------------------------------------------------------
+
+def ulps(a, b):
+    """Units in the last place between float64 arrays (0 where both are
+    equal or both NaN; a large number where the signs differ)."""
+    import numpy as np
+
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    ia, ib = a.view(np.int64), b.view(np.int64)
+    lo = np.int64(-0x8000000000000000)
+    la, lb = np.where(ia < 0, lo - ia, ia), np.where(ib < 0, lo - ib, ib)
+    far = np.signbit(a) != np.signbit(b)
+    d = np.where(far, np.int64(1 << 62), np.abs(la - lb))
+    return np.where(same, 0, d)
+
+
+def expr_op_columns(W, T, cust, line, n: int):
+    """The op check's columns (numpy, DeviceBatch form) and field types:
+    the customer table's strings, c_acctbal as a decimal and a double,
+    c_nationkey, full datetimes (every day of each month, with times),
+    l_shipdate, shift counts, int64 extremes, SUBSTR positions and
+    numeric strings, all from one seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(10)
+    y, mo = rng.integers(1992, 2030, n), rng.integers(1, 13, n)
+    dim = np.array([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31])[mo - 1] + (
+        (mo == 2) & (((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)))
+    d = 1 + (rng.random(n) * dim).astype(np.int64)
+    hms = rng.integers(0, 24, n) << 12 | rng.integers(0, 60, n) << 6 | rng.integers(0, 60, n)
+    dt = ((((y * 13 + mo) << 5 | d) << 17 | hms) << 24).astype(np.int64)
+    big = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    big[:4] = [-1, -(1 << 63), (1 << 63) - 1, 0]
+    shift = rng.integers(-2, 67, n).astype(np.int64)
+    pos = rng.integers(-45, 46, n).astype(np.int64)
+    bal = cust["acctbal"][:n]
+    forms = [f"{v / 100:.2f}" for v in bal[:4096].tolist()] + ["1e400", "-1e400", " 12e-3x", "abc", "", ".5e",
+                                                                 "9999999999999999999", "0x1A", "-.25", "+7"]
+    numstr = [forms[i] for i in rng.integers(0, len(forms), n)]
+    nlen = np.array([len(x) for x in numstr], np.int32)
+    ndata = np.zeros((n, int(nlen.max())), np.uint8)
+    flat = np.frombuffer("".join(numstr).encode(), np.uint8)
+    ndata[np.arange(ndata.shape[1])[None, :] < nlen[:, None]] = flat
+    cols = W.customer_columns(cust, ("name", "address", "phone", "mktsegment", "comment"))
+    cols = [(c[0][:n], c[1][:n], c[2][:n]) for c in cols]
+    cols += [W.fixed_col(bal), W.fixed_col(bal / 100.0), W.fixed_col(cust["nationkey"][:n]), W.fixed_col(dt),
+             W.fixed_col(line["shipdate"][:n]), W.fixed_col(shift), W.fixed_col(big), W.fixed_col(pos),
+             (ndata, np.zeros(n, bool), nlen)]
+    cf = W.customer_fts(T)
+    fts = [cf[1], cf[2], cf[4], cf[6], cf[7], cf[5], T.new_double(), cf[3], T.new_datetime(), T.new_datetime(),
+           T.new_longlong(), T.new_longlong(), T.new_longlong(), T.new_varchar(32)]
+    return cols, fts
+
+
+def expr_op_cases(X, T, fts) -> dict:
+    """name -> the Expr of each op of the expression families over
+    expr_op_columns (columns: 0 name, 1 address, 2 phone, 3 mktsegment,
+    4 comment, 5 acctbal, 6 acctbal double, 7 nationkey, 8 datetime,
+    9 shipdate, 10 shift, 11 big, 12 pos, 13 numeric strings)."""
+    f, lit = X.func, X.lit
+    C = lambda i: X.col(i, fts[i])  # noqa: E731
+    LL, UB, DBL, VC, DT, dec = (T.new_longlong(), T.new_longlong(unsigned=True), T.new_double(), T.new_varchar,
+                                T.new_datetime(), T.new_decimal)
+    CI = T.new_varchar(16, collate=T.Collation.Utf8MB4GeneralCI)
+    B = T.new_longlong(notnull=True)
+    unit = lambda u: lit(u, VC(8))  # noqa: E731
+    return {
+        "ceil real": f("ceil", DBL, C(6)), "ceil decimal": f("ceil", dec(15, 0), C(5)),
+        "floor real": f("floor", DBL, C(6)), "floor decimal": f("floor", dec(15, 0), C(5)),
+        "round real": f("round", DBL, C(6)), "round real 1": f("round", DBL, C(6), lit(1, LL)),
+        "round decimal": f("round", dec(15, 0), C(5)), "round decimal 1": f("round", dec(15, 1), C(5), lit(1, LL)),
+        "round int -2": f("round", LL, C(11), lit(-2, LL)),
+        "sqrt": f("sqrt", DBL, C(6)), "exp": f("exp", DBL, f("div", DBL, C(6), lit(1000.0, DBL))),
+        "ln": f("ln", DBL, C(6)), "log": f("log", DBL, C(5)), "pow": f("pow", DBL, C(6), lit(1.5, DBL)),
+        "sign": f("sign", LL, C(5)),
+        "bitand": f("bitand", UB, C(11), C(7)), "bitor": f("bitor", UB, C(11), C(7)),
+        "bitxor": f("bitxor", UB, C(11), C(12)), "bitneg": f("bitneg", UB, C(11)),
+        "shiftleft": f("shiftleft", UB, C(11), C(10)), "shiftright": f("shiftright", UB, C(11), C(10)),
+        "length": f("length", LL, C(4)),
+        "strcmp": f("strcmp", LL, f("upper", VC(40), C(1)), C(1)), "strcmp columns": f("strcmp", LL, C(0), C(1)),
+        "strcmp ci": f("strcmp", LL, C(3), lit("building", CI)),
+        "like prefix": f("like", B, C(3), lit("BUILD%", VC(6))), "like exact": f("like", B, C(3), lit("MACHINERY", VC(9))),
+        "like ci": f("like", B, C(4), lit("FURIOUSLY%", CI)),
+        "substr": f("substr", VC(3), C(2), lit(4, LL), lit(3, LL)), "substr negative": f("substr", VC(8), C(4), lit(-5, LL)),
+        "substr column": f("substr", VC(40), C(1), C(12)), "substr column len": f("substr", VC(40), C(1), lit(2, LL), C(12)),
+        "upper": f("upper", VC(117), C(4)), "lower": f("lower", VC(25), C(0)),
+        "concat": f("concat", VC(48), C(0), lit(" ", VC(1)), C(2), C(3)),
+        "trim": f("trim", VC(40), C(1)), "ltrim": f("ltrim", VC(40), C(1)), "rtrim": f("rtrim", VC(40), C(1)),
+        "date_add month": f("date_add", DT, C(8), lit(1, LL), unit("month")),
+        "date_add day": f("date_add", DT, C(8), C(7), unit("day")),
+        "date_add quarter": f("date_add", DT, C(8), lit(-5, LL), unit("quarter")),
+        "date_add year": f("date_add", DT, C(8), lit(1, LL), unit("year")),
+        "date_add week": f("date_add", DT, C(8), lit(3, LL), unit("week")),
+        "date_add hour": f("date_add", DT, C(8), C(10), unit("hour")),
+        "date_add minute": f("date_add", DT, C(8), lit(-61, LL), unit("minute")),
+        "date_add second": f("date_add", DT, C(8), lit(3599, LL), unit("second")),
+        "date_sub": f("date_sub", DT, C(8), lit(2, LL), unit("quarter")),
+        "datediff": f("datediff", LL, C(8), C(9)),
+        "year": f("year", LL, C(8)), "month": f("month", LL, C(8)), "day": f("day", LL, C(8)),
+        "hour": f("hour", LL, C(8)), "minute": f("minute", LL, C(8)), "second": f("second", LL, C(8)),
+        "to_days": f("to_days", LL, C(8)), "weekday": f("weekday", LL, C(8)),
+        "extract": f("extract", LL, lit("YEAR", VC(4)), C(9)),
+        "string to double": f("cast", DBL, C(13)), "string to decimal": f("cast", dec(20, 3), C(13)),
+        "string to int": f("cast", LL, f("substr", VC(8), C(13), lit(1, LL), lit(8, LL))),
+        "address to double": f("cast", DBL, C(1)),
+    }
+
+
+def expr_phase(store, E, X, T, W, counters, profile: bool, card: str, line_sizes: list) -> None:
+    """Phase 10: the expression families on the card. Load the customer
+    table (EXPR_ROWS rows, four regions) into phase 6's store; run each op
+    of the families over EXPR_ROWS rows on the card and on the CPU through
+    decode_outputs (integer, decimal, date and string results equal; exp,
+    ln, log and pow within ULP_TOL; sqrt on the card bit-equal to np.sqrt;
+    string truthiness in WHERE equal); then each statement of
+    workloads.store_expr_statements through execute_root in the single
+    and batch tiers against numpy, K1 once a region or a bucket in
+    q22_cntry and year, no fallback of any kind, no lane-by-lane vmap op
+    and no call of the root's row oracle; the median ms per statement and
+    tier, and the device operations of one `text` region request split
+    into parse_f64_prefix's and the rest. With `profile`, a host profile
+    and a device profile of the text statement in both tiers and of
+    q22_cntry's batch."""
+    import numpy as np
+    import torch
+
+    import tidb_tpu_torch.exec.executor as EX
+    import tidb_tpu_torch.expr.compile as XC
+    import tidb_tpu_torch.ops.selection as SEL
+    from tidb_tpu_torch import codec, native
+    from tidb_tpu_torch.distsql import execute_root, full_table_ranges, split_dag
+    from tidb_tpu_torch.exec.builder import ProgramCache, _pack_cols
+    from tidb_tpu_torch.exec.executor import _pow2, decode_outputs
+    from tidb_tpu_torch.interop import device_batch_from_numpy
+    from tidb_tpu_torch.store import CopRequest
+
+    if not native.available():
+        raise SystemExit("phase 10: the native row decoder did not build")
+    n, ctid, ltid = EXPR_ROWS, W.CUSTOMER_TABLE_ID, W.LINEITEM_TABLE_ID
+    t0 = time.perf_counter()
+    # the table's own regions: the first starts at its record prefix, so no
+    # lineitem region overlaps its key range
+    store.cluster.split(codec.record_prefix(ctid))
+    for h in range(EXPR_REGION, n, EXPR_REGION):
+        store.cluster.split(codec.encode_row_key(ctid, h))
+    secs, nbytes = load_store(store, n, None, _customer_init, (n,), _customer_encode)
+    log(f"phase 10 load: {n} customer rows ({nbytes} B of keys and rowcodec values, {nbytes / n:.1f} B a row) in "
+        f"{secs:.2f} s ({LOAD_WORKERS} encoder processes), {n // EXPR_REGION} regions of {EXPR_REGION} rows")
+    cust = W.store_customer(n)
+    line = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
+
+    # the op check: every op on the card and on the CPU, through decode_outputs
+    cols, fts = expr_op_columns(W, T, cust, line, n)
+    valid = np.ones(n, bool)
+    on = [(d, device_batch_from_numpy(cols, valid, n, fts, device=d)) for d in (DEVICE, "cpu")]
+    t1 = time.perf_counter()
+    for name, e in expr_op_cases(X, T, fts).items():
+        gc, wc = (decode_outputs(_pack_cols(XC.ExprCompiler(fts, device=d).run([e], b.cols)), b.row_valid,
+                                 [e.ft]).columns[0] for d, b in on)
+        if not np.array_equal(gc.null, wc.null):
+            raise SystemExit(f"phase 10 op {name}: NULLs differ between the card and the CPU")
+        keep = ~wc.null
+        if e.ft.eval_type() == "string":
+            same = np.array_equal(gc.offsets, wc.offsets) and np.array_equal(gc.blob, wc.blob)
+            what = "bytes equal"
+        elif e.ft.eval_type() == "real":
+            u = ulps(np.asarray(gc.data)[keep], np.asarray(wc.data)[keep])
+            if name == "sqrt":
+                arg = cols[6][0][keep]
+                same = np.array_equal(np.asarray(gc.data)[keep], np.sqrt(np.where(arg < 0, 0.0, arg)))
+                what = f"card == np.sqrt bit for bit, CPU within {int(u.max(initial=0))} ulp"
+                same = same and int(u.max(initial=0)) <= ULP_TOL
+            elif name in ("exp", "ln", "log", "pow"):
+                same = int(u.max(initial=0)) <= ULP_TOL
+                what = f"within {int(u.max(initial=0))} ulp ({int((u > 0).sum())} lanes differ)"
+            else:
+                same, what = int(u.max(initial=0)) == 0, "bit for bit"
+        else:
+            same, what = np.array_equal(np.asarray(gc.data)[keep], np.asarray(wc.data)[keep]), "equal"
+        if not same:
+            raise SystemExit(f"phase 10 op {name}: the card and the CPU differ ({what})")
+        log(f"phase 10 op {name}: {n} rows, card == CPU through decode_outputs ({what}; {int(keep.sum())} not NULL)")
+    for name, ci in (("substr(c_phone, 4, 3)", None), ("c_address", 1), ("numeric strings", 13)):
+        masks = []
+        for d, b in on:
+            e = X.func("substr", T.new_varchar(3), X.col(2, fts[2]), X.lit(4, T.new_longlong()),
+                       X.lit(3, T.new_longlong())) if ci is None else X.col(ci, fts[ci])
+            (cv,) = XC.ExprCompiler(fts, device=d).run([e], b.cols)
+            masks.append(SEL.apply_selection(b.row_valid, [cv]).cpu().numpy())
+        if not np.array_equal(*masks):
+            raise SystemExit(f"phase 10 string truthiness of {name}: the card and the CPU differ")
+        log(f"phase 10 WHERE {name}: card == CPU ({int(masks[0].sum())} of {n} rows true)")
+    log(f"phase 10 op check: {time.perf_counter() - t1:.1f} s")
+    del on
+
+    # the statements through execute_root
+    stmts = W.store_expr_statements(E, X, T)
+    cust_sizes = [EXPR_REGION] * (n // EXPR_REGION)
+    for tid, sizes in ((ctid, cust_sizes), (ltid, line_sizes)):
+        (rng,) = full_table_ranges(tid)
+        over = [r for r in store.cluster.regions() if r.start_key < rng.end and (not r.end_key or r.end_key > rng.start)]
+        if len(over) != len(sizes):
+            raise SystemExit(f"phase 10: table {tid} spans {len(over)} regions, not {len(sizes)}")
+    cache = ProgramCache()
+    ts = store.next_ts()
+    oracle_calls = [0]
+    real_oracle = EX.run_dag_reference
+
+    def counted_oracle(*a, **k):
+        oracle_calls[0] += 1
+        return real_oracle(*a, **k)
+
+    def run(name, tier):
+        store.clear_result_cache()  # every run sends its programs
+        return execute_root(store, stmts[name], full_table_ranges(stmts[name].executors[0].table_id), ts,
+                            cache=cache, small_groups=EXPR_HINT if name in ("q22_cntry", "year") else None,
+                            **DISPATCH_TIERS[tier])
+
+    want = numpy_expr_statements(cust, line)
+    times = {}
+    EX.run_dag_reference = counted_oracle
+    try:
+        for name in stmts:
+            sizes = cust_sizes if stmts[name].executors[0].table_id == ctid else line_sizes
+            for tier in ("single", "batch"):
+                st0, o0 = store.stats(), oracle_calls[0]
+                need = ("dense_agg",) if name in ("q22_cntry", "year") else ()
+                out, fallback = vmap_fallbacks(lambda: counters.path(
+                    f"execute_root {name} {tier}", lambda: run(name, tier), need=need, phase=10))
+                if need:
+                    launches = len({_pow2(k) for k in sizes}) if tier == "batch" else len(sizes)
+                    require_launches(f"phase 10 {name} {tier} dense_agg", counters.last["dense_agg"], launches)
+                if fallback:
+                    raise SystemExit(f"phase 10 {name} {tier}: vmap ran {fallback} lane by lane")
+                st = store.stats()
+                if any(st[k] != st0[k] for k in ("oracle_fallbacks", "other_errors", "batch_fallbacks")):
+                    raise SystemExit(f"phase 10 {name} {tier}: an oracle fallback, an other_error or a bucket's "
+                                     f"fallback ({st})")
+                if oracle_calls[0] != o0:
+                    raise SystemExit(f"phase 10 {name} {tier}: the root's row oracle ran {oracle_calls[0] - o0} times")
+                what = check_expr_statement(name, out, want[name])
+                log(f"phase 10 {name} {tier}: execute_root over {len(sizes)} regions -> {what}; launches "
+                    f"{counters.last}; no oracle call, fallback or lane-by-lane vmap op")
+                runs = []
+                for _ in range(EXPR_REPS):
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    run(name, tier)
+                    torch.cuda.synchronize()
+                    runs.append((time.perf_counter() - t2) * 1e3)
+                times[(name, tier)] = statistics.median(runs)
+        counters.zero()
+    finally:
+        EX.run_dag_reference = real_oracle
+    for name in stmts:
+        log(f"phase 10 {name} ({EXPR_REPS} runs): execute_root median single {times[(name, 'single')]:.3f} ms, "
+            f"batch {times[(name, 'batch')]:.3f} ms; on {card}")
+    if profile:
+        for name, tier in (("text", "batch"), ("text", "single"), ("q22_cntry", "batch")):
+            host_profile(f"phase 10 {name} {tier}", lambda: run(name, tier), top=8)
+            profile_path(f"phase 10 {name} {tier}", lambda: run(name, tier), times[(name, tier)], top=6)
+
+    # the device operations of one `text` region request: parse_f64_prefix's
+    # (its calls counted, one call's operations profiled) and the rest
+    plan = split_dag(stmts["text"])
+    region = next(r for r in store.cluster.regions() if r.contains(codec.encode_row_key(ctid, 0)))
+    req = CopRequest(plan.push_dag, full_table_ranges(ctid), ts, region.region_id, region.epoch)
+    calls, real_parse = [], XC.parse_f64_prefix
+
+    def counted_parse(data, length):
+        calls.append(tuple(data.shape))
+        return real_parse(data, length)
+
+    XC.parse_f64_prefix = SEL.parse_f64_prefix = counted_parse
+    try:
+        store.clear_result_cache()
+        store.coprocessor(req)
+        store.clear_result_cache()
+        total = device_ops(lambda: store.coprocessor(req))
+    finally:
+        XC.parse_f64_prefix = SEL.parse_f64_prefix = real_parse
+    parse_calls = calls[len(calls) // 2:]
+    per = {}
+    for shape in set(parse_calls):
+        data = torch.zeros(shape, dtype=torch.uint8, device=DEVICE)
+        length = torch.full(shape[:1], shape[1], dtype=torch.int32, device=DEVICE)
+        per[shape] = device_ops(lambda: real_parse(data, length))
+    parse_ops = sum(per[s] for s in parse_calls)
+    log(f"phase 10 text, one region request ({EXPR_REGION} rows): {total} device operations; parse_f64_prefix "
+        f"{parse_ops} ({len(parse_calls)} calls over widths {sorted(s[1] for s in parse_calls)}: "
+        f"{', '.join(f'{per[s]} at width {s[1]}' for s in sorted(per))}), the rest {total - parse_ops}")
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s; store counts {store.stats()}")
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, fills) of one run of fn, from
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+
+
+def _civil(packed):
+    """datetime.date of each distinct packed datetime, and the inverse map."""
+    import datetime
+
+    import numpy as np
+
+    keys, inv = np.unique(packed, return_inverse=True)
+    ymd = (keys >> 41).tolist()
+    dates = [datetime.date((v >> 5) // 13, (v >> 5) % 13, v & 31) for v in ymd]
+    return dates, inv
+
+
+def numpy_expr_statements(cust, line) -> dict:
+    """The exact answers of workloads.store_expr_statements over the
+    generated columns (Python's datetime for the calendar; the 32-byte
+    compare prefix for STRCMP, as the packed compare words hold), in
+    check_expr_statement's form."""
+    import datetime
+
+    import numpy as np
+
+    out = {}
+    phone, _ = cust["phone"]
+    cc = (phone[:, 0].astype(np.int64) - 48) * 10 + (phone[:, 1].astype(np.int64) - 48)
+    bal = cust["acctbal"]
+    keep = np.isin(cc, [13, 31, 23, 29, 30, 18, 17]) & (bal > 0)
+    out["q22_cntry"] = {f"{c:02d}": (int((keep & (cc == c)).sum()), int(bal[keep & (cc == c)].sum()))
+                        for c in np.unique(cc[keep])}
+
+    price, disc, okey, qty, ship = (line[k] for k in ("price", "disc", "okey", "qty", "shipdate"))
+    rev = price * (100 - disc)
+    dates, inv = _civil(ship)
+    year = np.array([d.year for d in dates])[inv]
+    out["year"] = {int(y): (int(rev[year == y].sum()), int((year == y).sum())) for y in np.unique(year)}
+
+    seg, seg_len = cust["mktsegment"]
+    com, _ = cust["comment"]
+    segs = [bytes(seg[i, : seg_len[i]]) for i in range(len(seg_len))]
+    local = (phone[:, 3:6].astype(np.int64) - 48) @ np.array([100, 10, 1])
+    cond = ((seg[:, :5] == np.frombuffer(b"BUILD", np.uint8)).all(1) | (com[:, :9] == np.frombuffer(
+        b"furiously", np.uint8)).all(1) | np.array([s == b"MACHINERY" for s in segs])) & (local != 0)
+    name, name_len = cust["name"]
+    addr, addr_len = cust["address"]
+    pre = np.where(np.arange(32)[None, :] < addr_len[:, None], addr[:, :32], 0)
+    strcmp = -((pre >= 0x61) & (pre <= 0x7A)).any(1).astype(np.int64)
+    padded = [b"  " + bytes(name[i, : name_len[i]]) + b" " for i in range(len(name_len))]
+    text = {}
+    for s in sorted(set(segs)):
+        m = cond & np.array([x == s for x in segs])
+        idx = np.nonzero(m)[0]
+        text[s.lower().decode()] = (
+            len(idx), sum(len(padded[i].strip(b" ")) for i in idx), sum(len(padded[i].lstrip(b" ")) for i in idx),
+            sum(len(padded[i].rstrip(b" ")) for i in idx), int(strcmp[m].sum()), float(cc[m].astype(np.float64).sum()))
+    out["text"] = text
+
+    neg = disc - price
+    first = [d.replace(day=1) for d in dates]
+    d_month = np.array([((f + datetime.timedelta(days=32)).replace(day=1) - f).days for f in first])[inv]
+    back = np.array([shift_months(d, -6).toordinal() + 365 for d in dates])[inv]
+    cal = np.array([(d.month, d.day, d.weekday()) for d in dates])[inv]
+    q = qty / 100.0
+    ints = [(rev + 9999) // 10000, rev // 10000, (2 * rev + 10000) // 20000,
+            -((-neg) // 100), -((-neg + 99) // 100), -((2 * (-neg) + 10) // 20), np.sign(disc - 5),
+            okey & 255, okey | 255, okey ^ 255, okey << 3, okey >> 2, d_month, back, cal[:, 0], cal[:, 1],
+            np.zeros_like(okey), cal[:, 2]]
+    reals = [np.sqrt(q), np.exp(q / 10.0), np.log(q), np.power(q, 1.5)]
+    out["numeric"] = ([int(v.sum()) for v in ints], [float(v.sum()) for v in reals],
+                      int(np.bitwise_xor.reduce(~okey).view(np.uint64)), len(okey))
+    return out
+
+
+def shift_months(d, months: int):
+    """d moved by `months` months (day 1-28: no month-end clamp needed)."""
+    t = d.year * 12 + d.month - 1 + months
+    return d.replace(year=t // 12, month=t % 12 + 1)
+
+
+def check_expr_statement(name, chunk, want) -> str:
+    """Hold a root answer of an expression statement against numpy
+    (exact; the real SUMs to 1e-9 relative, their order being the
+    merge's); returns what was compared."""
+    cols = chunk.columns
+    rel = 1e-9
+    if name in ("q22_cntry", "year"):
+        key = (lambda j: cols[2].get_bytes(j).decode()) if name == "q22_cntry" else (lambda j: int(cols[2].data[j]))
+        got = {key(j): (int(cols[0].data[j]), int(cols[1].data[j])) for j in range(chunk.num_rows())}
+        if got != want:
+            raise SystemExit(f"phase 10 {name}: the root's answer differs from numpy ({got} != {want})")
+        return f"{len(got)} groups == numpy"
+    if name == "text":
+        got = {cols[6].get_bytes(j).decode(): tuple(int(cols[i].data[j]) for i in range(5)) + (float(cols[5].data[j]),)
+               for j in range(chunk.num_rows())}
+        ok = got.keys() == want.keys() and all(
+            got[k][:5] == want[k][:5] and abs(got[k][5] - want[k][5]) <= rel * abs(want[k][5]) for k in want)
+        if not ok:
+            raise SystemExit(f"phase 10 text: the root's answer differs from numpy ({got} != {want})")
+        return f"{len(got)} groups == numpy (the real SUM to {rel} relative)"
+    ints, reals, xor, count = want
+    row = [cols[i].data[0] for i in range(len(cols))]
+    got_ints = [int(v) for v in row[: len(ints)]]
+    got_reals = [float(v) for v in row[len(ints): len(ints) + len(reals)]]
+    ok = (got_ints == ints and int(row[-2]) == xor and int(row[-1]) == count
+          and all(abs(g - w) <= rel * abs(w) for g, w in zip(got_reals, reals)))
+    if not ok:
+        raise SystemExit(f"phase 10 numeric: the root's answer differs from numpy ({row} != {want})")
+    return f"{len(row)} aggregates == numpy (the real SUMs to {rel} relative)"
 
 
 def main() -> int:
@@ -2321,7 +2783,9 @@ def main() -> int:
     # phase 8: the statement's root half on phase 7's regions
     wholes = root_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
     # phase 9: the dispatch loop, execute_root in every tier
-    dispatch_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, wholes)
+    sizes = dispatch_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, wholes)
+    # phase 10: the expression families, the customer table beside lineitem
+    expr_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -12,9 +12,9 @@ The cases: Q6, Q1 with the small-G hint (K1's plain version runs in the
 port), Q3 and the join bench with their build sides as aux chunks, TopN,
 Sort, a paged Selection followed through its cursors, a stale epoch, a
 missing region, malformed bytes, a repeat (a result-cache hit), a write
-between two requests (a miss), an `upper` projection (the JAX store runs
-it on its device, the port through its row oracle: the same bytes) and a
-group_concat (the oracle in both). The window DAG has no wire frame in
+between two requests (a miss), an `upper` projection (both stores run it
+on their device: the same bytes, no oracle fallback), and a `replace`
+projection and a group_concat (host-only: the oracle in both). The window DAG has no wire frame in
 either codec, so it goes through `coprocessor(req)` in both stores and its
 responses are compared encoded.
 """
@@ -297,22 +297,44 @@ def _group_concat_dag(E, X, T):
     return E.DAGRequest((scan, agg), output_offsets=(0, 1))
 
 
-def test_upper_runs_on_the_jax_device_and_the_port_oracle(pair):
+def _replace_dag(E, X, T):
+    V1 = T.new_varchar(1)
+    scan = E.TableScan(TID, (E.ColumnInfo(W.LINEITEM_COL_IDS["rflag"], V1), E.ColumnInfo(W.LINEITEM_COL_IDS["okey"], T.new_longlong())))
+    proj = E.Projection((X.func("replace", T.new_varchar(4), X.col(0, V1), X.lit("N", V1), X.lit("no", T.new_varchar(2))),
+                         X.col(1, T.new_longlong())))
+    return E.DAGRequest((scan, proj), output_offsets=(0, 1))
+
+
+def test_upper_runs_on_the_device_in_both(pair):
     js, ts_, t = pair
     jdag = _upper_dag(JE, JX, JT)
     ts = js.next_ts()
     assert ts == ts_.next_ts()
     before = ts_.stats()["oracle_fallbacks"]
     for rid, epoch in _regions(js):
-        # the oracle builds no program, so its summaries say cache_hit=False:
-        # the JAX store builds its program anew for each region to match
-        js.programs = JCache()
         jresp, tresp = _both(js, ts_, _request_bytes(jdag, rid, epoch, ts))
         assert tresp.other_error is None and tresp.chunk.num_rows() == 200
-        assert jresp.exec_summaries[0].time_compile_ns > 0  # built and run on the JAX device path
-    assert ts_.stats()["oracle_fallbacks"] == before + 3
+        # a program built (or taken from the cache) and run on each device
+        assert [s.cache_hit for s in tresp.exec_summaries] == [s.cache_hit for s in jresp.exec_summaries]
+        assert tresp.exec_summaries[0].cache_hit or tresp.exec_summaries[0].time_compile_ns > 0
+    assert ts_.stats()["oracle_fallbacks"] == before + 0
     got = [bytes(tresp.chunk.columns[0].get_bytes(j)).decode() for j in range(200)]
     assert got == ["ANR"[c] for c in t["rflag"][400:]]
+
+
+def test_replace_goes_to_the_oracle_in_both(pair):
+    js, ts_, t = pair
+    jdag = _replace_dag(JE, JX, JT)
+    ts = js.next_ts()
+    assert ts == ts_.next_ts()
+    before = ts_.stats()["oracle_fallbacks"]
+    for rid, epoch in _regions(js):
+        jresp, tresp = _both(js, ts_, _request_bytes(jdag, rid, epoch, ts))
+        assert tresp.other_error is None and tresp.chunk.num_rows() == 200
+        assert all(s.time_compile_ns == 0 for s in jresp.exec_summaries)  # the JAX oracle too
+    assert ts_.stats()["oracle_fallbacks"] == before + 3
+    got = [bytes(tresp.chunk.columns[0].get_bytes(j)).decode() for j in range(200)]
+    assert got == [("A", "no", "R")[c] for c in t["rflag"][400:]]
 
 
 def test_group_concat_goes_to_the_oracle_in_both(pair):

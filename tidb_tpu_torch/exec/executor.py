@@ -63,12 +63,11 @@ def decode_outputs(packed, valid, out_fts) -> Chunk:
             null = _np(null)[idx]
             data = _np(data)[idx]
             length = _np(length)[idx]
+            keep = np.where(null, 0, length)
             offs = np.zeros(len(idx) + 1, np.int64)
-            np.cumsum(np.where(null, 0, length), out=offs[1:])
-            blob = np.zeros(int(offs[-1]), np.uint8)
-            for j in range(len(idx)):
-                if not null[j]:
-                    blob[offs[j] : offs[j + 1]] = data[j, : length[j]]
+            np.cumsum(keep, out=offs[1:])
+            # each row's first `keep` bytes, in row order
+            blob = np.ascontiguousarray(data[np.arange(data.shape[1])[None, :] < keep[:, None]], np.uint8)
             cols.append(Column(ft, None, null, offs, blob))
         elif ft.is_string() and out[0].ndim == 2:
             # string column without raw bytes (e.g. CASE/IF over string
@@ -86,9 +85,7 @@ def decode_outputs(packed, valid, out_fts) -> Chunk:
                     byte_mat[:, k * 8 + b] = ((payload[:, k] >> np.uint64(56 - 8 * b)) & np.uint64(0xFF)).astype(np.uint8)
             offs = np.zeros(len(idx) + 1, np.int64)
             np.cumsum(length, out=offs[1:])
-            blob = np.zeros(int(offs[-1]), np.uint8)
-            for j in range(len(idx)):
-                blob[offs[j] : offs[j + 1]] = byte_mat[j, : length[j]]
+            blob = np.ascontiguousarray(byte_mat[np.arange(w * 8)[None, :] < length[:, None]], np.uint8)
             cols.append(Column(ft, None, null.copy(), offs, blob))
         else:
             v, null = out

@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from ..expr.agg import AggDesc
-from ..expr.compile import CompVal, _round_div, _scale
+from ..expr.compile import CompVal, _round_div, _scale, div_exact
 from .keys import segments_from_sorted, sort_key_arrays
 from .seg import (
     I64_MAX,
@@ -92,7 +92,7 @@ def _as_f64(a: CompVal):
     if a.eval_type == "real":
         return a.value
     if a.eval_type == "decimal":
-        return a.value.to(torch.float64) / float(10 ** max(a.ft.decimal, 0))
+        return div_exact(a.value.to(torch.float64), float(10 ** max(a.ft.decimal, 0)))
     return a.value.to(torch.float64)
 
 

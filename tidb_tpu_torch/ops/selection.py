@@ -3,19 +3,20 @@ intersection — no row movement. Downstream kernels consume `row_valid`."""
 
 from __future__ import annotations
 
-from ..expr.compile import CompVal
+from ..expr.compile import CompVal, parse_f64_prefix, string_bytes
 
 
 def apply_selection(row_valid, conds: list[CompVal]):
     """AND of condition truthiness; NULL and false both drop the row.
 
-    A bare string condition needs MySQL's numeric-prefix parse, a string op
-    this port does not run yet: it raises NotImplementedError."""
+    A bare string condition follows MySQL truthiness: its numeric prefix,
+    parsed as a double (parse_f64_prefix), must be non-zero."""
     out = row_valid
     for c in conds:
         if c.value.dim() == 2:
-            raise NotImplementedError("string truthiness in WHERE not on device")
-        if c.eval_type == "real":
+            data, length = string_bytes(c)
+            t = parse_f64_prefix(data, length) != 0.0
+        elif c.eval_type == "real":
             t = c.value != 0.0
         else:
             t = c.value != 0

@@ -30,10 +30,11 @@ def days_from_civil(y, m, d):
     """Days since 1970-01-01 (proleptic Gregorian; Hinnant's algorithm with
     floor division — ref: types/time.go calcDaynr semantics).
 
-    Branchless on purpose: works identically for Python ints AND numpy/jnp
-    arrays (the device date kernels call this with int64 lanes), so the
-    calendar math exists exactly once."""
-    y = y - (m <= 2)
+    Branchless on purpose: works identically for Python ints, numpy arrays
+    and int64 tensors (the device date ops call this with int64 lanes), so
+    the calendar math exists exactly once. Each comparison is multiplied by
+    1 before it meets an integer: torch refuses `-` with a bool tensor."""
+    y = y - (m <= 2) * 1
     era = y // 400
     yoe = y - era * 400
     mp = (m + 9) % 12
@@ -52,7 +53,7 @@ def civil_from_days(z):
     mp = (5 * doy + 2) // 153
     d = doy - (153 * mp + 2) // 5 + 1
     m = mp + 3 - 12 * (mp >= 10)
-    return y + (m <= 2), m, d
+    return y + (m <= 2) * 1, m, d
 
 
 def days_in_month(y, m):

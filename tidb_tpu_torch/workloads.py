@@ -4,7 +4,9 @@ over lineitem, and their generated columns (the DAG makers of the JAX
 package's bench.py, with its random draws in its order, so both packages
 get identical batches). The store workloads at the end put one lineitem
 table into a store (TPUStore) as rowcodec rows and scan it from the same
-DAGs, with the join build sides travelling as the request's aux chunks.
+DAGs, with the join build sides travelling as the request's aux chunks;
+a TPC-H customer table beside it carries the statements whose expressions
+use the math, bit, string and date families (store_expr_statements).
 
 Each DAG builder takes the package's `exec`, `expr` and `types` modules as
 arguments, so one definition builds the same DAG in this port and in the
@@ -334,11 +336,12 @@ def store_rows(types_mod, t: dict, lo: int = 0, hi: int | None = None):
                        d_dec(dec(qty, 2)), d_str(rflag[rf]), d_str(lstat[ls])]
 
 
-def store_items(codec_mod, rows, table_id: int = LINEITEM_TABLE_ID):
-    """(row key, rowcodec value) pairs of `rows` from store_rows, encoded by
-    the package `codec_mod` (for a store's bulk_ingest)."""
+def store_items(codec_mod, rows, table_id: int = LINEITEM_TABLE_ID, col_ids=None):
+    """(row key, rowcodec value) pairs of `rows` from store_rows (or, with
+    the customer table's id and column ids, customer_rows), encoded by the
+    package `codec_mod` (for a store's bulk_ingest)."""
     enc = codec_mod.RowEncoder()
-    col_ids = [LINEITEM_COL_IDS[k] for k in LINEITEM_COLUMNS]
+    col_ids = [LINEITEM_COL_IDS[k] for k in LINEITEM_COLUMNS] if col_ids is None else list(col_ids)
     return [(codec_mod.encode_row_key(table_id, h), enc.encode(col_ids, datums)) for h, datums in rows]
 
 
@@ -455,3 +458,219 @@ def store_join_build_columns(nb: int, groups: int | None = None, seed: int = 7) 
     a payload of `groups` values (64 when None), as [orders columns]."""
     payload = np.random.default_rng(seed).integers(0, groups or 64, nb).astype(np.int64)
     return [[fixed_col(np.arange(nb, dtype=np.int64)), fixed_col(payload)]]
+
+
+# ---------------------------------------------------------------------------
+# the store's customer table and the expression statements
+# ---------------------------------------------------------------------------
+
+CUSTOMER_TABLE_ID = 11
+# TPC-H v3 CUSTOMER (clause 1.4.1), in column-id order (ids 1..8)
+CUSTOMER_COLUMNS = ("custkey", "name", "address", "nationkey", "phone", "acctbal", "mktsegment", "comment")
+CUSTOMER_COL_IDS = {name: i + 1 for i, name in enumerate(CUSTOMER_COLUMNS)}
+CUSTOMER_STRINGS = {"name": 25, "address": 40, "phone": 15, "mktsegment": 10, "comment": 117}
+MKT_SEGMENTS = (b"AUTOMOBILE", b"BUILDING", b"FURNITURE", b"MACHINERY", b"HOUSEHOLD")
+# dbgen's alphanumeric alphabet for random v-strings (clause 4.2.2.7)
+_ALPHANUM = b"0123456789abcdefghijklmnopqrstuvwxyz ABCDEFGHIJKLMNOPQRSTUVWXYZ,"
+# a small vocabulary from dbgen's text grammar (clause 4.2.2.10)
+COMMENT_WORDS = (b"furiously", b"carefully", b"quickly", b"slyly", b"blithely", b"final", b"regular",
+                 b"express", b"ironic", b"pending", b"special", b"bold", b"even", b"deposits", b"packages",
+                 b"accounts", b"requests", b"theodolites", b"instructions", b"foxes", b"ideas", b"pinto",
+                 b"beans", b"asymptotes")
+
+
+def _byte_table(words) -> tuple:
+    """(table [len(words), max len] uint8, lengths int64) of byte strings."""
+    w = max(len(x) for x in words)
+    tab = np.zeros((len(words), w), np.uint8)
+    for i, x in enumerate(words):
+        tab[i, : len(x)] = np.frombuffer(x, np.uint8)
+    return tab, np.array([len(x) for x in words], np.int64)
+
+
+def _digits(data: np.ndarray, col: int, values: np.ndarray, width: int) -> None:
+    """Write `values` as `width` zero-padded ASCII digits at data[:, col:]."""
+    for k in range(width):
+        data[:, col + k] = 48 + (values // 10 ** (width - 1 - k)) % 10
+
+
+def store_customer(n: int, seed: int = 0) -> dict:
+    """The customer table's columns at n rows (row i has handle i), shaped
+    on TPC-H v3 CUSTOMER (clauses 1.4.1 and 4.2.3): c_custkey i + 1;
+    c_name "Customer#" and 9 digits; c_address 10-40 random alphanumerics;
+    c_nationkey 0-24; c_phone "CC-NNN-NNN-NNNN" with CC = nationkey + 10;
+    c_acctbal -999.99..9999.99 (cents); c_mktsegment one of five segments;
+    c_comment words of a small vocabulary, 29-116 bytes. Integer columns
+    are int64 arrays, c_acctbal int64 cents, each string column a (data
+    [n, flen] uint8, length int32) pair."""
+    rng = np.random.default_rng(seed + 11)
+    custkey = np.arange(1, n + 1, dtype=np.int64)
+    name = np.zeros((n, CUSTOMER_STRINGS["name"]), np.uint8)
+    name[:, :9] = np.frombuffer(b"Customer#", np.uint8)
+    _digits(name, 9, custkey, 9)
+    addr_len = rng.integers(10, 41, n).astype(np.int32)
+    address = np.frombuffer(_ALPHANUM, np.uint8)[rng.integers(0, len(_ALPHANUM), (n, CUSTOMER_STRINGS["address"]))]
+    address = np.where(np.arange(address.shape[1])[None, :] < addr_len[:, None], address, 0).astype(np.uint8)
+    nationkey = rng.integers(0, 25, n).astype(np.int64)
+    phone = np.full((n, CUSTOMER_STRINGS["phone"]), ord("-"), np.uint8)
+    _digits(phone, 0, nationkey + 10, 2)
+    _digits(phone, 3, rng.integers(100, 1000, n), 3)
+    _digits(phone, 7, rng.integers(100, 1000, n), 3)
+    _digits(phone, 11, rng.integers(1000, 10000, n), 4)
+    acctbal = rng.integers(-99999, 1000000, n).astype(np.int64)
+    seg_tab, seg_len = _byte_table(MKT_SEGMENTS)
+    seg = rng.integers(0, len(MKT_SEGMENTS), n)
+    mktsegment = seg_tab[seg]
+    # the comment: 24 words, each followed by a space (at least 5 bytes a
+    # word, so >= 120 bytes), cut to a length of 29-116
+    com_len = rng.integers(29, 117, n).astype(np.int32)
+    ids = rng.integers(0, len(COMMENT_WORDS), (n, 24))
+    word_tab, word_len = _byte_table([w + b" " for w in COMMENT_WORDS])
+    cw = CUSTOMER_STRINGS["comment"]
+    comment = np.zeros((n, cw), np.uint8)
+    for lo in range(0, n, 1 << 16):
+        blk = ids[lo : lo + (1 << 16)]
+        # the words' bytes in row order, then each row's first cw of them
+        flat = word_tab[blk][np.arange(word_tab.shape[1])[None, None, :] < word_len[blk][:, :, None]]
+        start = np.concatenate([[0], np.cumsum(word_len[blk].sum(axis=1))[:-1]])
+        comment[lo : lo + len(blk)] = flat[start[:, None] + np.arange(cw)[None, :]]
+    comment = np.where(np.arange(cw)[None, :] < com_len[:, None], comment, 0).astype(np.uint8)
+    return {
+        "custkey": custkey, "name": (name, np.full(n, 18, np.int32)), "address": (address, addr_len),
+        "nationkey": nationkey, "phone": (phone, np.full(n, 15, np.int32)), "acctbal": acctbal,
+        "mktsegment": (mktsegment, seg_len[seg].astype(np.int32)), "comment": (comment, com_len),
+    }
+
+
+def customer_fts(types_mod) -> list:
+    """The customer columns' field types (TPC-H declares every column NOT
+    NULL; the CHAR(n) columns are VARCHAR(n) holding the bare value, as
+    MySQL reads CHAR with its pad spaces removed)."""
+    T = types_mod
+    LL = T.new_longlong(notnull=True)
+    return [LL, _notnull(T, T.new_varchar(25)), _notnull(T, T.new_varchar(40)), LL,
+            _notnull(T, T.new_varchar(15)), _notnull(T, T.new_decimal(15, 2)),
+            _notnull(T, T.new_varchar(10)), _notnull(T, T.new_varchar(117))]
+
+
+def customer_columns(t: dict, names=CUSTOMER_COLUMNS) -> list:
+    """The columns `names` in the (data, null, length | None) form."""
+    out = []
+    for k in names:
+        v = t[k]
+        out.append((v[0], np.zeros(len(v[1]), bool), v[1]) if isinstance(v, tuple) else fixed_col(v))
+    return out
+
+
+def customer_rows(types_mod, t: dict, lo: int = 0, hi: int | None = None):
+    """Rows lo..hi of the customer table as (handle, [Datum per
+    CUSTOMER_COLUMNS]) of the package `types_mod`."""
+    T = types_mod
+    hi = len(t["custkey"]) if hi is None else hi
+    i64, d_dec, d_str = T.Datum.i64, T.Datum.dec, T.Datum.string
+    dec = T.MyDecimal.from_scaled_int
+
+    def strings(k):
+        data, length = t[k]
+        return [bytes(data[i, : length[i]]).decode() for i in range(lo, hi)]
+
+    name, addr, phone, seg, com = (strings(k) for k in ("name", "address", "phone", "mktsegment", "comment"))
+    keys, nations, bal = (t[k][lo:hi].tolist() for k in ("custkey", "nationkey", "acctbal"))
+    for j in range(hi - lo):
+        yield lo + j, [i64(keys[j]), d_str(name[j]), d_str(addr[j]), i64(nations[j]), d_str(phone[j]),
+                       d_dec(dec(bal[j], 2)), d_str(seg[j]), d_str(com[j])]
+
+
+def customer_items(codec_mod, rows):
+    """store_items for customer_rows: the customer table's keys and ids."""
+    return store_items(codec_mod, rows, CUSTOMER_TABLE_ID, [CUSTOMER_COL_IDS[k] for k in CUSTOMER_COLUMNS])
+
+
+def store_expr_statements(exec_mod, expr_mod, types_mod) -> dict:
+    """name -> a Complete-mode statement whose expressions use the math,
+    bit, string and date families (split by distsql/root.py split_dag, the
+    push half on the regions):
+
+      q22_cntry  TPC-H Q22's grouping, without its subqueries, over customer:
+                 SELECT SUBSTR(c_phone,1,2) AS cntrycode, COUNT(*),
+                 SUM(c_acctbal) WHERE cntrycode IN ('13','31','23','29',
+                 '30','18','17') AND c_acctbal > 0.00 GROUP BY cntrycode
+                 (seven groups: the small-groups hint 7 takes K1)
+      year       TPC-H Q9's grouping over lineitem: EXTRACT(YEAR FROM
+                 l_shipdate), SUM(l_extendedprice * (1 - l_discount)),
+                 COUNT(*) GROUP BY 1 (seven years: hint 7, K1)
+      text       over customer, GROUP BY LOWER(c_mktsegment): COUNT(*), SUM of
+                 LENGTH(TRIM / LTRIM / RTRIM(CONCAT('  ', c_name, ' '))),
+                 SUM(STRCMP(UPPER(c_address), c_address)), SUM(CAST(SUBSTR(
+                 c_phone,1,2) AS DOUBLE)) WHERE (c_mktsegment LIKE 'BUILD%'
+                 OR c_comment LIKE 'furiously%' OR c_mktsegment =
+                 'MACHINERY') AND SUBSTR(c_phone, 4, 3) (a bare string)
+      numeric    over lineitem, one row of scalar aggregates: SUM of CEIL,
+                 FLOOR and ROUND of l_extendedprice * (1 - l_discount) and of
+                 the negative l_discount - l_extendedprice, SIGN(l_discount -
+                 0.05), l_orderkey & 255, | 255, ^ 255, BIT_XOR(~l_orderkey),
+                 << 3, >> 2, DATEDIFF(DATE_ADD(l_shipdate, INTERVAL 1 MONTH),
+                 l_shipdate), TO_DAYS(DATE_SUB(l_shipdate, INTERVAL 2
+                 QUARTER)), MONTH, DAY, HOUR, WEEKDAY(l_shipdate), SQRT, EXP,
+                 LN and POW of l_quantity as a double, COUNT(*)"""
+    E, X, T = exec_mod, expr_mod, types_mod
+    f, lit, A = X.func, X.lit, X.AggDesc
+    BOOL, LL, UB, DBL = T.new_longlong(notnull=True), T.new_longlong(), T.new_longlong(unsigned=True), T.new_double()
+    VC, DT, dec = T.new_varchar, T.new_datetime(), T.new_decimal
+    cfts = customer_fts(T)
+
+    def scan(table_id, col_ids, names, fts):
+        ftd = dict(zip(names, fts))
+        chosen = [ftd[k] for k in col_ids]
+        ids = CUSTOMER_COL_IDS if table_id == CUSTOMER_TABLE_ID else LINEITEM_COL_IDS
+        sc = E.TableScan(table_id, tuple(E.ColumnInfo(ids[k], ft) for k, ft in zip(col_ids, chosen)))
+        return sc, [X.col(i, ft) for i, ft in enumerate(chosen)]
+
+    def statement(sc, sel, group_by, aggs):
+        agg = E.Aggregation(group_by=tuple(group_by), aggs=tuple(aggs))
+        execs = (sc,) + ((E.Selection(tuple(sel)),) if sel else ()) + (agg,)
+        return E.DAGRequest(execs, output_offsets=tuple(range(len(aggs) + len(group_by))))
+
+    out = {}
+    sc, (phone, bal) = scan(CUSTOMER_TABLE_ID, ("phone", "acctbal"), CUSTOMER_COLUMNS, cfts)
+    cntry = f("substr", VC(2), phone, lit(1, LL), lit(2, LL))
+    codes = [lit(c, VC(2)) for c in ("13", "31", "23", "29", "30", "18", "17")]
+    out["q22_cntry"] = statement(sc, (f("in", BOOL, cntry, *codes), f("gt", BOOL, bal, lit("0.00", dec(3, 2)))),
+                                 (cntry,), (A("count", ()), A("sum", (bal,))))
+
+    lnames = ("okey", "price", "disc", "shipdate", "qty")
+    lfts = (T.new_longlong(notnull=True),) + tuple(_notnull(T, ft) for ft in (dec(15, 2), dec(15, 2), DT, dec(15, 2)))
+    sc, (ship, price, disc) = scan(LINEITEM_TABLE_ID, ("shipdate", "price", "disc"), lnames, lfts)
+    rev = f("mul", dec(31, 4), price, f("minus", dec(16, 2), lit(1, LL), disc))
+    out["year"] = statement(sc, (), (f("extract", LL, lit("YEAR", VC(4)), ship),), (A("sum", (rev,)), A("count", ())))
+
+    sc, (name, addr, phone, seg, com) = scan(CUSTOMER_TABLE_ID, ("name", "address", "phone", "mktsegment", "comment"),
+                                             CUSTOMER_COLUMNS, cfts)
+    padded = f("concat", VC(28), lit("  ", VC(2)), name, lit(" ", VC(1)))
+    where = f("or", BOOL, f("or", BOOL, f("like", BOOL, seg, lit("BUILD%", VC(6))),
+                             f("like", BOOL, com, lit("furiously%", VC(10)))),
+              f("eq", BOOL, seg, lit("MACHINERY", VC(9))))
+    out["text"] = statement(
+        sc, (where, f("substr", VC(3), phone, lit(4, LL), lit(3, LL))), (f("lower", VC(10), seg),),
+        (A("count", ()),) + tuple(A("sum", (f("length", LL, f(op, VC(28), padded)),)) for op in ("trim", "ltrim", "rtrim"))
+        + (A("sum", (f("strcmp", LL, f("upper", VC(40), addr), addr),)),
+           A("sum", (f("cast", DBL, f("substr", VC(2), phone, lit(1, LL), lit(2, LL))),))))
+
+    sc, (okey, price, disc, ship, qty) = scan(LINEITEM_TABLE_ID, lnames, lnames, lfts)
+    rev = f("mul", dec(31, 4), price, f("minus", dec(16, 2), lit(1, LL), disc))
+    neg = f("minus", dec(16, 2), disc, price)
+    q = f("cast", DBL, qty)
+    bits = [f(op, UB, okey, lit(k, LL)) for op, k in (("bitand", 255), ("bitor", 255), ("bitxor", 255),
+                                                      ("shiftleft", 3), ("shiftright", 2))]
+    unit = lambda u: lit(u, VC(8))  # noqa: E731
+    dates = [f("datediff", LL, f("date_add", DT, ship, lit(1, LL), unit("month")), ship),
+             f("to_days", LL, f("date_sub", DT, ship, lit(2, LL), unit("quarter")))]
+    dates += [f(op, LL, ship) for op in ("month", "day", "hour", "weekday")]
+    reals = [f("sqrt", DBL, q), f("exp", DBL, f("div", DBL, q, lit(10.0, DBL))), f("ln", DBL, q),
+             f("pow", DBL, q, lit(1.5, DBL))]
+    scalars = [f("ceil", dec(28, 0), rev), f("floor", dec(28, 0), rev), f("round", dec(28, 0), rev),
+               f("ceil", dec(15, 0), neg), f("floor", dec(15, 0), neg), f("round", dec(16, 1), neg, lit(1, LL)),
+               f("sign", LL, f("minus", dec(16, 2), disc, lit("0.05", dec(3, 2))))] + bits + dates + reals
+    aggs = [A("sum", (e,)) for e in scalars] + [A("bit_xor", (f("bitneg", UB, okey),)), A("count", ())]
+    out["numeric"] = statement(sc, (), (), aggs)
+    return out

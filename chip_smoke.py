@@ -145,12 +145,38 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      of the root's row oracle; the median ms per statement and tier, and
      the device operations of one `text` region request split into
      parse_f64_prefix's and the rest (with --profile, a host and a device
-     profile of the text statement in both tiers and q22_cntry's batch).
+     profile of the text statement in both tiers and q22_cntry's batch);
+ 11. the SQL session: a tidb_tpu_torch.sql.Session on `cuda` over its own
+     store; CREATE TABLE lineitem (phase 6's seven columns under their
+     TPC-H names and types), orders and customer (phase 10's columns)
+     through SQL; lineitem's 2^21 rows and customer's 2^20 copied from
+     phase 10's store under the catalog's table ids (a row's value bytes
+     depend only on its column ids and types), orders' 2^19 rows encoded
+     in 8 processes, each table split into its own regions (lineitem as
+     phase 9 left it); a CSV through LOAD DATA and ANALYZE of that table;
+     lineitem's column stats through LOAD STATS of a JSON of numpy NDVs;
+     then TPC-H Q1 without its ORDER BY (the small-groups hint 16: K1 once
+     a region in the pool tier, once a bucket in the batch tier), Q1 with
+     it (no hint: the sort path), Q6, a Q3-shaped join of lineitem and
+     orders grouped by l_orderkey, ORDER BY revenue DESC LIMIT 10 (the
+     packed join: K2 once a region or a bucket), the TopN and phase 10's
+     q22_cntry, each in the session's default tier (the pool of 4), after
+     SET tidb_allow_batch_cop = 1 and through PREPARE / EXECUTE (the second
+     EXECUTE a plan-cache hit), every answer against numpy, no oracle
+     answer, other_error or bucket fallback; the median host ms of
+     Session.execute over 3 runs with the result cache cleared, a
+     plan-cache miss (the plan cache cleared) beside a hit, each split
+     into parse, plan and execute_root; the plan of TPC-H Q3's three-table
+     join printed (left-deep: K3's membership chain is not reached from
+     SQL); then transactions on a fresh table: BEGIN / INSERT / UPDATE /
+     DELETE / COMMIT read back through the coprocessor after the result
+     cache was warm, a second session's earlier snapshot blind to the
+     commit until its own BEGIN, SQLError on a write conflict and on a
+     held lock (with --profile, a host profile of q22_cntry's batch).
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4, 6, 7, 8, 9 and 10); the last line is {"ok":
-true, "device": {...}}. Without CUDA the script exits 2 and prints no
-result.
+the main paths of phases 4 and 6-11); the last line is {"ok": true,
+"device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -186,7 +212,7 @@ STORE_PAGE = 8192
 STORE_PAGED_ROWS = 1 << 16     # the paged request covers each region's first 2^16 rows
 STORE_LOAD_CHUNK = 1 << 18     # rows a load worker encodes at a time
 LOAD_WORKERS = 8
-COLD_REPS = 5
+COLD_REPS = 3                  # 5 before phase 11 joined the run
 # K3's operations a row for its bound, whatever the design: the key-run
 # test, inner, real, the duplicate test, the bad byte, the head and ok
 K3_OPS_PER_ROW = 8
@@ -872,14 +898,16 @@ def _customer_encode(span):
     return W.customer_items(codec, W.customer_rows(types, _LOAD_TABLE, lo, hi))
 
 
-def load_store(store, n: int, n_orders: int, init=_load_init, initargs=None, encode=_load_encode):
+def load_store(store, n: int, n_orders: int, init=_load_init, initargs=None, encode=_load_encode, chunk=None):
     """Encode the table's rows with the port's Python row encoder in
-    LOAD_WORKERS processes and bulk-ingest them at one commit ts; returns
-    (seconds, bytes of keys and values). The lineitem table by default;
-    `init`, `initargs` and `encode` name another table's workers."""
+    LOAD_WORKERS processes, `chunk` rows at a time (STORE_LOAD_CHUNK by
+    default), and bulk-ingest them at one commit ts; returns (seconds,
+    bytes of keys and values). The lineitem table by default; `init`,
+    `initargs` and `encode` name another table's workers."""
     import multiprocessing as mp
 
-    spans = [(lo, min(lo + STORE_LOAD_CHUNK, n)) for lo in range(0, n, STORE_LOAD_CHUNK)]
+    chunk = chunk or STORE_LOAD_CHUNK
+    spans = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
     ts = store.next_ts()
     nbytes = 0
     t0 = time.perf_counter()
@@ -2058,6 +2086,456 @@ def check_expr_statement(name, chunk, want) -> str:
     return f"{len(row)} aggregates == numpy (the real SUMs to {rel} relative)"
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the SQL session
+# ---------------------------------------------------------------------------
+
+SESSION_REPS = 3
+SESSION_ORDERS = STORE_ORDERS   # o_orderkey 0..2^19-1, the keys l_orderkey draws from
+SESSION_CUSTOMERS = EXPR_ROWS   # o_custkey draws from phase 10's customers
+SESSION_ACCT_ROWS = 2048        # the transaction table
+SESSION_CSV_ROWS = 1000         # LOAD DATA's file
+SESSION_DIR = os.path.join("build", "session_phase")  # LOAD DATA's CSV and LOAD STATS' JSON (ignored by git)
+
+LINEITEM_DDL = ("CREATE TABLE lineitem (l_orderkey BIGINT NOT NULL, l_extendedprice DECIMAL(15,2) NOT NULL,"
+                " l_discount DECIMAL(15,2) NOT NULL, l_shipdate DATE NOT NULL, l_quantity DECIMAL(15,2) NOT NULL,"
+                " l_returnflag CHAR(1) NOT NULL, l_linestatus CHAR(1) NOT NULL)")
+ORDERS_DDL = ("CREATE TABLE orders (o_orderkey BIGINT PRIMARY KEY, o_orderdate DATE NOT NULL,"
+              " o_shippriority BIGINT NOT NULL, o_custkey BIGINT NOT NULL)")
+CUSTOMER_DDL = ("CREATE TABLE customer (c_custkey BIGINT NOT NULL, c_name VARCHAR(25) NOT NULL,"
+                " c_address VARCHAR(40) NOT NULL, c_nationkey BIGINT NOT NULL, c_phone CHAR(15) NOT NULL,"
+                " c_acctbal DECIMAL(15,2) NOT NULL, c_mktsegment CHAR(10) NOT NULL, c_comment VARCHAR(117) NOT NULL)")
+
+# TPC-H Q1 over the seven columns (no l_tax: no sum_charge), its ORDER BY
+# cut: the JAX package's planner reads its small-groups hint from the
+# statement's last executor (tidb_tpu/sql/planner.py _ndv_group_hint),
+# which the root Sort of the full text hides; "q1_ordered" is the full text
+Q1_SELECT = ("SELECT l_returnflag, l_linestatus, sum(l_quantity), sum(l_extendedprice),"
+             " sum(l_extendedprice * (1 - l_discount)), avg(l_quantity), avg(l_extendedprice), avg(l_discount),"
+             " count(*) FROM lineitem WHERE l_shipdate <= {d} GROUP BY l_returnflag, l_linestatus")
+SESSION_STATEMENTS = {
+    # name: (text with {d} for its one parameter, the parameter's value)
+    "q1": (Q1_SELECT, "'1998-09-02'"),
+    "q1_ordered": (Q1_SELECT + " ORDER BY l_returnflag, l_linestatus", "'1998-09-02'"),
+    "q6": ("SELECT sum(l_extendedprice * l_discount) AS revenue FROM lineitem WHERE l_shipdate >= {d}"
+           " AND l_shipdate < '1995-01-01' AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24", "'1994-01-01'"),
+    "q3": ("SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue FROM lineitem JOIN orders"
+           " ON l_orderkey = o_orderkey WHERE o_orderdate < {d} AND l_shipdate > '1995-03-15' GROUP BY l_orderkey"
+           " ORDER BY revenue DESC LIMIT 10", "'1995-03-15'"),
+    "topn": ("SELECT l_extendedprice, l_shipdate FROM lineitem WHERE l_shipdate >= {d}"
+             " ORDER BY l_extendedprice DESC, l_shipdate LIMIT 100", "'1992-01-01'"),
+    # phase 10's q22_cntry; GROUP BY names the expression: both packages'
+    # planners resolve a GROUP BY alias of an expression to the wrong column
+    "q22_cntry": ("SELECT SUBSTRING(c_phone, 1, 2) AS cntrycode, count(*), sum(c_acctbal) FROM customer"
+                  " WHERE SUBSTRING(c_phone, 1, 2) IN ('13', '31', '23', '29', '30', '18', '17')"
+                  " AND c_acctbal > {d} GROUP BY SUBSTRING(c_phone, 1, 2)", "0.00"),
+}
+# the TPC-H Q3 join order over all three tables: the planner's plan is a
+# left-deep pair of joins, which the packed chain (K3's membership scan
+# under K2) does not take; printed, not run
+Q3_THREE_TABLES = ("SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) AS revenue FROM customer, orders,"
+                   " lineitem WHERE c_mktsegment = 'BUILDING' AND c_custkey = o_custkey AND l_orderkey = o_orderkey"
+                   " AND o_orderdate < '1995-03-15' AND l_shipdate > '1995-03-15' GROUP BY l_orderkey"
+                   " ORDER BY revenue DESC LIMIT 10")
+
+
+def _orders_init(n: int, n_cust: int, table_id: int):
+    """A load worker's copy of the orders table (q3's seeded build sides)."""
+    global _LOAD_TABLE
+    from tidb_tpu_torch import workloads as W
+
+    _LOAD_TABLE = (table_id, [c[0] for c in W.store_q3_build_columns(n, n_cust)[0]])
+
+
+def _orders_encode(span):
+    """Orders rows lo..hi as (row key, rowcodec value) pairs: the handle is
+    o_orderkey, the values (o_orderkey, o_orderdate, o_shippriority 0,
+    o_custkey) under column ids 1..4, as the session's INSERT encodes them."""
+    from tidb_tpu_torch import codec, types as T
+
+    tid, (okey, cust, odate) = _LOAD_TABLE
+    lo, hi = span
+    enc = codec.RowEncoder()
+    return [(codec.encode_row_key(tid, k), enc.encode([1, 2, 3, 4], [T.Datum.i64(k), T.Datum.time(T.MyTime(d, 0)),
+                                                                       T.Datum.i64(0), T.Datum.i64(c)]))
+            for k, c, d in zip(okey[lo:hi].tolist(), cust[lo:hi].tolist(), odate[lo:hi].tolist())]
+
+
+def copy_table(src, src_tid: int, dst, dst_tid: int) -> int:
+    """Copy a table's rows from store `src` into store `dst` under another
+    table id: a row's value bytes depend only on its column ids and types,
+    so only the key's table prefix changes. Returns the rows copied."""
+    from tidb_tpu_torch.codec import record_prefix
+    from tidb_tpu_torch.distsql import full_table_ranges
+
+    (r,) = full_table_ranges(src_tid)
+    old, new = record_prefix(src_tid), record_prefix(dst_tid)
+    items = [(new + k[len(old):], v) for k, v in src.kv.scan(r.start, r.end, src.next_ts())]
+    dst.bulk_ingest(items, dst.next_ts())
+    return len(items)
+
+
+def _scaled(d, scale: int) -> int:
+    """A decimal Datum as an integer at `scale` digits (exact)."""
+    from decimal import Decimal
+
+    v = Decimal(str(d.val)).scaleb(scale)
+    if v != v.to_integral_value():
+        raise SystemExit(f"phase 11: {d.val} has more than {scale} digits")
+    return int(v)
+
+
+def numpy_sql(t, cust, orders, T) -> dict:
+    """The exact answers of SESSION_STATEMENTS over the generated columns,
+    in session_answer's form."""
+    import numpy as np
+
+    out = {}
+    m = t["shipdate"] <= T.MyTime.parse("1998-09-02", 0).packed
+    gid = (t["rflag"].astype(np.int64) * 2 + t["lstat"].astype(np.int64))[m]
+    qty, price, disc = t["qty"][m], t["price"][m], t["disc"][m]
+    q1 = {}
+    for g in np.unique(gid):
+        s = gid == g
+        cnt = int(s.sum())
+        sq, sp, sd = int(qty[s].sum()), int(price[s].sum()), int(disc[s].sum())
+        q1[("ANR"[g // 2], "OF"[g % 2])] = [sq, sp, int((price[s] * (100 - disc[s])).sum()),
+                                            round_div(sq * 10 ** 4, cnt), round_div(sp * 10 ** 4, cnt),
+                                            round_div(sd * 10 ** 4, cnt), cnt]
+    out["q1"] = out["q1_ordered"] = q1
+    out["q6"] = numpy_q6(t, T)[0]
+    okey, o_date = orders
+    cut = T.MyTime.parse("1995-03-15", 0).packed
+    l_ok = (t["shipdate"] > cut) & (o_date[t["okey"]] < cut)
+    out["q3"] = {k: v for k, (v, _c) in _sum_by(t["okey"][l_ok], t["price"][l_ok] * (100 - t["disc"][l_ok])).items()}
+    lo = T.MyTime.parse("1992-01-01", 0).packed
+    idx = numpy_order(np.where(t["shipdate"] >= lo, t["price"], -1), t["shipdate"], TOPN_K)
+    out["topn"] = [(int(t["price"][i]), int(t["shipdate"][i])) for i in idx]
+    phone, _ = cust["phone"]
+    cc = (phone[:, 0].astype(np.int64) - 48) * 10 + (phone[:, 1].astype(np.int64) - 48)
+    bal = cust["acctbal"]
+    keep = np.isin(cc, [13, 31, 23, 29, 30, 18, 17]) & (bal > 0)
+    out["q22_cntry"] = {f"{c:02d}": (int((keep & (cc == c)).sum()), int(bal[keep & (cc == c)].sum()))
+                        for c in np.unique(cc[keep])}
+    return out
+
+
+def session_answer(name, res, want) -> str:
+    """Hold a statement's Result against numpy (exact); returns what was
+    compared."""
+    rows = res.rows
+    if name in ("q1", "q1_ordered"):
+        got = {(r[0].val, r[1].val): [_scaled(r[2], 2), _scaled(r[3], 2), _scaled(r[4], 4), _scaled(r[5], 6),
+                                      _scaled(r[6], 6), _scaled(r[7], 6), int(r[8].val)] for r in rows}
+        if got != want:
+            raise SystemExit(f"phase 11 {name}: {got} != numpy {want}")
+        if name == "q1_ordered" and list(got) != sorted(got):
+            raise SystemExit(f"phase 11 {name}: rows not in ORDER BY order ({list(got)})")
+        return f"{len(got)} groups"
+    if name == "q6":
+        if len(rows) != 1 or _scaled(rows[0][0], 4) != want:
+            raise SystemExit(f"phase 11 q6: {rows} != numpy {want}")
+        return "the revenue"
+    if name == "q3":
+        got = {int(r[0].val): _scaled(r[1], 4) for r in rows}
+        top = sorted(want.values(), reverse=True)[:10]
+        if [_scaled(r[1], 4) for r in rows] != top or any(want.get(k) != v for k, v in got.items()):
+            raise SystemExit(f"phase 11 q3: the top 10 {got} differ from numpy")
+        return f"the top 10 of {len(want)} groups"
+    if name == "topn":
+        got = [(_scaled(r[0], 2), r[1].val.packed) for r in rows]
+        if got != want:
+            raise SystemExit(f"phase 11 topn: the rows differ from numpy's order")
+        return f"{len(got)} rows in order"
+    got = {r[0].val: (int(r[1].val), _scaled(r[2], 2)) for r in rows}
+    if got != want:
+        raise SystemExit(f"phase 11 q22_cntry: {got} != numpy {want}")
+    return f"{len(got)} groups"
+
+
+class SessionSplit:
+    """The host time a Session.execute spends in the parser and in
+    execute_root (build-side fetches included), read by wrapping the
+    session module's parse_one and execute_root; the rest is planning."""
+
+    def __init__(self, mod):
+        self.mod, self.parse, self.root = mod, 0.0, 0.0
+        self.real = (mod.parse_one, mod.execute_root)
+
+        def parse_one(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return self.real[0](*a, **k)
+            finally:
+                self.parse += time.perf_counter() - t0
+
+        def execute_root(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return self.real[1](*a, **k)
+            finally:
+                self.root += time.perf_counter() - t0
+
+        mod.parse_one, mod.execute_root = parse_one, execute_root
+
+    def close(self):
+        self.mod.parse_one, self.mod.execute_root = self.real
+
+    def run(self, fn):
+        """(result, total ms, parse ms, plan ms, execute_root ms) of fn()."""
+        import torch
+
+        self.parse = self.root = 0.0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        parse, root = self.parse * 1e3, self.root * 1e3
+        return out, total, parse, total - parse - root, root
+
+
+def session_phase(old, E, X, T, W, counters, profile: bool, card: str, line_sizes: list) -> None:
+    """Phase 11: the SQL session on the card (see the module docstring)."""
+    import numpy as np
+
+    import tidb_tpu_torch.exec as EXP
+    import tidb_tpu_torch.exec.executor as EX
+    import tidb_tpu_torch.sql.session as SM
+    from tidb_tpu_torch import codec
+    from tidb_tpu_torch.exec.executor import _pow2
+    from tidb_tpu_torch.parser import parse_one
+    from tidb_tpu_torch.sql import Session, SQLError, plan_select
+
+    t0 = time.perf_counter()
+    s = Session(device=DEVICE)
+    store = s.store
+    for ddl in (LINEITEM_DDL, ORDERS_DDL, CUSTOMER_DDL):
+        s.execute(ddl)
+    tids = {name: s.catalog.table(name).table_id for name in ("lineitem", "orders", "customer")}
+    # each table's own regions, lineitem's as phase 9 left them
+    bounds = np.cumsum(line_sizes)[:-1].tolist()
+    for name, handles in (("lineitem", bounds), ("orders", [SESSION_ORDERS // 2]),
+                          ("customer", list(range(EXPR_REGION, EXPR_ROWS, EXPR_REGION)))):
+        store.cluster.split(codec.record_prefix(tids[name]))
+        for h in handles:
+            store.cluster.split(codec.encode_row_key(tids[name], h))
+    n_line = copy_table(old, W.LINEITEM_TABLE_ID, store, tids["lineitem"])
+    n_cust = copy_table(old, W.CUSTOMER_TABLE_ID, store, tids["customer"])
+    secs, _nbytes = load_store(store, SESSION_ORDERS, SESSION_CUSTOMERS, _orders_init,
+                               (SESSION_ORDERS, SESSION_CUSTOMERS, tids["orders"]), _orders_encode,
+                               chunk=max(SESSION_ORDERS // LOAD_WORKERS, 1))
+    if (n_line, n_cust) != (STORE_ROWS, EXPR_ROWS):
+        raise SystemExit(f"phase 11: copied {n_line} lineitem and {n_cust} customer rows")
+    t = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
+    cust = W.store_customer(EXPR_ROWS)
+    okey, _ocust, odate = (c[0] for c in W.store_q3_build_columns(SESSION_ORDERS, SESSION_CUSTOMERS)[0])
+    log(f"phase 11 load: lineitem {n_line} rows ({len(line_sizes)} regions) and customer {n_cust} rows (4 regions)"
+        f" copied from phase 10's store under the catalog's table ids {tids}, orders {SESSION_ORDERS} rows"
+        f" encoded in {secs:.2f} s ({LOAD_WORKERS} processes, 2 regions); {time.perf_counter() - t0:.2f} s")
+    r = s.execute(f"SELECT o_orderkey, o_orderdate, o_custkey FROM orders WHERE o_orderkey = {SESSION_ORDERS - 3}")
+    if [(r.rows[0][0].val, r.rows[0][1].val.packed, r.rows[0][2].val)] != [
+            (SESSION_ORDERS - 3, int(odate[-3]), int(_ocust[-3]))]:
+        raise SystemExit(f"phase 11: the orders point get read {r.values()}")
+
+    # LOAD DATA of a small file, then ANALYZE of that table
+    os.makedirs(SESSION_DIR, exist_ok=True)
+    csv = os.path.abspath(os.path.join(SESSION_DIR, "acct_load.csv"))
+    with open(csv, "w") as f:
+        f.writelines(f"{i},{i % 7},{i * 3}\n" for i in range(SESSION_CSV_ROWS))
+    s.execute("CREATE TABLE loaded (id BIGINT PRIMARY KEY, g BIGINT NOT NULL, v BIGINT NOT NULL)")
+    n_loaded = s.execute(f"LOAD DATA INFILE '{csv}' INTO TABLE loaded FIELDS TERMINATED BY ','").affected
+    got = s.execute("SELECT count(*), sum(v) FROM loaded").values()[0]
+    if n_loaded != SESSION_CSV_ROWS or [got[0], int(str(got[1]))] != [SESSION_CSV_ROWS, 3 * sum(range(SESSION_CSV_ROWS))]:
+        raise SystemExit(f"phase 11 LOAD DATA: {n_loaded} rows, read back {got}")
+    s.execute("ANALYZE TABLE loaded")
+    ndv = s.catalog.stats[s.catalog.table("loaded").table_id].columns["g"].ndv
+    if ndv != 7:
+        raise SystemExit(f"phase 11 ANALYZE: NDV of g {ndv}, not 7")
+    log(f"phase 11 LOAD DATA: {n_loaded} rows from a CSV, read back through the coprocessor; ANALYZE: NDV(g) = {ndv}")
+
+    # the planner's column stats for lineitem through LOAD STATS (ANALYZE
+    # would decode every row in Python)
+    stats_json = os.path.abspath(os.path.join(SESSION_DIR, "lineitem_stats.json"))
+    with open(stats_json, "w") as f:
+        json.dump({"table_name": "lineitem", "count": STORE_ROWS, "columns": {
+            "l_returnflag": {"null_count": 0, "histogram": {"ndv": int(len(np.unique(t["rflag"])))}},
+            "l_linestatus": {"null_count": 0, "histogram": {"ndv": int(len(np.unique(t["lstat"])))}}}}, f)
+    s.execute(f"LOAD STATS '{stats_json}'")
+    plans = {name: plan_select(parse_one(text.format(d=arg)), s.catalog)
+             for name, (text, arg) in SESSION_STATEMENTS.items()}
+    for name, p in plans.items():
+        log(f"phase 11 plan {name}: {[type(e).__name__ for e in p.dag.executors]}, small_groups {p.small_groups}")
+    if plans["q1"].small_groups != G or plans["q1_ordered"].small_groups is not None:
+        raise SystemExit(f"phase 11: Q1's hint {plans['q1'].small_groups}, ordered {plans['q1_ordered'].small_groups}")
+    p3 = plan_select(parse_one(Q3_THREE_TABLES), s.catalog)
+    log(f"phase 11 plan of Q3 over customer, orders and lineitem (not run): "
+        f"{[type(e).__name__ for e in p3.dag.executors]}; the builds "
+        f"{[[type(b).__name__ for b in e.build] for e in p3.dag.executors if isinstance(e, E.Join)]}"
+        f" (left-deep: K3's membership chain needs a join inside a build)")
+
+    want = numpy_sql(t, cust, (okey, odate), T)
+    oracle_calls = [0]
+    real_oracle = (EX.run_dag_reference, EXP.run_dag_reference)
+
+    def counted_oracle(*a, **k):
+        oracle_calls[0] += 1
+        return real_oracle[0](*a, **k)
+
+    EX.run_dag_reference = EXP.run_dag_reference = counted_oracle
+    split = SessionSplit(SM)
+    regions = len(line_sizes)
+    buckets = len({_pow2(x) for x in line_sizes})
+    need = {"q1": "dense_agg", "q3": "postsort_segscan"}
+    timings = {}
+    try:
+        for tier, sets in (("pool", ()), ("batch", ("SET tidb_allow_batch_cop = 1",))):
+            for q in sets:
+                s.execute(q)
+            for name, (text, arg) in SESSION_STATEMENTS.items():
+                sql = text.format(d=arg)
+
+                def checked(sql=sql, name=name):
+                    store.clear_result_cache()
+                    res = s.execute(sql)
+                    return res, session_answer(name, res, want[name])
+
+                _res, what = counters.path(f"{name} ({tier})", checked, need=(need[name],) if name in need else (),
+                                           phase=11)
+                for k, v in counters.last.items():
+                    # K1 / K2 once a region (pool) or a capacity bucket (batch)
+                    k_want = (regions if tier == "pool" else buckets) if need.get(name) == k else 0
+                    require_launches(f"phase 11 {name} ({tier}) {k}", v, k_want)
+                miss, hit = [], []
+                for _ in range(SESSION_REPS):
+                    s.catalog.plan_cache.clear()
+                    store.clear_result_cache()
+                    res, *ms = split.run(lambda sql=sql: s.execute(sql))
+                    if s._last_plan_cache[0] != "miss":
+                        raise SystemExit(f"phase 11 {name}: plan cache {s._last_plan_cache} after a clear")
+                    session_answer(name, res, want[name])
+                    miss.append(ms)
+                for _ in range(SESSION_REPS):
+                    store.clear_result_cache()
+                    res, *ms = split.run(lambda sql=sql: s.execute(sql))
+                    if s._last_plan_cache[0] != "hit":
+                        raise SystemExit(f"phase 11 {name}: plan cache {s._last_plan_cache} on a repeat")
+                    session_answer(name, res, want[name])
+                    hit.append(ms)
+                med = lambda rows: [statistics.median(c) for c in zip(*rows)]  # noqa: E731
+                timings[(name, tier)] = (med(miss), med(hit))
+                if profile and tier == "batch" and name == "q22_cntry":
+                    store.clear_result_cache()
+                    host_profile(f"phase 11 {name} ({tier})", lambda sql=sql: s.execute(sql))
+                (mt, mp, mpl, mr), (ht, hp, hpl, hr) = timings[(name, tier)]
+                log(f"phase 11 {name} ({tier}): {what} == numpy; median of {SESSION_REPS} runs, result cache cleared:"
+                    f" plan-cache miss {mt:.3f} ms (parse {mp:.3f}, plan {mpl:.3f}, execute_root {mr:.3f}),"
+                    f" hit {ht:.3f} ms (parse {hp:.3f}, plan {hpl:.3f}, execute_root {hr:.3f}) [{card}]")
+        s.execute("SET tidb_allow_batch_cop = 0")
+        # PREPARE / EXECUTE, the second EXECUTE a plan-cache hit
+        for name, (text, arg) in SESSION_STATEMENTS.items():
+            s.execute(f"PREPARE p_{name} FROM '{text.format(d='?').replace(chr(39), chr(39) * 2)}'")
+            s.execute(f"SET @p_{name} = {arg}")
+
+            def executed(name=name):
+                out = []
+                for _ in range(2):
+                    store.clear_result_cache()
+                    res, *ms = split.run(lambda: s.execute(f"EXECUTE p_{name} USING @p_{name}"))
+                    session_answer(name, res, want[name])
+                    out.append((s._last_plan_cache, ms))
+                return out
+
+            runs = counters.path(f"{name} (prepared)", executed, need=(need[name],) if name in need else (), phase=11)
+            if runs[1][0][0] != "hit":
+                raise SystemExit(f"phase 11 {name}: the second EXECUTE was a plan-cache {runs[1][0]}")
+            (_pc0, (t1, p1, pl1, r1)), (_pc1, (t2, p2, pl2, r2)) = runs
+            log(f"phase 11 {name} (PREPARE / EXECUTE): == numpy twice; first EXECUTE {runs[0][0][0]} {t1:.3f} ms"
+                f" (plan {pl1:.3f}, execute_root {r1:.3f}), second a hit {t2:.3f} ms (plan {pl2:.3f},"
+                f" execute_root {r2:.3f}) [{card}]")
+        if oracle_calls[0]:
+            raise SystemExit(f"phase 11: the root's row oracle answered {oracle_calls[0]} times")
+    finally:
+        split.close()
+        EX.run_dag_reference, EXP.run_dag_reference = real_oracle
+    st = store.stats()
+    if st["oracle_fallbacks"] or st["other_errors"] or st["batch_fallbacks"]:
+        raise SystemExit(f"phase 11: store fell back or failed ({st})")
+
+    # transactions on a fresh table: every committed write read back
+    # through the coprocessor (a GROUP BY, not a point get)
+    s2 = Session(store=store, catalog=s.catalog, device=DEVICE)
+    s.execute("CREATE TABLE acct (id BIGINT PRIMARY KEY, g BIGINT NOT NULL, v BIGINT NOT NULL)")
+    model = {i: [i % 5, i] for i in range(SESSION_ACCT_ROWS)}
+    s.execute("INSERT INTO acct VALUES " + ", ".join(f"({i}, {g}, {v})" for i, (g, v) in model.items()))
+    acct = s.catalog.table("acct").table_id
+    store.cluster.split(codec.record_prefix(acct))
+    store.cluster.split(codec.encode_row_key(acct, SESSION_ACCT_ROWS // 2))
+    read = "SELECT g, count(*), sum(v) FROM acct GROUP BY g"
+
+    def check_read(sess, m, what):
+        got = {r[0].val: (int(r[1].val), int(str(r[2].val))) for r in sess.execute(read).rows}
+        exp = {}
+        for g, v in m.values():
+            c, sm = exp.get(g, (0, 0))
+            exp[g] = (c + 1, sm + v)
+        if got != exp:
+            raise SystemExit(f"phase 11 txn {what}: read {got}, the acknowledged writes give {exp}")
+
+    hits0 = store.stats()["result_cache_hits"]
+    check_read(s, model, "warm")
+    check_read(s, model, "warm again")
+    if store.stats()["result_cache_hits"] <= hits0:
+        raise SystemExit("phase 11 txn: the repeated read was not a result-cache hit")
+    before = {k: list(v) for k, v in model.items()}
+    s2.execute("BEGIN")
+    check_read(s2, before, "s2's snapshot")
+    s.execute("BEGIN")
+    s.execute("INSERT INTO acct VALUES (100000, 1, 7), (100001, 2, 9)")
+    s.execute("UPDATE acct SET v = v + 1000 WHERE id < 100")
+    s.execute("DELETE FROM acct WHERE id >= 2000 AND id < 2010")
+    s.execute("COMMIT")
+    model[100000], model[100001] = [1, 7], [2, 9]
+    for i in range(100):
+        model[i][1] += 1000
+    for i in range(2000, 2010):
+        del model[i]
+    check_read(s, model, "after COMMIT")
+    check_read(s2, before, "s2 inside its earlier txn")
+    s2.execute("COMMIT")
+    s2.execute("BEGIN")
+    check_read(s2, model, "s2 after its own BEGIN")
+    s2.execute("COMMIT")
+    s.execute("SET tidb_txn_mode = 'optimistic'")
+    s.execute("BEGIN")
+    s.execute("UPDATE acct SET v = v + 1 WHERE id = 1")
+    s2.execute("UPDATE acct SET v = v + 2 WHERE id = 1")
+    model[1][1] += 2
+    try:
+        s.execute("COMMIT")
+        raise SystemExit("phase 11 txn: the optimistic commit over a newer write did not conflict")
+    except SQLError as exc:
+        conflict = str(exc)
+    check_read(s, model, "after the conflict")
+    s.execute("SET tidb_txn_mode = 'pessimistic'")
+    s.execute("BEGIN")
+    s.execute("UPDATE acct SET v = v + 5 WHERE id = 2")
+    try:
+        s2.execute("UPDATE acct SET v = v + 6 WHERE id = 2")
+        raise SystemExit("phase 11 txn: a pessimistic lock did not block a second writer")
+    except SQLError as exc:
+        locked = str(exc)
+    s.execute("COMMIT")
+    model[2][1] += 5
+    check_read(s2, model, "after the pessimistic COMMIT")
+    st = store.stats()
+    if st["oracle_fallbacks"] or st["other_errors"] or st["batch_fallbacks"]:
+        raise SystemExit(f"phase 11 txn: store fell back or failed ({st})")
+    log(f"phase 11 txn: BEGIN / INSERT / UPDATE / DELETE / COMMIT read back after the result cache was warm;"
+        f" an earlier snapshot did not see the commit until its own BEGIN; SQLError on a write conflict"
+        f" ({conflict!r}) and on a held lock ({locked!r})")
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s; store {st}")
+
+
 def main() -> int:
     import torch
 
@@ -2786,6 +3264,8 @@ def main() -> int:
     sizes = dispatch_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, wholes)
     # phase 10: the expression families, the customer table beside lineitem
     expr_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
+    # phase 11: the SQL session over its own store, the tables copied in
+    session_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -55,6 +55,8 @@ def test_import_leaves_jax_unloaded():
         "import tidb_tpu_torch.distsql, tidb_tpu_torch.util.metrics\n"
         "import tidb_tpu_torch.distsql.planner, tidb_tpu_torch.distsql.runaway, tidb_tpu_torch.topsql\n"
         "import tidb_tpu_torch.util.backoff, tidb_tpu_torch.util.failpoint, tidb_tpu_torch.util.tracing\n"
+        "import tidb_tpu_torch.parser, tidb_tpu_torch.sql, tidb_tpu_torch.store.txn, tidb_tpu_torch.config\n"
+        "import tidb_tpu_torch.server, tidb_tpu_torch.tools, tidb_tpu_torch.util.memory, tidb_tpu_torch.util.stmtlog\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -216,3 +218,93 @@ def test_kernel_builds_land_in_an_ignored_directory():
         assert (PKG / src).is_file()
     assert kernels.BUILD_DIR.relative_to(REPO).parts[0] == "build"
     assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+def test_a_session_leaves_jax_unloaded(tmp_path):
+    """The SQL session's lazy imports (inside its functions) run too: DDL,
+    DML in a transaction, a join, a window, a subquery, PREPARE / EXECUTE,
+    LOAD DATA, ANALYZE, SHOW CREATE TABLE and EXPLAIN on the CPU."""
+    csv = tmp_path / "rows.csv"
+    csv.write_text("7,2\n8,4\n")
+    stmts = [
+        "CREATE TABLE t (a BIGINT PRIMARY KEY, b INT)", "BEGIN", "INSERT INTO t VALUES (1, 2), (2, 3)",
+        "UPDATE t SET b = b + 1 WHERE a = 1", "COMMIT", "SELECT x.a, y.b FROM t x JOIN t y ON x.a = y.a",
+        "SELECT a, row_number() OVER (ORDER BY b) FROM t", "SELECT a FROM t WHERE b IN (SELECT b FROM t)",
+        "PREPARE p FROM 'SELECT b FROM t WHERE a = ?'", "SET @x = 1", "EXECUTE p USING @x",
+        f"LOAD DATA INFILE '{csv}' INTO TABLE t FIELDS TERMINATED BY ','", "ANALYZE TABLE t",
+        "SHOW CREATE TABLE t", "EXPLAIN SELECT sum(b) FROM t",
+    ]
+    code = (
+        "import sys\n"
+        "from tidb_tpu_torch.sql import Session\n"
+        "s = Session(device='cpu')\n"
+        f"for q in {stmts!r}:\n"
+        "    s.execute(q)\n"
+        "assert s.execute('SELECT count(*) FROM t').scalar() == 4\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("how", ["no_args", "store_none"])
+def test_session_defaults_to_cuda_and_raises_without_it(how, monkeypatch):
+    from tidb_tpu_torch.sql import Session
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Session() if how == "no_args" else Session(store=None)
+    s = Session(device="cpu")
+    assert s.store.device.type == "cpu"
+
+
+NOT_PORTED = {
+    "CREATE CHANGEFEED f INTO 'memory://'": "CREATE CHANGEFEED",
+    "PAUSE CHANGEFEED f": "PAUSE CHANGEFEED",
+    "RESUME CHANGEFEED f": "RESUME CHANGEFEED",
+    "DROP CHANGEFEED f": "DROP CHANGEFEED",
+    "BACKUP DATABASE * TO 'file:///nowhere'": "BACKUP",
+    "RESTORE DATABASE * FROM 'file:///nowhere'": "RESTORE",
+    "BACKUP LOG TO 'file:///nowhere'": "BACKUP LOG",
+    "ALTER TABLE t SET COLUMNAR REPLICA 1": "SET COLUMNAR REPLICA",
+}
+
+
+@pytest.mark.parametrize("sql", list(NOT_PORTED))
+def test_seams_raise_not_ported(sql):
+    """A statement of a subsystem the port does not have fails with
+    SQLError 1105; it neither succeeds silently nor leaks a Python error,
+    and the session goes on working."""
+    from tidb_tpu_torch.sql import Session, SQLError
+
+    s = Session(device="cpu")
+    s.execute("CREATE TABLE t (a BIGINT PRIMARY KEY)")
+    with pytest.raises(SQLError, match=f"{NOT_PORTED[sql]} is not ported") as ei:
+        s.execute(sql)
+    assert ei.value.code == 1105
+    s.execute("INSERT INTO t VALUES (1)")
+    assert s.execute("SELECT count(*) FROM t").scalar() == 1
+
+
+def test_seams_decline_and_swallow_no_error():
+    """The read-side seams decline (the row store serves; no rows of a
+    subsystem that is not there) with the statement tiers switched on,
+    and an error of the statement itself still reaches the caller."""
+    from tidb_tpu_torch.sql import CatalogError, PlanError, Session, seams
+
+    assert seams.columnar_would_serve(None, None, [], ("tpu", "columnar")) is False
+    assert seams.try_mpp_select(None, None, [], 1) is None and seams.try_mesh_select(None, None, [], 1) is None
+    s = Session(device="cpu")
+    for q in ("SET tidb_enable_tpu_mesh = 1", "SET tidb_allow_mpp = 1",
+              "SET tidb_isolation_read_engines = 'tpu,columnar'"):
+        s.execute(q)
+    s.execute("CREATE TABLE t (a BIGINT PRIMARY KEY, g INT)")
+    s.execute("INSERT INTO t VALUES (1, 1), (2, 1), (3, 2)")
+    assert s.execute("SELECT g, count(*) FROM t GROUP BY g ORDER BY g").values() == [[1, 2], [2, 1]]
+    for kind in ("CHANGEFEEDS", "COLUMNAR TABLES", "BACKUP LOGS"):
+        assert s.execute(f"SHOW {kind}").rows == []
+    with pytest.raises(CatalogError):
+        s.execute("SELECT * FROM missing")
+    with pytest.raises(PlanError):
+        s.execute("SELECT nope FROM t")

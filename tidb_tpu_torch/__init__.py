@@ -23,6 +23,12 @@ module's counterpart is easy to find:
                    by coprocessor(req) and coprocessor_bytes (wire bytes)
   interop.py       numpy column arrays -> DeviceBatch (feeds both packages
                    identical batches in the tests)
+  distsql/         the dispatch loop and execute_root (push half per
+                   region, root merge on the device)
+  parser/, sql/, store/txn.py
+                   the SQL session (sql.Session): parser, planner, plan
+                   cache and Percolator transactions over execute_root;
+                   sql/seams.py answers for what is not ported yet
 
 Every entry point takes an explicit `device` (default "cuda") and raises
 when CUDA is absent; the tests pass device="cpu". Dtypes are explicit:

@@ -15,9 +15,12 @@ execution tier by data size and topology.
           store serves it in its batched tier, as the reference's store
           does when its mesh tier declines.
 
-Left out, beside the reference: `choose_statement_tier`, which picks the
-MPP and whole-statement mesh tiers above execute_root (it needs the
-parallel package). The device count comes from torch.cuda.
+`choose_statement_tier` answers the SQL session's statement-level
+question above execute_root. The reference picks its MPP or whole-statement
+mesh tier there on two or more devices; the port has neither (the parallel
+and mpp packages are not ported), so every statement takes the "root"
+tier, which is where the reference lands when both decline. The device
+count comes from torch.cuda.
 """
 
 from __future__ import annotations
@@ -98,6 +101,19 @@ def estimated_rows(store) -> int:
         return len(store.kv)
     except Exception:  # noqa: BLE001 — a stats miss must never fail dispatch
         return 0
+
+
+def choose_statement_tier(dag, *, allow_mpp: bool, allow_mesh: bool,
+                          columnar_routed) -> TierDecision:
+    """Statement-level tier pick above execute_root's per-request tiers
+    (port of tidb_tpu/distsql/planner.py choose_statement_tier). Below two
+    devices, or with the mesh switched off, the reference answers "root";
+    on more devices it asks its mesh shape gate (parallel/sql.py
+    mesh_eligible) for an "mpp" or "mesh" tier, whose selects the port
+    does not have, so the port answers "root" on any device count:
+    execute_root owns dispatch. The arguments keep the reference's
+    signature."""
+    return TierDecision("root")
 
 
 def choose_tier(store, req, tasks) -> TierDecision:

@@ -12,7 +12,8 @@ from .dag import (
     collect_scans,
 )
 from .builder import build_program, ProgramCache, CompiledDAG
-from .executor import OverflowRetryError, drive_program_info, run_dag_on_chunk, run_dag_on_chunks
+from .executor import (OverflowRetryError, drive_program_info, run_dag_on_chunk, run_dag_on_chunks,
+                       run_dag_reference)
 
 __all__ = [
     "Aggregation",
@@ -32,5 +33,6 @@ __all__ = [
     "drive_program_info",
     "run_dag_on_chunk",
     "run_dag_on_chunks",
+    "run_dag_reference",
     "OverflowRetryError",
 ]

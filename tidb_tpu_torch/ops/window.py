@@ -33,6 +33,13 @@ from ..expr.compile import I64_MIN, CompVal, _round_div
 from .keys import lexsort, sort_key_arrays
 from .seg import I64_MAX
 
+# the window functions window_cols handles, by family (the SQL planner
+# checks a call's name against WINDOW_FUNCS)
+RANK_FUNCS = frozenset({"row_number", "rank", "dense_rank", "percent_rank", "cume_dist", "ntile"})
+GATHER_FUNCS = frozenset({"first_value", "last_value", "nth_value", "lead", "lag"})
+AGG_FUNCS = frozenset({"sum", "avg", "count", "min", "max"})
+WINDOW_FUNCS = RANK_FUNCS | GATHER_FUNCS | AGG_FUNCS
+
 
 def _seg_running_sum(x: torch.Tensor, start: torch.Tensor) -> torch.Tensor:
     """Inclusive running sum within segments; `start` = each row's segment

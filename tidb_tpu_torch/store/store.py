@@ -20,11 +20,20 @@ bucket of regions runs ONE execution of the region-batched program
 (drive_batched_program_info); a lane whose flags fired, and a whole
 bucket on any error, take the single-request path.
 
+The store also carries the SQL session's write side: the Percolator
+engine (`txn`, store/txn.py; every commit bumps the write version, which
+drops the result cache), the registry of open snapshots that bounds MVCC
+GC (`register_snapshot`, `run_gc`, `gc_safepoint`), `advance_tso`,
+`ping_store` and the admission gate (server/admission.py).
+
 Left out, beside the reference: the mesh tier (a request with `mesh` set
 takes the batched tier, as the reference does when its mesh tier
 declines), replica reads (a follower read answers other_error),
 failpoints, metrics (the batched tier's counts are in stats()), Top SQL
-and PD flow recording, and the write path's quorum and CDC guards.
+and PD flow recording, and the write path's quorum and CDC guards: the
+engine's replication, quorum, CDC and group-commit hooks are None, and
+the two the bulk loader calls itself (`_check_write_quorum`,
+`record_applied_writes`) do nothing.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from ..runtime import resolve_device
 from ..types import Datum
 from .kv import MemKV
 from .region import Cluster, Region
+from .txn import TxnEngine
 
 
 @dataclass(frozen=True)
@@ -187,8 +197,14 @@ class TPUStore:
         self.kv = MemKV()
         self.cluster = Cluster()
         self.programs = ProgramCache()
+        # Percolator 2PC; a commit bumps the write version (and so drops
+        # the result cache) as put_row does. The reference's replication,
+        # quorum, CDC and group-commit hooks have no subsystem here.
+        self.txn = TxnEngine(self.kv, on_commit=self._bump_write_ver)
         self._tso = itertools.count(100)  # guarded_by: _tso_lock
         self._tso_lock = threading.Lock()
+        self._active_snapshots: dict[int, int] = {}  # guarded_by: _tso_lock
+        self.gc_safepoint = -1  # the newest safepoint run_gc collected at
         self._write_ver = 0  # guarded_by: _cop_lock
         self._chunk_cache: dict = {}
         self._batch_cache: dict = {}
@@ -208,8 +224,12 @@ class TPUStore:
         # every dispatch thread on this store (runtime import: the distsql
         # layer imports this module at load time)
         from ..distsql.dispatch import BreakerBoard
+        from ..server.admission import AdmissionGate
 
         self.breakers = BreakerBoard()
+        # admission control: one gate per store, fully open until a
+        # session's Config configures it
+        self.admission = AdmissionGate()
         self._stats = dict.fromkeys(STAT_KEYS, 0)  # guarded_by: _stats_lock
         self._stats_lock = threading.Lock()
 
@@ -242,6 +262,11 @@ class TPUStore:
         with self._down_lock:
             return set(self._down_stores)
 
+    def ping_store(self, store_id: int) -> bool:
+        """Store liveness probe: False while the store is switched down
+        (the port has no failpoints, so set_down is the only switch)."""
+        return not self.store_down(store_id)
+
     def evict_caches(self) -> None:
         """Drop the decoded-chunk, device-batch, build-side and result
         caches (the next request of each region decodes and uploads anew)."""
@@ -263,12 +288,50 @@ class TPUStore:
         with self._tso_lock:
             return next(self._tso)
 
+    def advance_tso(self, ts: int) -> None:
+        """Fast-forward the TSO past `ts` (a no-op when the clock is
+        already ahead)."""
+        with self._tso_lock:
+            self._tso = itertools.count(max(next(self._tso), ts + 1))
+
+    def register_snapshot(self, start_ts: int) -> None:
+        """An open transaction pins its snapshot: GC never collects at or
+        above the oldest registered start_ts (ref: gc_worker.go
+        calcSafePointByMinStartTS)."""
+        with self._tso_lock:
+            self._active_snapshots[start_ts] = self._active_snapshots.get(start_ts, 0) + 1
+
+    def unregister_snapshot(self, start_ts: int) -> None:
+        with self._tso_lock:
+            n = self._active_snapshots.get(start_ts, 0) - 1
+            if n <= 0:
+                self._active_snapshots.pop(start_ts, None)
+            else:
+                self._active_snapshots[start_ts] = n
+
+    def run_gc(self, safepoint: int | None = None) -> int:
+        """MVCC GC pass (ref: gc_worker.go): the safepoint is clamped
+        strictly below every registered snapshot and every lock holder's
+        start_ts. Default safepoint = the current TSO (keep only the latest
+        committed version of each key). Returns the versions removed."""
+        sp = safepoint if safepoint is not None else self.next_ts()
+        with self._tso_lock:
+            for ts in self._active_snapshots:
+                sp = min(sp, ts - 1)
+        with self.txn._mu:
+            for l in self.txn.locks.values():
+                sp = min(sp, l.start_ts - 1)
+        self.gc_safepoint = max(self.gc_safepoint, sp)
+        return self.kv.gc(sp)
+
     def _bump_write_ver(self):
         # every cache key embeds the old write version, so no entry can
-        # serve stale data; the clear drops the dead result entries
+        # serve stale data; the clears drop the dead entries
         with self._cop_lock:
             self._write_ver += 1
             self._cop_cache.clear()
+            self._chunk_cache.clear()
+            self._batch_cache.clear()
 
     def _snapshot_write_ver(self) -> int:
         """Locked read of the store write version — the pre-read snapshot
@@ -292,31 +355,41 @@ class TPUStore:
 
     def bulk_ingest(self, items, ts: int) -> None:
         """Apply (key, value) pairs at commit ts `ts` in one critical section
-        (the apply of TxnEngine.bulk_ingest, tidb_tpu/store/txn.py:264; this
-        store has no lock table to check)."""
-        with self.kv.lock:
-            for k, v in items:
-                self.kv.put(k, v, ts)
+        (TxnEngine.bulk_ingest: raises KeyIsLocked, applying nothing, when a
+        live transaction holds one of the keys)."""
+        self.txn.bulk_ingest(list(items), ts)
         self._bump_write_ver()
+
+    def _check_write_quorum(self, keys) -> None:
+        """The reference's write-quorum gate before a bulk apply. The port
+        has no replication, so every write has its quorum: nothing to do."""
+
+    def record_applied_writes(self, items, ts: int | None = None) -> None:
+        """The reference's write-flow, replication and CDC feed after a
+        bulk apply. The port has none of them: nothing to do."""
 
     # -- scan/decode with caching -------------------------------------------
     def region_chunk(self, region: Region, ranges: list, dag: DAGRequest, start_ts: int) -> Chunk:
         """Rows of `region` ∩ `ranges` decoded to a columnar chunk.
 
-        Cache key includes the store write version: any write invalidates
-        (coarse, but correct; per-region versions later)."""
+        Cached by the store write version (any write invalidates: coarse,
+        but correct) under the result cache's snapshot rule
+        (`_snapshot_cache_get` / `_snapshot_cache_put`), so later snapshots
+        reuse a decode. The reference keys this cache by the exact start_ts,
+        which a SQL session, drawing a new one for every statement, never
+        repeats."""
         scan = dag.scan()
         col_ids = tuple(c.col_id for c in scan.columns)
+        write_ver = self._snapshot_write_ver()
         rkey = (
             region.region_id,
             region.epoch,
-            self._snapshot_write_ver(),
-            start_ts,
+            write_ver,
             scan.table_id,
             col_ids,
             tuple((r.start, r.end) for r in ranges),
         )
-        cached = self._chunk_cache.get(rkey)
+        cached = self._snapshot_cache_get(self._chunk_cache, rkey, start_ts)
         if cached is not None:
             return cached
         self._count("chunk_decodes")
@@ -334,8 +407,28 @@ class TPUStore:
                 if row is not None:
                     rows.append(row)
             ch = Chunk.from_rows(fts, rows)
-        self._chunk_cache[rkey] = ch
+        self._snapshot_cache_put(self._chunk_cache, rkey, ch, start_ts, write_ver)
         return ch
+
+    @staticmethod
+    def _snapshot_cache_get(cache: dict, key, start_ts: int):
+        """A decoded region (or its device batch) cached by data version:
+        served to any snapshot at or after the one it was read at."""
+        ent = cache.get(key)
+        if ent is None or start_ts < ent[1]:
+            return None
+        return ent[0]
+
+    def _snapshot_cache_put(self, cache: dict, key, value, start_ts: int, write_ver: int) -> None:
+        """File a region read at `start_ts` under its data version, as
+        _cop_cache_put files a response: only when no write landed since
+        `write_ver` was read and the snapshot sees every committed version,
+        so the value is what every later snapshot of this write version
+        reads."""
+        with self._cop_lock:
+            if write_ver != self._write_ver or start_ts < self.kv.max_committed():
+                return
+        cache[key] = (value, start_ts)
 
     def _scan_region_kvs(self, region: Region, ranges: list, start_ts: int):
         """(key, value) pairs of region ∩ ranges at the snapshot — the one
@@ -434,25 +527,25 @@ class TPUStore:
     def region_device_batch(self, region: Region, ranges, dag: DAGRequest, start_ts: int, capacity: int | None = None) -> DeviceBatch:
         """The region chunk as a capacity-padded DeviceBatch on the store's
         device, uploaded once per region version."""
+        write_ver = self._snapshot_write_ver()
         ch = self.region_chunk(region, ranges, dag, start_ts)
         cap = capacity or _pow2(max(ch.num_rows(), 1))
         scan = dag.scan()
         bkey = (
             region.region_id,
             region.epoch,
-            self._snapshot_write_ver(),
-            start_ts,
+            write_ver,
             scan.table_id,
             tuple(c.col_id for c in scan.columns),
             tuple((r.start, r.end) for r in ranges),
             cap,
         )
-        cached = self._batch_cache.get(bkey)
+        cached = self._snapshot_cache_get(self._batch_cache, bkey, start_ts)
         if cached is not None:
             return cached
         batch = to_device_batch(ch, capacity=cap, device=self.device)
         self._count("device_uploads")
-        self._batch_cache[bkey] = batch
+        self._snapshot_cache_put(self._batch_cache, bkey, batch, start_ts, write_ver)
         return batch
 
     def _chunk_token(self, chunk: Chunk) -> int:

@@ -172,10 +172,28 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      DELETE / COMMIT read back through the coprocessor after the result
      cache was warm, a second session's earlier snapshot blind to the
      commit until its own BEGIN, SQLError on a write conflict and on a
-     held lock (with --profile, a host profile of q22_cntry's batch).
+     held lock (with --profile, a host profile of q22_cntry's batch);
+ 12. the device mesh: a TPUStore(mesh_devices=["cuda:0"] * 4) (four
+     shards of one card) holding phase 11's lineitem and orders (their
+     encoded pairs through bulk_ingest, lineitem in phase 9's regions);
+     through execute_root on its mesh tier Q6 (a sum across shards), Q1
+     (hint 16: K1 once a shard), BIT_AND / OR / XOR with an unsigned MIN /
+     MAX (the gather and sign-flip merges), phase 9's Q3 (K2 and K3 once a
+     shard) and the TopN, each equal to numpy and to the batch tier, the
+     push half's batch_stats one mesh batch over every region, no mesh
+     fallback; then a Session over that store, its mesh select (the hash
+     exchange) for TPC-H Q1's GROUP BY, GROUP BY l_orderkey (514,729
+     groups), a grouped COUNT(DISTINCT) (the raw-row exchange) and
+     lineitem JOIN orders grouped by o_orderdate (the shuffle join), each
+     equal to numpy and counted by MESH_SELECTS, the ladder's rung and the
+     exchange's bytes and bucket capacities printed; and the join 1:32
+     (a 2^16-row build, 700 groups) through parallel.sql.try_mesh_select
+     with its radix plan and K4's launches; median host ms of 3 runs on the
+     mesh and on the batch tier (with --profile, the device busy share of
+     the mesh Q1 and the session join).
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6-11); the last line is {"ok": true,
+the main paths of phases 4 and 6-12); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
@@ -2185,12 +2203,10 @@ def _scaled(d, scale: int) -> int:
     return int(v)
 
 
-def numpy_sql(t, cust, orders, T) -> dict:
-    """The exact answers of SESSION_STATEMENTS over the generated columns,
-    in session_answer's form."""
+def numpy_session_q1(t, T) -> dict:
+    """Q1_SELECT's exact answer in session_answer's form."""
     import numpy as np
 
-    out = {}
     m = t["shipdate"] <= T.MyTime.parse("1998-09-02", 0).packed
     gid = (t["rflag"].astype(np.int64) * 2 + t["lstat"].astype(np.int64))[m]
     qty, price, disc = t["qty"][m], t["price"][m], t["disc"][m]
@@ -2202,7 +2218,16 @@ def numpy_sql(t, cust, orders, T) -> dict:
         q1[("ANR"[g // 2], "OF"[g % 2])] = [sq, sp, int((price[s] * (100 - disc[s])).sum()),
                                             round_div(sq * 10 ** 4, cnt), round_div(sp * 10 ** 4, cnt),
                                             round_div(sd * 10 ** 4, cnt), cnt]
-    out["q1"] = out["q1_ordered"] = q1
+    return q1
+
+
+def numpy_sql(t, cust, orders, T) -> dict:
+    """The exact answers of SESSION_STATEMENTS over the generated columns,
+    in session_answer's form."""
+    import numpy as np
+
+    out = {}
+    out["q1"] = out["q1_ordered"] = numpy_session_q1(t, T)
     out["q6"] = numpy_q6(t, T)[0]
     okey, o_date = orders
     cut = T.MyTime.parse("1995-03-15", 0).packed
@@ -2294,8 +2319,9 @@ class SessionSplit:
         return out, total, parse, total - parse - root, root
 
 
-def session_phase(old, E, X, T, W, counters, profile: bool, card: str, line_sizes: list) -> None:
-    """Phase 11: the SQL session on the card (see the module docstring)."""
+def session_phase(old, E, X, T, W, counters, profile: bool, card: str, line_sizes: list):
+    """Phase 11: the SQL session on the card (see the module docstring).
+    Returns the session (phase 12 copies its tables)."""
     import numpy as np
 
     import tidb_tpu_torch.exec as EXP
@@ -2534,6 +2560,401 @@ def session_phase(old, E, X, T, W, counters, profile: bool, card: str, line_size
         f" an earlier snapshot did not see the commit until its own BEGIN; SQLError on a write conflict"
         f" ({conflict!r}) and on a held lock ({locked!r})")
     log(f"phase 11: {time.perf_counter() - t0:.1f} s; store {st}")
+    return s
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the device mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4                 # shards of one card: mesh_devices = ["cuda:0"] * 4
+MESH_REPS = 3
+MESH_Q3_GROUPS = 1 << 17        # Q3's 70,670 groups at 2^21 rows: the store's group capacity for its frame
+MESH_OKEY_GROUPS = 1 << 19      # GROUP BY l_orderkey's 514,729 groups (and a shard's Partial1 table)
+MESH_JOIN_BUILD = 1 << 16       # the join 1:32's build: the first 2^16 order keys
+MESH_JOIN_GROUPS = JOIN_GROUPS  # its payload's groups (bench.py's ladder section)
+MESH_SESSION = {
+    # name: (statement, tidb_tpu_group_capacity); no ORDER BY, whose Sort
+    # keeps a plan off the mesh select
+    "q1": (Q1_SELECT.format(d="'1998-09-02'"), 4096),
+    "okey": ("SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)), count(*) FROM lineitem"
+             " GROUP BY l_orderkey", MESH_OKEY_GROUPS),
+    "distinct": ("SELECT l_returnflag, l_linestatus, count(DISTINCT l_orderkey), count(*) FROM lineitem"
+                 " GROUP BY l_returnflag, l_linestatus", MESH_OKEY_GROUPS),
+    "join": ("SELECT o_orderdate, count(*), sum(l_extendedprice) FROM lineitem JOIN orders"
+             " ON l_orderkey = o_orderkey GROUP BY o_orderdate", 4096),
+}
+
+
+def bitu_statement(E, X, T, W, tid: int):
+    """BIT_AND / BIT_OR / BIT_XOR(l_orderkey), MIN / MAX of an unsigned
+    BIGINT (l_orderkey with its low bit moved to the top bit: half the
+    values above 2^63) and COUNT(*), no GROUP BY: on the mesh tier its
+    partial states merge by a gather (the bit states) and in the
+    sign-flipped domain (the unsigned extremes)."""
+    LL, ULL = T.new_longlong(notnull=True), T.new_longlong(unsigned=True)
+    scan = E.TableScan(tid, (E.ColumnInfo(W.LINEITEM_COL_IDS["okey"], LL),))
+    okey = X.col(0, LL)
+    top = X.func("shiftleft", ULL, X.func("bitand", ULL, okey, X.lit(1, LL)), X.lit(63, LL))
+    u = X.func("bitxor", ULL, okey, top)
+    A = X.AggDesc
+    aggs = (A("bit_and", (okey,)), A("bit_or", (okey,)), A("bit_xor", (okey,)), A("min", (u,)), A("max", (u,)),
+            A("count", ()))
+    return E.DAGRequest((scan, E.Aggregation(group_by=(), aggs=aggs)), output_offsets=tuple(range(len(aggs))))
+
+
+def numpy_bitu(t) -> list:
+    import numpy as np
+
+    okey = t["okey"]
+    u = okey.astype(np.uint64) ^ ((okey & 1).astype(np.uint64) << np.uint64(63))
+    m64 = (1 << 64) - 1
+    return [int(np.bitwise_and.reduce(okey)) & m64, int(np.bitwise_or.reduce(okey)) & m64,
+            int(np.bitwise_xor.reduce(okey)) & m64, int(u.min()), int(u.max()), len(okey)]
+
+
+def decoded_bitu(chunk) -> list:
+    return [int(c.data[0]) & ((1 << 64) - 1) for c in chunk.columns]
+
+
+def chunk_values(chunk) -> list:
+    """A chunk's rows as plain values (the mesh and batch answers compared)."""
+    return [tuple(None if d.is_null() else str(d.val) for d in r) for r in chunk.rows()]
+
+
+def mesh_phase(src, E, X, T, W, counters, profile: bool, card: str, line_sizes: list) -> None:
+    """Phase 12: the device mesh on the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    import tidb_tpu_torch.chunk as C
+    import tidb_tpu_torch.exec.executor as EX
+    from tidb_tpu_torch import codec
+    from tidb_tpu_torch.distsql import KVRequest, execute_root, full_table_ranges, select, split_dag
+    from tidb_tpu_torch.mpp import dispatch as mppd
+    from tidb_tpu_torch.parallel.sql import try_mesh_select
+    from tidb_tpu_torch.sql import Session
+    from tidb_tpu_torch.store import CopRequest, TPUStore
+    from tidb_tpu_torch.util import metrics, tracing
+
+    t0 = time.perf_counter()
+    lead = torch.device(DEVICE, 0) if torch.device(DEVICE).type == "cuda" else torch.device(DEVICE)
+    shards = [str(lead)] * MESH_SHARDS
+    store = TPUStore(device=DEVICE, mesh_devices=shards)
+    tids = {name: src.catalog.table(name).table_id for name in ("lineitem", "orders")}
+    bounds = np.cumsum(line_sizes)[:-1].tolist()
+    for name, handles in (("lineitem", bounds), ("orders", [SESSION_ORDERS // 2])):
+        store.cluster.split(codec.record_prefix(tids[name]))
+        for h in handles:
+            store.cluster.split(codec.encode_row_key(tids[name], h))
+    # the session store's encoded pairs, through bulk_ingest (no re-encoding)
+    n_line = copy_table(src.store, tids["lineitem"], store, tids["lineitem"])
+    n_ord = copy_table(src.store, tids["orders"], store, tids["orders"])
+    if (n_line, n_ord) != (STORE_ROWS, SESSION_ORDERS):
+        raise SystemExit(f"phase 12: copied {n_line} lineitem and {n_ord} orders rows")
+    regions = len(line_sizes)
+    lanes = -(-regions // MESH_SHARDS) * MESH_SHARDS
+    log(f"phase 12 load: lineitem {n_line} rows in {regions} regions (padded to {lanes} lanes, {lanes // MESH_SHARDS}"
+        f" a shard) and orders {n_ord} rows copied into a TPUStore(mesh_devices={shards}) in"
+        f" {time.perf_counter() - t0:.2f} s")
+
+    t = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
+    tid = tids["lineitem"]
+    ranges = full_table_ranges(tid)
+
+    def rebind(dag):
+        """A workloads DAG over the catalog's lineitem table (its column ids
+        are the workloads' own)."""
+        import dataclasses
+
+        sc = dag.executors[0]
+        return dataclasses.replace(dag, executors=(dataclasses.replace(sc, table_id=tid),) + tuple(dag.executors[1:]))
+
+    stmts = W.store_statements(E, X, T)
+    shifts = statement_shifts(E, T, stmts)
+    dags = W.store_dags(E, X, T)
+    q3_dag, q3_fts = dags["q3"]
+    q3_build = W.store_q3_build_columns(STORE_ORDERS, STORE_CUSTOMERS)
+    q3_aux = [W.make_chunk(C, f, c) for c, f in zip(q3_build, q3_fts)]
+    revenue = X.col(0, q3_dag.executors[-1].aggs[0].ft)
+    q3_top = E.DAGRequest(q3_dag.executors + (E.TopN(order_by=((revenue, True),), limit=10),),
+                          output_offsets=q3_dag.output_offsets)
+    q3_want = numpy_q3([[W.fixed_col(t[k]) for k in ("okey", "price", "disc", "shipdate")]] + q3_build, T)
+    entries = [("q6", rebind(stmts["q6"]), {}), ("q1", rebind(stmts["q1"]), {"small_groups": G}),
+               ("bitu", bitu_statement(E, X, T, W, tid), {}),
+               ("q3", rebind(q3_top), {"aux_chunks": q3_aux, "group_capacity": MESH_Q3_GROUPS}),
+               ("topn", rebind(dags["topn"][0]), {})]
+    # execute_root's push requests run at the store's default group
+    # capacity (4096, as in the JAX package); Q3's 70,670 groups overflow
+    # the mesh merge there and the store would degrade the group to the
+    # batch tier. Its push half goes as one frame at MESH_Q3_GROUPS.
+    framed = {"q3"}
+    line_regions = store.cluster.regions_in_range(ranges[0].start, ranges[0].end)
+    if len(line_regions) != regions:
+        raise SystemExit(f"phase 12: {len(line_regions)} lineitem regions, not {regions}")
+    need = {"q1": ("dense_agg",), "q3": ("postsort_segscan", "membership_segscan")}
+    ts = store.next_ts()
+
+    def answer(name, out) -> str:
+        if name == "topn":
+            check_rows(f"phase 12 {name}", out, numpy_order(t["price"], t["shipdate"], TOPN_K), t["price"],
+                       t["shipdate"])
+            return f"the first {TOPN_K} rows"
+        if name == "q3":
+            got = decoded_q3(out)
+            top = sorted(q3_want.values(), reverse=True)[:10]
+            if sorted(got.values(), reverse=True) != top or any(q3_want.get(k) != v for k, v in got.items()):
+                raise SystemExit(f"phase 12 q3: the top 10 differ from numpy ({got})")
+            return f"the top 10 of {len(q3_want)} groups"
+        if name == "bitu":
+            if decoded_bitu(out) != numpy_bitu(t):
+                raise SystemExit(f"phase 12 bitu: {decoded_bitu(out)} != numpy {numpy_bitu(t)}")
+            return "BIT_AND / OR / XOR, unsigned MIN / MAX, count"
+        if decoded_statement(name, out) != numpy_statement(name, t, shifts):
+            raise SystemExit(f"phase 12 {name}: the answer differs from numpy")
+        return "(sum, count)" if name == "q6" else f"{out.num_rows()} groups"
+
+    oracle_calls = [0]
+    real_oracle = EX.run_dag_reference
+
+    def counted_oracle(*a, **k):
+        oracle_calls[0] += 1
+        return real_oracle(*a, **k)
+
+    def clean(what, st0, o0, f0):
+        st = store.stats()
+        if any(st[k] != st0[k] for k in ("oracle_fallbacks", "other_errors", "batch_fallbacks", "mesh_fallbacks")):
+            raise SystemExit(f"phase 12 {what}: an oracle answer, an other_error or a fallback ({st})")
+        if metrics.MESH_COP_FALLBACKS.value != f0:
+            raise SystemExit(f"phase 12 {what}: MESH_COP_FALLBACKS moved by {metrics.MESH_COP_FALLBACKS.value - f0}")
+        if oracle_calls[0] != o0:
+            raise SystemExit(f"phase 12 {what}: the root's row oracle ran {oracle_calls[0] - o0} times")
+
+    def run(dag, extra, mesh: bool, name=""):
+        store.clear_result_cache()
+        if name in framed:
+            # the push half as one batch frame (mesh-marked or not) at the
+            # statement's group capacity, the root half on the card
+            gc = extra["group_capacity"]
+            plan = split_dag(dag)
+            reqs = [CopRequest(plan.push_dag, ranges, ts, r.region_id, r.epoch, list(extra.get("aux_chunks", [])),
+                               small_groups=extra.get("small_groups"), mesh=mesh) for r in line_regions]
+            resps = store.batch_coprocessor(reqs, group_capacity=gc)
+            if any(x.chunk is None for x in resps):
+                raise SystemExit(f"phase 12 {name}: {[x.other_error or x.region_error for x in resps]}")
+            if mesh and [x.mesh_merged for x in resps] != [len(reqs)] * len(reqs):
+                raise SystemExit(f"phase 12 {name}: mesh_merged {[x.mesh_merged for x in resps]}")
+            return EX.run_dag_on_chunks(plan.root_dag, [C.Chunk.concat([x.chunk for x in resps])], group_capacity=gc,
+                                        device=store.device, oracle_fallback=False)
+        tier = {"mesh": True} if mesh else {"mesh": False, "batch_cop": True}
+        return execute_root(store, dag, ranges, ts, **extra, **tier)
+
+    def timed(fn, first=None):
+        """(median ms of MESH_REPS runs, the first run's result); the first
+        run is `first` (the checked main-path run) when given."""
+        ms, out = [], None
+        for i in range(MESH_REPS):
+            t1 = time.perf_counter()
+            res = (first if i == 0 and first is not None else fn)()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            out = res if i == 0 else out
+        return statistics.median(ms), out
+
+    EX.run_dag_reference = counted_oracle
+    try:
+        # the store's mesh tier through execute_root
+        for name, dag, extra in entries:
+            t1 = time.perf_counter()
+            st0, o0, f0 = store.stats(), oracle_calls[0], metrics.MESH_COP_FALLBACKS.value
+            how = "one push frame + the root merge" if name in framed else "execute_root"
+            out = counters.path(f"{how} {name} mesh", lambda: run(dag, extra, True, name), need=need.get(name, ()),
+                                phase=12)
+            st1 = store.stats()
+            for k in need.get(name, ()):
+                require_launches(f"phase 12 {name} {k}, once per shard", counters.last[k], MESH_SHARDS)
+            if (st1["mesh_batches"] - st0["mesh_batches"], st1["mesh_lanes"] - st0["mesh_lanes"]) != (1, regions):
+                raise SystemExit(f"phase 12 {name}: mesh batches / lanes {st0} -> {st1}, not 1 / {regions}")
+            what = answer(name, out)
+            clean(f"{name} mesh", st0, o0, f0)
+            batch = run(dag, extra, False, name)
+            answer(name, batch)
+            if chunk_values(batch) != chunk_values(out):
+                raise SystemExit(f"phase 12 {name}: the mesh tier's answer differs from the batch tier's")
+            bs = None
+            if name not in framed:
+                plan = split_dag(dag)
+                store.clear_result_cache()
+                res = select(store, KVRequest(plan.push_dag, ranges, ts, small_groups=extra.get("small_groups"),
+                                              aux_chunks=extra.get("aux_chunks", [])))
+                bs = res.batch_stats
+                if bs["mesh_batches"] < 1 or bs["mesh_lanes"] != regions:
+                    raise SystemExit(f"phase 12 {name}: the push half's batch_stats {bs}")
+            ms_mesh = timed(lambda: run(dag, extra, True, name))[0]
+            ms_batch = timed(lambda: run(dag, extra, False, name))[0]
+            clean(f"{name} timed", st0, o0, f0)
+            log(f"phase 12 {name} ({time.perf_counter() - t1:.1f} s): {how} over {regions} regions on {MESH_SHARDS}"
+                f" shards -> {what} == numpy"
+                f" == the batch tier; batch_stats {bs}; median of {MESH_REPS}: mesh {ms_mesh:.3f} ms, batch"
+                f" {ms_batch:.3f} ms [{card}]")
+            if profile and name == "q1":
+                profile_path("phase 12 q1 on the mesh tier", lambda: run(dag, extra, True, name), ms_mesh)
+        if torch.cuda.device_count() > 1:
+            # the default list, every visible card: Q1 over peer copies
+            wide = TPUStore(device=DEVICE)
+            wide.cluster.split(codec.record_prefix(tid))
+            for h in bounds:
+                wide.cluster.split(codec.encode_row_key(tid, h))
+            copy_table(store, tid, wide, tid)
+            q1, q1_extra = entries[1][1], entries[1][2]
+            width = min(len(wide.mesh_devices), regions)
+            t1 = time.perf_counter()
+            out = counters.path("execute_root q1 on the default mesh",
+                                lambda: execute_root(wide, q1, ranges, wide.next_ts(), mesh=True, **q1_extra),
+                                need=need["q1"], phase=12)
+            ms = (time.perf_counter() - t1) * 1e3
+            require_launches("phase 12 q1 on the default mesh dense_agg, once per card", counters.last["dense_agg"],
+                             width)
+            if wide.stats()["mesh_batches"] != 1 or wide.stats()["mesh_fallbacks"]:
+                raise SystemExit(f"phase 12 q1 on the default mesh: {wide.stats()}")
+            log(f"phase 12 q1 on the default mesh ({len(wide.mesh_devices)} cards visible, {width} wide):"
+                f" {answer('q1', out)} == numpy in {ms:.3f} ms (one run, the program built) [{card}]")
+        else:
+            log("phase 12: one card visible: the default mesh (every visible card) is 1 wide and declines; the"
+                f" {MESH_SHARDS} shards above share it")
+
+        # the session's mesh select
+        s = Session(store=store, catalog=src.catalog, device=DEVICE)
+        _okey, _ocust, odate = (c[0] for c in W.store_q3_build_columns(SESSION_ORDERS, SESSION_CUSTOMERS)[0])
+        want = session_mesh_answers(t, odate, T)
+        for name, (sql, gc) in MESH_SESSION.items():
+            s.execute(f"SET tidb_tpu_group_capacity = {gc}")
+
+            def on_mesh(sql=sql):
+                store.clear_result_cache()
+                m0 = metrics.MESH_SELECTS.value
+                res = s.execute(sql)
+                if metrics.MESH_SELECTS.value != m0 + 1:
+                    raise SystemExit(f"phase 12 {name}: MESH_SELECTS moved by {metrics.MESH_SELECTS.value - m0}")
+                return res
+
+            def first_on_mesh(sql=sql, name=name):
+                # the main path: counters zeroed around it, its exchanges
+                # read from the trace's spans
+                with tracing.trace(f"session {name}") as root:
+                    res = counters.path(f"session {name} mesh select", on_mesh, phase=12)
+                moved.update(exchange_spans(root))
+                return res
+
+            t1 = time.perf_counter()
+            st0, o0, f0 = store.stats(), oracle_calls[0], metrics.MESH_COP_FALLBACKS.value
+            moved = {}
+            # the first run of each tier is checked against numpy, and every
+            # run is timed (a 514,729-row Result takes seconds to build)
+            ms_mesh, res = timed(on_mesh, first=first_on_mesh)
+            what = session_mesh_answer(name, res, want[name], T)
+            clean(f"session {name}", st0, o0, f0)
+            from tidb_tpu_torch.parser import parse_one
+            from tidb_tpu_torch.sql import plan_select
+
+            rung = mppd.ladder_rung(plan_select(parse_one(sql), s.catalog).dag, MESH_SHARDS, gc)
+            s.execute("SET tidb_enable_tpu_mesh = 0")
+            s.execute("SET tidb_allow_batch_cop = 1")
+            ms_batch, res = timed(lambda sql=sql: (store.clear_result_cache(), s.execute(sql))[1])
+            session_mesh_answer(name, res, want[name], T)
+            s.execute("SET tidb_enable_tpu_mesh = 1")
+            s.execute("SET tidb_allow_batch_cop = 0")
+            clean(f"session {name} timed", st0, o0, f0)
+            log(f"phase 12 session {name}: the mesh select -> {what} == numpy; ladder rung (group capacity, scale)"
+                f" {rung}; exchanges {moved['exchanges']}, {moved['bytes']} B of send buckets, bucket capacities"
+                f" {moved['bucket_caps']}; each shard's local join {sorted({str(j) for j in moved['joins']})};"
+                f" median of {MESH_REPS}: mesh {ms_mesh:.3f} ms, batch tier {ms_batch:.3f} ms [{card}]"
+                f" ({time.perf_counter() - t1:.1f} s)")
+            if profile and name == "join":
+                profile_path("phase 12 session join on the mesh select", on_mesh, ms_mesh)
+        s.execute("SET tidb_tpu_group_capacity = 4096")
+
+        # the join 1:32 through try_mesh_select, the build as aux_chunks
+        jdag, (_l, ofts) = W.join_bench_dag(E, X, T, groups=MESH_JOIN_GROUPS, v_ft=T.new_decimal(15, 2))
+        jdag = W.store_scan(E, jdag, ("okey", "price"), table_id=tid)
+        jcols = W.store_join_build_columns(MESH_JOIN_BUILD, MESH_JOIN_GROUPS)
+        jbuild = W.make_chunk(C, ofts, jcols[0])
+        jwant = numpy_join([[W.fixed_col(t["okey"]), W.fixed_col(t["price"])]] + jcols, True)
+
+        def join132():
+            store.clear_result_cache()
+            m0 = metrics.MESH_SELECTS.value
+            out = try_mesh_select(store, jdag, ranges, store.next_ts(), group_capacity=4096, aux_chunks=[jbuild])
+            if out is None or metrics.MESH_SELECTS.value != m0 + 1:
+                raise SystemExit("phase 12 join 1:32: try_mesh_select declined (execute_exchange_plan returned None)")
+            return out
+
+        st0, o0, f0 = store.stats(), oracle_calls[0], metrics.MESH_COP_FALLBACKS.value
+        with tracing.trace("join 1:32") as root:
+            out = counters.path("join 1:32 mesh select", join132, phase=12)
+        moved = exchange_spans(root)
+        plans = {j.get("radix_plan") for j in moved["joins"]}
+        if len(plans) != 1:
+            raise SystemExit(f"phase 12 join 1:32: the shards' local joins took {moved['joins']}")
+        jplan = plans.pop()
+        if decoded_join(out, True) != jwant:
+            raise SystemExit("phase 12 join 1:32: the answer differs from numpy")
+        clean("join 1:32", st0, o0, f0)
+        k4 = counters.last["probe_tables"]
+        from tidb_tpu_torch.ops.join_probe import probe_kernel_eligible
+
+        gate = jplan is not None and probe_kernel_eligible(*jplan[:3])
+        if gate:
+            require_launches("phase 12 join 1:32 probe_tables, once per shard", k4, MESH_SHARDS)
+        ms = timed(join132)[0]
+        log(f"phase 12 join 1:32 (build {MESH_JOIN_BUILD} rows, {MESH_JOIN_GROUPS} groups): == numpy"
+            f" ({len(jwant)} groups); each shard's local join {moved['joins'][0]}: radix plan"
+            f" {jplan or 'none (the sort-merge join)'} (n_parts, part_cap, probe_cap, esc_cap), K4's gate"
+            f" {'passes' if gate else 'fails'}, probe_tables launches {k4};"
+            f" exchanges {moved['exchanges']}, {moved['bytes']} B, bucket capacities {moved['bucket_caps']};"
+            f" median of {MESH_REPS}: {ms:.3f} ms [{card}]")
+    finally:
+        EX.run_dag_reference = real_oracle
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s; store {store.stats()}")
+
+
+def exchange_spans(root) -> dict:
+    """The exchanges and local joins a traced mesh run made
+    (mpp/exchange_op.py's `mpp.exchange` and `mpp.local_join` spans)."""
+    ex = root.find("mpp.exchange")
+    return {"exchanges": len(ex), "bytes": sum(sp.attrs.get("bytes", 0) for sp in ex),
+            "bucket_caps": [sp.attrs["bucket_cap"] for sp in ex],
+            "joins": [dict(sp.attrs) for sp in root.find("mpp.local_join")]}
+
+
+def session_mesh_answers(t, odate, T) -> dict:
+    """The exact answers of MESH_SESSION over the generated columns."""
+    import numpy as np
+
+    out = {"q1": numpy_session_q1(t, T)}
+    out["okey"] = _sum_by(t["okey"], t["price"] * (100 - t["disc"]))
+    gid = t["rflag"].astype(np.int64) * 2 + t["lstat"].astype(np.int64)
+    out["distinct"] = {("ANR"[g // 2], "OF"[g % 2]): (len(np.unique(t["okey"][gid == g])), int((gid == g).sum()))
+                       for g in np.unique(gid)}
+    out["join"] = {d: (c, s) for d, (s, c) in _sum_by(odate[t["okey"]], t["price"]).items()}
+    return out
+
+
+def session_mesh_answer(name, res, want, T) -> str:
+    rows = res.rows
+    if name == "q1":
+        return session_answer("q1", res, want)
+    if name == "okey":
+        got = {int(r[0].val): (_scaled(r[1], 4), int(r[2].val)) for r in rows}
+    elif name == "distinct":
+        got = {(r[0].val, r[1].val): (int(r[2].val), int(r[3].val)) for r in rows}
+    else:
+        got = {r[0].val.packed: (int(r[1].val), _scaled(r[2], 2)) for r in rows}
+    if got != want:
+        bad = next((k for k in want if got.get(k) != want[k]), None)
+        raise SystemExit(f"phase 12 session {name}: {len(got)} groups, numpy {len(want)}; first difference at {bad}:"
+                         f" {got.get(bad)} != {want.get(bad)}")
+    return f"{len(got)} groups"
 
 
 def main() -> int:
@@ -3265,7 +3686,9 @@ def main() -> int:
     # phase 10: the expression families, the customer table beside lineitem
     expr_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
     # phase 11: the SQL session over its own store, the tables copied in
-    session_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
+    sess = session_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
+    # phase 12: the device mesh, four shards of the card
+    mesh_phase(sess, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

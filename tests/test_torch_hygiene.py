@@ -57,6 +57,8 @@ def test_import_leaves_jax_unloaded():
         "import tidb_tpu_torch.util.backoff, tidb_tpu_torch.util.failpoint, tidb_tpu_torch.util.tracing\n"
         "import tidb_tpu_torch.parser, tidb_tpu_torch.sql, tidb_tpu_torch.store.txn, tidb_tpu_torch.config\n"
         "import tidb_tpu_torch.server, tidb_tpu_torch.tools, tidb_tpu_torch.util.memory, tidb_tpu_torch.util.stmtlog\n"
+        "import tidb_tpu_torch.parallel, tidb_tpu_torch.parallel.sql, tidb_tpu_torch.parallel.joinmesh\n"
+        "import tidb_tpu_torch.mpp.exchange_op, tidb_tpu_torch.mpp.dispatch, tidb_tpu_torch.mpp.fragment\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -294,7 +296,9 @@ def test_seams_decline_and_swallow_no_error():
     from tidb_tpu_torch.sql import CatalogError, PlanError, Session, seams
 
     assert seams.columnar_would_serve(None, None, [], ("tpu", "columnar")) is False
-    assert seams.try_mpp_select(None, None, [], 1) is None and seams.try_mesh_select(None, None, [], 1) is None
+    assert seams.try_mpp_select(None, None, [], 1) is None
+    # the mesh select is the real one (parallel/sql.py), not a seam
+    assert not hasattr(seams, "try_mesh_select")
     s = Session(device="cpu")
     for q in ("SET tidb_enable_tpu_mesh = 1", "SET tidb_allow_mpp = 1",
               "SET tidb_isolation_read_engines = 'tpu,columnar'"):
@@ -308,3 +312,57 @@ def test_seams_decline_and_swallow_no_error():
         s.execute("SELECT * FROM missing")
     with pytest.raises(PlanError):
         s.execute("SELECT nope FROM t")
+
+
+def test_mesh_devices_resolve_to_cuda_and_raise_without_it(monkeypatch):
+    """TPUStore() and Session() shard their mesh over every visible CUDA
+    device by default, a cpu store over its own device; a cuda entry in
+    mesh_devices raises without CUDA, as the store's own device does."""
+    from tidb_tpu_torch import runtime
+    from tidb_tpu_torch.sql import Session
+    from tidb_tpu_torch.store import TPUStore
+
+    assert TPUStore(device="cpu").mesh_devices == [torch.device("cpu")]
+    assert TPUStore(device="cpu", mesh_devices=["cpu"] * 8).mesh_devices == [torch.device("cpu")] * 8
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert runtime.mesh_devices("cuda") == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert runtime.mesh_devices("cuda", ["cuda:0"] * 4) == [torch.device("cuda", 0)] * 4
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TPUStore()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TPUStore(device="cpu", mesh_devices=["cuda:0"] * 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Session(device="cpu", mesh_devices=["cuda:0", "cuda:0"])
+    with pytest.raises(ValueError, match="at least one"):
+        runtime.mesh_devices("cpu", [])
+
+
+def test_a_mesh_session_leaves_jax_unloaded():
+    """The mesh paths' lazy imports run too: the store's mesh tier, the
+    mesh select's grouped and join exchange programs, on four CPU shards."""
+    code = (
+        "import sys\n"
+        "from tidb_tpu_torch.sql import Session\n"
+        "from tidb_tpu_torch.util import metrics\n"
+        "from tidb_tpu_torch.codec import tablecodec\n"
+        "s = Session(device='cpu', mesh_devices=['cpu'] * 4)\n"
+        "s.execute('CREATE TABLE t (a BIGINT PRIMARY KEY, g INT, v BIGINT)')\n"
+        "s.execute('CREATE TABLE d (g INT PRIMARY KEY, name VARCHAR(8))')\n"
+        "s.execute('INSERT INTO t VALUES ' + ','.join(f'({i}, {i % 5}, {i})' for i in range(64)))\n"
+        "s.execute('INSERT INTO d VALUES ' + ','.join(f\"({g}, 'g{g}')\" for g in range(5)))\n"
+        "tid = s.catalog.table('t').table_id\n"
+        "for h in (16, 32, 48):\n"
+        "    s.store.cluster.split(tablecodec.encode_row_key(tid, h))\n"
+        "m0 = metrics.MESH_SELECTS.value\n"
+        "assert len(s.execute('SELECT g, count(*) FROM t GROUP BY g').rows) == 5\n"
+        "assert len(s.execute('SELECT name, sum(v) FROM t JOIN d ON t.g = d.g GROUP BY name').rows) == 5\n"
+        "assert metrics.MESH_SELECTS.value == m0 + 2\n"
+        "assert str(s.execute('SELECT sum(v) FROM t').scalar()) == '2016'\n"
+        "assert s.store.stats()['mesh_batches'] >= 1\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr

@@ -298,6 +298,23 @@ def test_case_counts():
     assert len(SQL_CASES) == 46
 
 
+def _grouped_or_joined(steps) -> bool:
+    return any(isinstance(q, str) and q.upper().startswith("SELECT") and (" GROUP BY " in q.upper()
+                                                                          or " JOIN " in q.upper())
+               for q in steps)
+
+
+MESH_CASES = [name for name, steps in SQL_CASES.items() if _grouped_or_joined(steps)]
+
+
+@pytest.mark.parametrize("name", MESH_CASES)
+def test_sql_case_mesh_on(name):
+    """The GROUP BY and join cases with the mesh on: the JAX session on
+    eight devices, the port's on eight CPU shards (statement tier "mpp",
+    whose seam declines in the port, then the mesh select)."""
+    run_case(SQL_CASES[name], session_pair(mesh=True))
+
+
 # the stale result-cache trap: a region's response is cached by the store;
 # a write that did not bump the write version would have the next read
 # served the pre-write rows
@@ -390,11 +407,20 @@ def test_load_data_analyze_and_load_stats(tmp_path):
     ])
 
 
-@pytest.mark.parametrize("tier", ["pool", "batch", "single"])
+@pytest.mark.parametrize("tier", ["pool", "batch", "single", "mesh"])
 def test_statement_tiers(tier):
     """Q1-, Q6- and join-shaped SQL over a split table in each tier of the
-    dispatch loop."""
-    sets = {"pool": [], "batch": ["SET tidb_allow_batch_cop = 1"], "single": ["SET tidb_distsql_scan_concurrency = 1"]}
+    dispatch loop, and with the mesh on (eight CPU shards in the port: the
+    mesh select for the GROUP BYs, the store's mesh tier for the rest)."""
+    sets = {"pool": [], "batch": ["SET tidb_allow_batch_cop = 1"], "single": ["SET tidb_distsql_scan_concurrency = 1"],
+            "mesh": [
+                # without ORDER BY (a Sort keeps a plan off the mesh select):
+                # the rows come back in the exchange's order
+                "SELECT l_returnflag, l_linestatus, sum(l_quantity), avg(l_discount), count(*) FROM li"
+                " WHERE l_shipdate <= '1998-09-02' GROUP BY l_returnflag, l_linestatus",
+                "SELECT l_orderkey, sum(l_extendedprice * (1 - l_discount)) FROM li JOIN od"
+                " ON l_orderkey = o_orderkey WHERE o_orderdate < '1997-03-15' GROUP BY l_orderkey",
+            ]}
     steps = [
         "CREATE TABLE li (l_orderkey BIGINT, l_quantity DECIMAL(15,2), l_extendedprice DECIMAL(15,2),"
         " l_discount DECIMAL(15,2), l_returnflag CHAR(1), l_linestatus CHAR(1), l_shipdate DATE)",
@@ -417,12 +443,20 @@ def test_statement_tiers(tier):
         " GROUP BY l_orderkey ORDER BY revenue DESC, l_orderkey LIMIT 10",
         "SELECT l_orderkey, l_extendedprice FROM li ORDER BY l_extendedprice DESC, l_orderkey LIMIT 5",
     ]
-    sessions = session_pair()
+    sessions = session_pair(mesh=tier == "mesh")
+    from tidb_tpu_torch.util import metrics
+
+    m0 = metrics.MESH_SELECTS.value
     run_case(steps, sessions)
     st = sessions["port"]["s"].store.stats()
     assert st["oracle_fallbacks"] == 0 and st["other_errors"] == 0 and st["batch_fallbacks"] == 0
     if tier == "batch":
         assert st["batch_batches"] >= 1
+    if tier == "mesh":
+        # the two unordered GROUP BYs through the mesh select, Q6 and the
+        # TopN through the store's mesh tier
+        assert metrics.MESH_SELECTS.value - m0 == 2
+        assert st["mesh_batches"] >= 1 and st["mesh_fallbacks"] == 0
 
 
 def test_range_estimate_over_an_analyzed_date_column():

@@ -14,10 +14,13 @@ reals, which agree to 1e-12 relative. A step not marked `err=True` must
 succeed in the JAX package, and one marked so must fail there, so no case
 passes by both packages failing alike.
 
-Both packages run with `tidb_enable_tpu_mesh = 0`: on the eight virtual
-CPU devices of tests/conftest.py the JAX session would otherwise take its
-mesh or MPP tier, which the port does not have, and rows of a statement
-without ORDER BY could come back in another order.
+By default both packages run with `tidb_enable_tpu_mesh = 0`, so the
+statements take the per-region tiers. `session_pair(mesh=True)` leaves
+the mesh on: the JAX session runs on the eight virtual CPU devices of
+tests/conftest.py (its MPP tier, or its mesh select, and its store's mesh
+tier), the port's on `mesh_devices=["cpu"] * 8` (its MPP seam declines,
+and the mesh select and the store's mesh tier run), and rows must agree
+in order all the same.
 """
 
 from __future__ import annotations
@@ -48,11 +51,12 @@ REL = 1e-12
 JAX = SimpleNamespace(
     name="jax", sql=j_sql, catalog=j_catalog, store=j_store, kv=j_kv, txn=j_txn, tablecodec=j_tablecodec,
     parse_one=j_parser.parse_one, new_store=lambda: j_store.TPUStore(),
-    new_session=lambda store=None, catalog=None: j_sql.Session(store, catalog))
+    new_session=lambda store=None, catalog=None, mesh=False: j_sql.Session(store, catalog))
 PORT = SimpleNamespace(
     name="port", sql=p_sql, catalog=p_catalog, store=p_store, kv=p_kv, txn=p_txn, tablecodec=p_tablecodec,
     parse_one=p_parser.parse_one, new_store=lambda: p_store.TPUStore(device="cpu"),
-    new_session=lambda store=None, catalog=None: p_sql.Session(store, catalog, device="cpu"))
+    new_session=lambda store=None, catalog=None, mesh=False: p_sql.Session(
+        store, catalog, device="cpu", mesh_devices=["cpu"] * 8 if mesh else None))
 
 
 @dataclass
@@ -133,18 +137,20 @@ def _apply(pkg, sessions: dict, step):
     return step, outcome(lambda: step.fn(pkg, sessions)), None
 
 
-def session_pair(shared: bool = False, names=("s",)) -> dict:
-    """Fresh sessions of each package, mesh off. With shared=True all the
-    sessions of a package share one store and one catalog."""
+def session_pair(shared: bool = False, names=("s",), mesh: bool = False) -> dict:
+    """Fresh sessions of each package, mesh off unless `mesh`. With
+    shared=True all the sessions of a package share one store and one
+    catalog."""
     out = {}
     for pkg in (JAX, PORT):
         if shared:
             store, cat = pkg.new_store(), pkg.catalog.Catalog()
             ss = {n: pkg.new_session(store, cat) for n in names}
         else:
-            ss = {n: pkg.new_session() for n in names}
-        for s in ss.values():
-            s.execute("SET tidb_enable_tpu_mesh = 0")
+            ss = {n: pkg.new_session(mesh=mesh) for n in names}
+        if not mesh:
+            for s in ss.values():
+                s.execute("SET tidb_enable_tpu_mesh = 0")
         out[pkg.name] = ss
     return out
 

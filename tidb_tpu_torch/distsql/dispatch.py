@@ -299,8 +299,8 @@ def select_stream(store: TPUStore, req: KVRequest):
     ref: copr worker pool degraded to a single in-order worker).
 
     The mesh tier applies here too (the planner's call): eligible
-    partial-agg shapes run one store batch at a time (in the port's
-    store, its batched tier), and the stream yields that batch's chunks —
+    partial-agg shapes run one store batch at a time (merged across the
+    store's mesh devices), and the stream yields that batch's chunks —
     still bounded by one store's stacked batch. The low-memory degrade path
     pins `mesh=False` and keeps the strict one-region-at-a-time shape."""
     from .planner import choose_tier
@@ -582,8 +582,10 @@ def _run_store_batch(store, req, sid, entries, results, summaries_by_task,
     copr/batch_coprocessor.go — a TiFlash store's regions travel in one
     request): the store stacks the regions and runs the region-batched
     program once per capacity bucket. When the planner chose the MESH tier
-    (`mesh`) the requests say so; the port's store serves them in the same
-    batched tier, so the contract here is identical either way.
+    (`mesh`) the requests say so, and the store merges the group's partial
+    states across its mesh devices (one merged state per store, the rest
+    of the lanes empty) or degrades to the batched tier; the contract here
+    is identical either way.
     `sid` is the ROUTED target peer (the leader for every lane under
     tidb_replica_read='leader'; a follower group otherwise). A region
     that comes back with a region_error (stale epoch after a concurrent
@@ -669,8 +671,8 @@ def _run_store_batch(store, req, sid, entries, results, summaries_by_task,
                 stats["regions"] += 1
                 batch_ids.add(resp.batched)
                 if resp.mesh_merged:
-                    # this lane's partial state was merged on the devices
-                    # (never in the port's store: mesh_merged stays 0)
+                    # this lane's partial state was merged across the
+                    # store's mesh devices (the store's mesh tier)
                     stats["mesh_lanes"] += 1
                     mesh_ids.add(resp.batched)
             sums.append(resp.exec_summaries)

@@ -9,18 +9,19 @@ execution tier by data size and topology.
   batch   N tasks grouped per store, stacked on a leading region axis and
           served by ONE run of the region-batched program per (store,
           DAG, capacity) bucket (TPUStore.batch_coprocessor).
-  mesh    the reference shards a batch over the device mesh and merges
-          the regions' partial states on the devices. The port has no
-          mesh tier yet: a mesh request is grouped as a batch is, and the
-          store serves it in its batched tier, as the reference's store
-          does when its mesh tier declines.
+  mesh    like batch, but the stacked lanes split over the store's mesh
+          devices and the per-region PARTIAL STATES merge across the
+          shards (a sum for sum/count/avg states, min/max for extremes, a
+          gather and a local reduce for bit/first states, a merge-mode
+          re-group for GROUP BY tables, a re-top-k for TopN), so a store
+          answers with ONE merged state instead of R per-region partials.
 
 `choose_statement_tier` answers the SQL session's statement-level
-question above execute_root. The reference picks its MPP or whole-statement
-mesh tier there on two or more devices; the port has neither (the parallel
-and mpp packages are not ported), so every statement takes the "root"
-tier, which is where the reference lands when both decline. The device
-count comes from torch.cuda.
+question above execute_root: on two or more mesh devices an eligible
+GROUP BY (or a join feeding one) takes the "mpp" tier (tidb_allow_mpp ON;
+the session's MPP seam declines it, and the mesh select runs) or the
+"mesh" tier (parallel/sql.py try_mesh_select), else "root". The device
+count is the store's mesh width, `len(store.mesh_devices)`.
 """
 
 from __future__ import annotations
@@ -88,10 +89,9 @@ def mesh_merge_kind(dag) -> str | None:
     return "scalar"
 
 
-def _n_devices() -> int:
-    import torch
-
-    return torch.cuda.device_count()
+def _n_devices(store) -> int:
+    """The store's mesh width (runtime.mesh_devices)."""
+    return len(store.mesh_devices)
 
 
 def estimated_rows(store) -> int:
@@ -104,16 +104,34 @@ def estimated_rows(store) -> int:
 
 
 def choose_statement_tier(dag, *, allow_mpp: bool, allow_mesh: bool,
-                          columnar_routed) -> TierDecision:
-    """Statement-level tier pick above execute_root's per-request tiers
-    (port of tidb_tpu/distsql/planner.py choose_statement_tier). Below two
-    devices, or with the mesh switched off, the reference answers "root";
-    on more devices it asks its mesh shape gate (parallel/sql.py
-    mesh_eligible) for an "mpp" or "mesh" tier, whose selects the port
-    does not have, so the port answers "root" on any device count:
-    execute_root owns dispatch. The arguments keep the reference's
-    signature."""
-    return TierDecision("root")
+                          columnar_routed, n_devices: int) -> TierDecision:
+    """Statement-level tier pick ABOVE execute_root's per-request tiers
+    (port of tidb_tpu/distsql/planner.py choose_statement_tier; ref:
+    mpp_gather.go:40 useMPPExecution). Returns:
+
+      "mpp"   plan the statement as an exchange-linked fragment graph (the
+              session's MPP seam, which declines in the port; the mesh
+              select then runs the same exchange program).
+      "mesh"  the whole-plan mesh select (parallel/sql.try_mesh_select).
+      "root"  no statement-level shortcut: execute_root owns dispatch.
+
+    `n_devices` is the store's mesh width (the reference reads
+    jax.devices()). `columnar_routed` is a thunk, evaluated only when a
+    shortcut is on the table."""
+    if not allow_mesh or n_devices < 2:
+        return TierDecision("root")
+    from ..parallel.sql import mesh_eligible
+
+    kind = mesh_eligible(dag)
+    if kind is None:
+        return TierDecision("root")
+    if allow_mpp and kind == "join":
+        # shuffle joins are the mpp tier's: engine routing must not preempt
+        # the statement
+        return TierDecision("mpp", kind)
+    if columnar_routed():
+        return TierDecision("root")
+    return TierDecision("mpp" if allow_mpp else "mesh", kind)
 
 
 def choose_tier(store, req, tasks) -> TierDecision:
@@ -128,7 +146,7 @@ def choose_tier(store, req, tasks) -> TierDecision:
         kind = mesh_merge_kind(req.dag)
         if (
             kind is not None
-            and _n_devices() >= 2
+            and _n_devices(store) >= 2
             and estimated_rows(store) >= (req.mesh_min_rows or 0)
         ):
             return TierDecision("mesh", kind)

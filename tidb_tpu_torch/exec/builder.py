@@ -20,10 +20,16 @@ drive_program_info retries with. vmap_batch=B builds the region-batched
 variant: torch.func.vmap over the same program, the probe batch mapped on
 its leading region axis and every build-side batch shared, so B regions
 run as one program execution and each hand kernel launches once over all
-of them (its custom op's vmap rule). There is no mesh variant.
+of them (its custom op's vmap rule). mesh_lanes=R with mesh_devices (a
+parallel/mesh.py RegionMesh) builds the MESH variant: the R stacked lanes
+split into one block per shard, each shard runs the region-batched
+program over its lanes on its device (so each hand kernel launches once a
+shard), and the per-region results merge across the shards — a sum / min
+/ max of partial states, a merge-mode re-group of GROUP BY tables, or a
+re-top-k (mesh_kind "scalar" / "group" / "topn").
 Programs cache by (DAG fingerprint, capacities, knobs, region batch,
-device, kernel route), with a single-flight miss so racing threads build
-once.
+device, kernel route, mesh lanes, mesh devices, mesh kind), with a
+single-flight miss so racing threads build once.
 """
 
 from __future__ import annotations
@@ -619,6 +625,9 @@ def build_program(
     unique_joins: bool = True,
     radix_joins: bool = True,
     vmap_batch: int | None = None,
+    mesh_lanes: int | None = None,
+    mesh_devices=None,
+    mesh_kind: str | None = None,
 ) -> CompiledDAG:
     """The whole DAG (probe pipeline and every join build pipeline) as one
     closure over a tuple of device batches. topn_full=True runs every TopN
@@ -631,7 +640,12 @@ def build_program(
     batch carries a leading region axis of size B and the program runs
     under torch.func.vmap over it, build-side batches shared. All outputs
     (packed columns, valid, n_out, the six flags, ex_rows) gain the
-    leading region axis, so overflow is per region."""
+    leading region axis, so overflow is per region.
+
+    mesh_lanes=R over mesh_devices (a RegionMesh) builds the mesh
+    program: fn(stacked, *aux) -> (merged packed columns, valid,
+    ex_rows [R, E], overflow, radix escapes), the merge per mesh_kind
+    (_build_mesh_fn)."""
     if isinstance(capacities, int):
         capacities = (capacities,)
     capacities = tuple(capacities)
@@ -654,8 +668,108 @@ def build_program(
                 state.join_need, state.radix_escapes)
         return packed, valid, n_out, ovfs, torch.stack(state.ex_rows)
 
-    fn = program if vmap_batch is None else _region_batched(program)
+    if mesh_lanes is not None:
+        fn = _build_mesh_fn(dag, _region_batched(program), mesh_lanes, mesh_devices, mesh_kind, group_capacity)
+    else:
+        fn = program if vmap_batch is None else _region_batched(program)
     return CompiledDAG(fn, dag.output_fts(), capacities, group_capacity, join_capacity, radix_info)
+
+
+def _build_mesh_fn(dag: DAGRequest, local_fn, lanes: int, mesh, kind: str, group_capacity: int):
+    """The mesh tier's program body: split the stacked lanes over the
+    shards, run the region-batched program on each shard's block (the
+    build-side batches replicated to every shard), then merge the
+    per-region results — the partial states across the shards
+    (parallel/mesh.py merge seam), or the gathered GROUP BY tables / TopN
+    candidates re-grouped / re-top-k'd once, on the lead device, where the
+    reference computes that replicated output on every device. `lanes`
+    must divide over the shards (the store pads the region axis with
+    empty lanes)."""
+    from ..parallel.collectives import pmax, psum
+    from ..parallel.mesh import merge_packed_states, move_batch, shard_batch
+
+    if kind not in ("scalar", "group", "topn"):
+        raise ValueError(f"unknown mesh kind {kind!r}")
+    devices = list(mesh.devices)
+    if lanes % len(devices):
+        raise ValueError("mesh lanes must divide over the shards")
+    last = dag.executors[-1]
+    out_fts = dag.output_fts()
+    lead = devices[0]
+
+    def fn(stacked, *aux):
+        shards = shard_batch(stacked, devices)
+        outs = [local_fn(shards[s], *[move_batch(a, d) for a in aux]) for s, d in enumerate(devices)]
+        local_ovf = [o[3][0].any() | o[3][1].any() | o[3][2].any() for o in outs]
+        # radix escape total over the region axis (join_radix attribution)
+        radix_esc = psum([o[3][5].sum() for o in outs], devices)[0]
+        if kind == "scalar":
+            merged = [tuple(t) for t in merge_packed_states(list(last.aggs), [o[0] for o in outs], devices)]
+            mvalid = torch.ones(1, dtype=torch.bool, device=lead)
+            m_ovf = torch.zeros((), dtype=torch.bool, device=lead)
+        else:
+            cols, gvalid = _gather_mesh_outputs([o[0] for o in outs], [o[1] for o in outs], out_fts, lead)
+            if kind == "group":
+                out_cols, mvalid, m_ovf = _mesh_merge_group(last, out_fts, cols, gvalid, group_capacity)
+            else:
+                out_cols, mvalid, m_ovf = _mesh_merge_topn(last, out_fts, cols, gvalid)
+            merged = _pack_cols(out_cols)
+        ovf = (pmax([x.to(torch.int32) for x in local_ovf], devices)[0] > 0) | m_ovf
+        ex = torch.cat([o[4].to(lead) for o in outs])
+        return merged, mvalid, ex, ovf, radix_esc
+
+    return fn
+
+
+def _gather_mesh_outputs(packed: list, valid: list, out_fts, lead):
+    """Flatten each shard's region-batched outputs [R_local, L, ...] to
+    rows and gather them on the lead device in shard order (shard-major ==
+    the region stack == task order). Raw string bytes ride whole."""
+    cols = []
+    for i, ft in enumerate(out_fts):
+        flat = [torch.cat([p[i][j].reshape((-1,) + tuple(p[i][j].shape[2:])).to(lead) for p in packed])
+                for j in range(len(packed[0][i]))]
+        if len(flat) == 4:
+            cols.append(CompVal(flat[0], flat[1], ft, raw=(flat[2], flat[3])))
+        else:
+            cols.append(CompVal(flat[0], flat[1], ft))
+    gvalid = torch.cat([v.reshape(-1).to(lead) for v in valid])
+    return cols, gvalid
+
+
+def _mesh_merge_group(agg, state_fts, cols, valid, group_capacity: int):
+    """Merge of the gathered per-region group tables: the root Final
+    merge's Partial2 re-group (distsql/root.py _merge_aggregation, partial
+    output) — the output schema is the push DAG's partial schema again, so
+    one merged table per store replaces R per-region tables while the
+    root's Final pass runs unchanged."""
+    from dataclasses import replace as _replace
+
+    from ..distsql.root import _merge_aggregation
+
+    p2 = _replace(_merge_aggregation(agg), partial=True)
+    comp = ExprCompiler(state_fts, device=valid.device)
+    gvals = comp.run(list(p2.group_by), cols)
+    garg_exprs = [a for d in p2.aggs for a in d.args]
+    aggs = _split_aggs(p2.aggs, comp.run(garg_exprs, cols) if garg_exprs else [])
+    res = group_aggregate(gvals, aggs, valid, group_capacity, merge=True)
+    new_cols: list[CompVal] = []
+    for (d, av), st in zip(aggs, res.states):
+        new_cols.extend(_agg_result_cols(d, av, st, res.group_valid, True))
+    new_cols.extend(_gather(gvals, res.group_rep))
+    return new_cols, res.group_valid, res.overflow
+
+
+def _mesh_merge_topn(ex, fts, cols, valid):
+    """Re-top-k over the gathered per-region candidates (the global top-k
+    is in the union of the per-region top-k); TopN keeps its input schema,
+    so its order expressions apply to the candidates. The exact full sort:
+    the candidate block is small and never overflows."""
+    comp = ExprCompiler(fts, device=valid.device)
+    order_vals = comp.run([e for e, _ in ex.order_by], cols)
+    by = list(zip(order_vals, [d for _, d in ex.order_by]))
+    idx, out_valid, _ovf = topn(by, valid, ex.limit, full_sort=True)
+    return _gather(cols, idx), out_valid, torch.zeros((), dtype=torch.bool, device=valid.device)
 
 
 def kernel_route(device) -> str:
@@ -667,11 +781,11 @@ def kernel_route(device) -> str:
 class ProgramCache:
     """Fingerprint -> CompiledDAG (ref: coprocessor cache keying).
 
-    The key is the JAX package's (builder.py:900) less the mesh knobs this
-    port has no programs for, with the device and the kernel route in place
-    of the pallas mode; topn_full keeps its place after the join capacity
-    and vmap_batch (the region batch, None for a single region) follows the
-    radix knob. Builds are single-flight per key: the first
+    The key is the JAX package's (builder.py:900) with the device and the
+    kernel route in place of the pallas mode and the mesh's device list in
+    place of its device count; topn_full keeps its place after the join
+    capacity and vmap_batch (the region batch, None for a single region)
+    follows the radix knob. Builds are single-flight per key: the first
     thread to miss claims the key, racers wait on its event and land as
     hits."""
 
@@ -685,14 +799,17 @@ class ProgramCache:
     def get(self, dag: DAGRequest, capacities, group_capacity: int = DEFAULT_GROUP_CAPACITY,
             join_capacity: int | None = None, topn_full: bool = False, small_groups: int | None = None,
             device="cuda", unique_joins: bool = True, radix_joins: bool = True,
-            vmap_batch: int | None = None) -> CompiledDAG:
+            vmap_batch: int | None = None, mesh_lanes: int | None = None, mesh_devices=None,
+            mesh_kind: str | None = None) -> CompiledDAG:
         return self.get_info(dag, capacities, group_capacity, join_capacity, topn_full, small_groups,
-                             device, unique_joins, radix_joins, vmap_batch)[0]
+                             device, unique_joins, radix_joins, vmap_batch, mesh_lanes, mesh_devices,
+                             mesh_kind)[0]
 
     def get_info(self, dag: DAGRequest, capacities, group_capacity: int = DEFAULT_GROUP_CAPACITY,
                  join_capacity: int | None = None, topn_full: bool = False, small_groups: int | None = None,
                  device="cuda", unique_joins: bool = True, radix_joins: bool = True,
-                 vmap_batch: int | None = None) -> tuple:
+                 vmap_batch: int | None = None, mesh_lanes: int | None = None, mesh_devices=None,
+                 mesh_kind: str | None = None) -> tuple:
         """(program, cache_hit, build_ns)."""
         import time as _t
 
@@ -701,7 +818,8 @@ class ProgramCache:
         capacities = tuple(capacities)
         dev = str(torch.device(device))
         key = (dag.fingerprint(), capacities, group_capacity, join_capacity, topn_full, small_groups,
-               unique_joins, radix_joins, vmap_batch, dev, kernel_route(dev))
+               unique_joins, radix_joins, vmap_batch, dev, kernel_route(dev), mesh_lanes,
+               None if mesh_devices is None else tuple(str(d) for d in mesh_devices.devices), mesh_kind)
         while True:
             prog = self._cache.get(key)
             if prog is not None:
@@ -721,7 +839,7 @@ class ProgramCache:
                 self.compiles += 1
             t0 = _t.perf_counter_ns()
             prog = build_program(dag, capacities, group_capacity, join_capacity, topn_full, small_groups,
-                                 unique_joins, radix_joins, vmap_batch)
+                                 unique_joins, radix_joins, vmap_batch, mesh_lanes, mesh_devices, mesh_kind)
             build_ns = _t.perf_counter_ns() - t0
             self._cache[key] = prog
         finally:

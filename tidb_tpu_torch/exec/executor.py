@@ -4,6 +4,9 @@ run_dag_on_chunk(s): pad host Chunks into DeviceBatches, run the program,
 decode outputs back to a host Chunk. drive_batched_program_info runs the
 region-batched program once over a stack of regions and slices each
 region's result out; a region whose flags fired answers None.
+drive_mesh_program_info runs the mesh program once over a stack of
+regions split over the mesh's shards and returns ONE merged chunk, or
+None when its global overflow flag fired.
 drive_program_info handles the overflow contract: on overflow it retries
 on the capacity ladder (exec/ladder.py), drops a wrong small-G hint,
 drops the unique-build and radix join hints when no rung can clear a
@@ -231,6 +234,44 @@ def drive_batched_program_info(cache: ProgramCache, dag: DAGRequest, stacked, au
         # would multiply in a sum over the lanes' summaries)
         info["radix"]["escapes_by_lane"] = esc_by_lane
     return per_region, info
+
+
+def drive_mesh_program_info(cache: ProgramCache, dag: DAGRequest, stacked, aux_batches, group_capacity: int,
+                            kind: str, mesh, join_capacity: int | None = None, small_groups: int | None = None):
+    """ONE run of the mesh program over a region-stacked batch: the device
+    half of the MESH dispatch tier. The stacked lanes split over the
+    mesh's shards (a parallel/mesh.py RegionMesh), each shard runs the
+    region-batched program over its lanes, and the per-region partial
+    results merge across the shards per `kind` (a sum / min / max of
+    partial states, a merge-mode re-group, a re-top-k), so the caller gets
+    ONE merged chunk instead of R per-region partials.
+
+    The global overflow flag, the radix escapes and every lane's row counts
+    come back in one host fetch. Returns (chunk, lane_counts, info): chunk
+    is None when the overflow flag fired (the caller degrades to the
+    batched tier, whose per-lane capacity ladder takes over);
+    lane_counts[b] is lane b's per-executor produced-row counts; info is
+    the {"cache_hit", "compile_ns"[, "radix"]} attribution."""
+    R, cap = stacked.row_valid.shape
+    caps = (int(cap),) + tuple(b.capacity for b in aux_batches)
+    jc = rung_for(join_capacity or max(caps))
+    prog, hit, build_ns = cache.get_info(dag, caps, rung_for(group_capacity), jc, False, small_groups,
+                                         device=stacked.device, mesh_lanes=int(R), mesh_devices=mesh,
+                                         mesh_kind=kind)
+    t0 = time.perf_counter_ns()
+    merged, mvalid, ex_rows, ovf, radix_esc = prog.fn(stacked, *aux_batches)
+    head = torch.stack([ovf.to(torch.int64).reshape(()), radix_esc.to(torch.int64).reshape(())])
+    fetched = _np(torch.cat([head, ex_rows.to(torch.int64).reshape(-1)]))
+    info = {"cache_hit": hit, "compile_ns": 0}
+    if not hit:
+        # the fetch above waited for the program: the first call's time
+        # counts as build time, as drive_program_info counts it
+        info["compile_ns"] = build_ns + (time.perf_counter_ns() - t0)
+    lane_counts = [[int(x) for x in row] for row in fetched[2:].reshape(int(R), -1)]
+    if fetched[0]:
+        return None, lane_counts, info
+    _radix_attribution(prog, jc, int(fetched[1]), info)
+    return decode_outputs(merged, mvalid, prog.out_fts), lane_counts, info
 
 
 def _group_key_partition(chunk: Chunk, key_cols: list[int], n_parts: int, salt: int = 0) -> list[Chunk]:

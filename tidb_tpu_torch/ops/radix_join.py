@@ -21,12 +21,22 @@ independent sub-joins, each against a fixed-capacity build table:
      overflow raises the join-overflow flag with a NEED hint so the retry
      driver re-dispatches the rung that clears it.
 
-Only the single-word int-class equi-join under a planner-proven unique
-build rides this path (inner / left_outer / semi / anti), and only when
-the probe side dominates (build * 8 <= probe capacity). The contract is
-verified at run time: a match fan-out > 1 raises overflow, and NULL keys
-never match. The JAX package's TPU-only "dense" probe and its non-unique
-expansion (which only its MPP tier calls) are not ported.
+Only the single-word int-class equi-join rides this path (inner /
+left_outer / semi / anti), and only when the probe side dominates (build
+* 8 <= probe capacity). Under a planner-proven unique build the contract
+is verified at run time: a match fan-out > 1 raises overflow. NULL keys
+never match.
+
+A NON-unique build (build_unique=False: the exchange join's shape,
+mpp/exchange_op.py local_partition_join) takes the prefix-sum output
+expansion of ops/join.py's general path: per probe row a match count,
+cumsum offsets, and for each static output slot its (probe row, nth
+match). The "search" mode counts with sorted-build extents
+(_expand_search); the "kernel" mode counts over the partitioned tables
+with a dense broadcast-compare in plain torch (_expand_partitioned, the
+JAX package's "dense" form): the probe kernel reduces each probe to its
+FIRST match, so it never serves fan-out. The JAX package's TPU-only
+"dense" first-match probe is not ported.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ from ..expr.compile import CompVal
 from .join import JoinResult, _key_matrix, merge_lo_hi
 from .join_probe import probe_kernel_eligible, probe_tables
 from .keys import lexsort
-from .seg import I64_MAX, hash_words
+from .seg import I64_MAX, hash_words, merge_searchsorted
 
 # plan knobs (static; every program is keyed by the derived plan via its
 # capacities and join-capacity rung)
@@ -224,6 +234,139 @@ def _probe_partitioned(bw, b_usable, pw, p_usable, plan: tuple, join_capacity: i
     return build_idx, matched, dup | dup_e, esc_over, need, escapes
 
 
+def _expand_counts(counts_match, get_kth, probe_valid, out_capacity: int, join_type: str, base_overflow,
+                   base_need):
+    """The prefix-sum output expansion both non-unique modes share (the
+    general path of ops/join.py): match counts -> cumsum offsets -> one
+    search gives each static output slot its (probe row, nth match), and
+    `get_kth` recovers the build row."""
+    np_ = probe_valid.shape[0]
+    dev = probe_valid.device
+    counts = counts_match.to(torch.int64)
+    if join_type == "left_outer":
+        counts = torch.where(probe_valid, torch.clamp(counts, min=1), 0)
+    offsets = torch.cumsum(counts, 0) - counts  # start slot per probe row
+    total = counts.sum()
+    overflow = base_overflow | (total > out_capacity)
+    # out-capacity need: exact; the escape-buffer need folds in
+    need = torch.maximum(torch.where(total > out_capacity, total, 0), base_need)
+    slot = torch.arange(out_capacity, dtype=torch.int64, device=dev)
+    probe_of = merge_searchsorted(offsets + counts, slot, side="right").to(torch.int64)
+    probe_of = torch.clamp(probe_of, max=np_ - 1)
+    nth = slot - offsets[probe_of]
+    build_idx = get_kth(probe_of, nth)
+    out_valid = slot < total
+    build_null = ~(counts_match[probe_of] > 0)  # only under left_outer fill
+    build_idx = torch.where(build_null, -1, build_idx)
+    return JoinResult(
+        probe_idx=probe_of.to(torch.int32),
+        build_idx=build_idx,
+        build_null=build_null & out_valid,
+        out_valid=out_valid,
+        n_out=total,
+        overflow=overflow,
+        need=need,
+    )
+
+
+def _expand_search(bw, b_usable, pw, p_usable, probe_valid, join_type: str, out_capacity: int):
+    """Non-unique fan-out by sorted-build extents: hi - lo is the match
+    count of a probe row, and its k-th match is the k-th row of its run in
+    the stable sort (build rows in original order)."""
+    nb = bw.shape[0]
+    dev = bw.device
+    bk_m = torch.where(b_usable, bw, I64_MAX)
+    perm = lexsort([bk_m], extra_key=(~b_usable).to(torch.int64))
+    sw = bk_m[perm].contiguous()
+    nb_usable = b_usable.sum().to(torch.int32)
+    pwc = pw.contiguous()
+    lo = torch.searchsorted(sw, pwc, side="left").to(torch.int32)
+    hi = torch.minimum(torch.searchsorted(sw, pwc, side="right").to(torch.int32), nb_usable)
+    counts_match = torch.where(p_usable, torch.clamp(hi - lo, min=0), 0)
+
+    def get_kth(probe_of, nth):
+        pos = torch.clamp(lo[probe_of].to(torch.int64) + nth, 0, nb - 1)
+        return perm[pos].to(torch.int32)
+
+    return _expand_counts(counts_match, get_kth, probe_valid, out_capacity, join_type,
+                          torch.zeros((), dtype=torch.bool, device=dev),
+                          torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _expand_partitioned(bw, b_usable, pw, p_usable, probe_valid, plan: tuple, join_capacity: int,
+                        join_type: str, out_capacity: int):
+    """Non-unique fan-out over the partitioned tables: the dense
+    broadcast-compare's row sum is a probe slot's match count, and its
+    k-th matching build slot falls out of a cumsum over its compare row.
+    Escaped partitions count and expand through the sorted-merge extents
+    at esc_cap size, as the first-match overlay does."""
+    n_parts, part_cap, probe_cap, esc_cap = plan
+    nb, np_ = bw.shape[0], pw.shape[0]
+    P = n_parts
+    dev = bw.device
+    salt = join_capacity
+    b_pid = torch.where(b_usable, (hash_words([bw], salt) & (P - 1)).to(torch.int32), P)
+    p_pid = torch.where(p_usable, (hash_words([pw], salt) & (P - 1)).to(torch.int32), P)
+    b_tbl_idx, b_in, b_count, _b_opid, b_oidx, b_start = _partition(b_pid, P, part_cap, nb)
+    p_tbl_idx, p_in, p_count, _p_opid, p_oidx, p_start = _partition(p_pid, P, probe_cap, np_)
+    esc_part = (b_count > part_cap) | (p_count > probe_cap)
+    b_slot_ok = b_in & ~esc_part[:, None]
+    p_slot_ok = p_in & ~esc_part[:, None]
+    b_key_tbl = bw[b_tbl_idx.to(torch.int64)]
+    p_key_tbl = pw[p_tbl_idx.to(torch.int64)]
+    # every match, not the first: the dense compare
+    eq = (p_key_tbl[:, :, None] == b_key_tbl[:, None, :]) & b_slot_ok[:, None, :] & p_slot_ok[:, :, None]
+    nmatch_tbl = eq.sum(dim=-1, dtype=torch.int32)  # [P, probe_cap]
+
+    # ---- escape sub-join extents (general sorted-merge at esc_cap) ------
+    b_buf, b_ok_e, nbe = _escape_rows(b_oidx, b_start, b_count, esc_part, P, esc_cap, nb)
+    p_buf, p_ok_e, npe = _escape_rows(p_oidx, p_start, p_count, esc_part, P, esc_cap, np_)
+    bke = torch.where(b_ok_e, bw[b_buf.to(torch.int64)], I64_MAX)
+    perm_e = lexsort([bke], extra_key=(~b_ok_e).to(torch.int64))
+    swe = bke[perm_e]
+    usable_sorted = torch.arange(esc_cap, dtype=torch.int32, device=dev) < torch.clamp(nbe, max=esc_cap)
+    pke = pw[p_buf.to(torch.int64)]
+    lo_e, hi_e = merge_lo_hi(swe, usable_sorted, pke)
+    cnt_e = torch.where(p_ok_e, torch.clamp(hi_e - lo_e, min=0), 0)
+    esc_over = (nbe > esc_cap) | (npe > esc_cap)
+    escapes = (torch.clamp(nbe, max=esc_cap) + torch.clamp(npe, max=esc_cap)).to(torch.int64)
+    base_need = torch.where(esc_over, torch.maximum(nbe, npe).to(torch.int64) * ESC_DIV, 0)
+
+    # ---- each original probe row's table slot or escape slot ------------
+    s_pos = torch.empty(np_, dtype=torch.int32, device=dev)
+    s_pos[p_oidx.to(torch.int64)] = torch.arange(np_, dtype=torch.int32, device=dev)
+    pid_c = torch.clamp(p_pid, 0, P - 1).to(torch.int64)
+    r = s_pos - p_start[pid_c]  # slot within the partition's sorted run
+    escaped = esc_part[pid_c] & (p_pid < P)
+    in_tbl = (p_pid < P) & ~escaped & (r < probe_cap)
+    flat = pid_c * probe_cap + torch.clamp(r, 0, probe_cap - 1).to(torch.int64)
+    cnt_tbl_i = nmatch_tbl.reshape(-1)[flat]
+    # the row's escape-buffer position (the offsets _escape_rows packed
+    # by); rows past esc_cap count 0, esc_over already discards them
+    esc_cnt_p = torch.where(esc_part, p_count, 0).to(torch.int32)
+    p_off = torch.cat([esc_cnt_p.new_zeros(1), torch.cumsum(esc_cnt_p, 0, dtype=torch.int32)])[:-1]
+    e_i = p_off[pid_c] + r
+    e_ok = escaped & (e_i >= 0) & (e_i < esc_cap)
+    e_c = torch.clamp(e_i, 0, esc_cap - 1).to(torch.int64)
+    counts_match = torch.where(in_tbl, cnt_tbl_i, torch.where(e_ok, cnt_e[e_c], 0))
+    slots = torch.arange(part_cap, dtype=torch.int32, device=dev)
+
+    def get_kth(probe_of, nth):
+        pidj = pid_c[probe_of]
+        rj = torch.clamp(r[probe_of], 0, probe_cap - 1).to(torch.int64)
+        eq_rows = eq[pidj, rj]  # [out_cap, part_cap]
+        cum = torch.cumsum(eq_rows.to(torch.int32), dim=-1)
+        slotv = torch.where(eq_rows & (cum == (nth[:, None] + 1)), slots[None, :], part_cap)
+        bslot = torch.clamp(slotv.amin(dim=-1), 0, part_cap - 1).to(torch.int64)
+        idx_tbl = b_tbl_idx[pidj, bslot].to(torch.int32)
+        pos_e = torch.clamp(lo_e[e_c[probe_of]].to(torch.int64) + nth, 0, esc_cap - 1)
+        idx_esc = b_buf[perm_e[pos_e]].to(torch.int32)
+        return torch.where(in_tbl[probe_of], idx_tbl, idx_esc)
+
+    return _expand_counts(counts_match, get_kth, probe_valid, out_capacity, join_type, esc_over,
+                          base_need), escapes
+
+
 def radix_hash_join(
     build_keys: list[CompVal],
     probe_keys: list[CompVal],
@@ -232,10 +375,19 @@ def radix_hash_join(
     join_type: str,
     join_capacity: int,
     plan: tuple,
+    strategy: str | None = None,
+    build_unique: bool = True,
+    out_capacity: int | None = None,
 ):
-    """Equi-join under a unique build over the radix-partitioned tables,
-    with the output contract of ops/join.py's unique-build branch
-    (probe_identity layout: output slot j IS probe row j). Returns
+    """Equi-join over the radix-partitioned tables.
+
+    build_unique=True (the planner-proven shape): the output contract of
+    ops/join.py's unique-build branch (probe_identity layout: output slot
+    j IS probe row j). build_unique=False (the exchange join's shape):
+    inner / left_outer take the prefix-sum expansion, the contract of
+    ops/join.py's general path, in an `out_capacity` table (required);
+    semi / anti take the first-match probe, where fan-out is expected.
+    `strategy` overrides probe_strategy's choice. Returns
     (JoinResult, escapes int64): escapes is the escaped-row count the
     attribution reports; the JoinResult's `need` carries the
     join-capacity rung that clears an escape overflow (0 = growth will not
@@ -251,8 +403,18 @@ def radix_hash_join(
         raise ValueError("radix join is int-class only")
     dev = bw.device
     nb, np_ = bw.shape[0], pw.shape[0]
+    mode = strategy or probe_strategy(n_parts, part_cap, probe_cap)
 
-    if probe_strategy(n_parts, part_cap, probe_cap) == "search":
+    if not build_unique and join_type in ("inner", "left_outer"):
+        if out_capacity is None:
+            raise ValueError("a non-unique radix join needs out_capacity")
+        if mode == "search":
+            return (_expand_search(bw, b_usable, pw, p_usable, probe_valid, join_type, out_capacity),
+                    torch.zeros((), dtype=torch.int64, device=dev))
+        return _expand_partitioned(bw, b_usable, pw, p_usable, probe_valid, plan, join_capacity, join_type,
+                                   out_capacity)
+
+    if mode == "search":
         build_idx, dup = _probe_search(bw, b_usable, pw, p_usable, nb)
         matched = build_idx >= 0
         hard_over = torch.zeros((), dtype=torch.bool, device=dev)
@@ -261,8 +423,9 @@ def radix_hash_join(
     else:
         build_idx, matched, dup, hard_over, need, escapes = _probe_partitioned(
             bw, b_usable, pw, p_usable, plan, join_capacity)
-    # a fan-out > 1 violates the unique-build contract
-    overflow = hard_over | dup
+    # a fan-out > 1 violates the unique-build contract; under a non-unique
+    # build (semi / anti here) it is expected
+    overflow = (hard_over | dup) if build_unique else hard_over
     iota = torch.arange(np_, dtype=torch.int32, device=dev)
 
     if join_type in ("semi", "anti"):

@@ -7,8 +7,9 @@ reference would do work:
 
   columnar_would_serve  False: there is no columnar replica, so the row
                         store serves every plan
-  try_mpp_select        None, the reference's "declined" (no MPP exchange)
-  try_mesh_select       None, the reference's "declined" (no device mesh)
+  try_mpp_select        None, the reference's "declined" (the MPP tier's
+                        fragment dispatch is not ported; the session then
+                        takes the mesh select, parallel/sql.py)
   columnar_views, changefeed_views, log_backup_views
                         the rows of SHOW COLUMNAR TABLES / CHANGEFEEDS /
                         BACKUP LOGS: none, as on a reference store with no
@@ -27,10 +28,6 @@ def columnar_would_serve(store, dag, ranges, engines) -> bool:
 
 
 def try_mpp_select(store, dag, ranges, start_ts, **kwargs):
-    return None
-
-
-def try_mesh_select(store, dag, ranges, start_ts, **kwargs):
     return None
 
 

@@ -14,10 +14,12 @@ EXPLAIN. Everything else raises loudly rather than silently no-op.
 
 Port of `tidb_tpu/sql/session.py` (imports rewritten; it imports nothing of
 tidb_tpu). The session runs over the port's store on `device` (default
-"cuda"). What differs from the reference: the subsystems the port does not
-have answer through `seams.py` (no columnar replica, MPP or mesh tier;
-CHANGEFEED, BACKUP, RESTORE and log backup raise "not ported"), and LOAD
-STATS resolves a relative path against the working directory.
+"cuda"), its mesh tier and mesh select over `mesh_devices` (the store's
+device list, runtime.mesh_devices). What differs from the reference: the
+subsystems the port does not have answer through `seams.py` (no columnar
+replica, no MPP fragment dispatch; CHANGEFEED, BACKUP, RESTORE and log
+backup raise "not ported"), and LOAD STATS resolves a relative path
+against the working directory.
 """
 
 from __future__ import annotations
@@ -277,7 +279,7 @@ class Session:
     (ref: pkg/testkit TestKit over a shared mockstore)."""
 
     def __init__(self, store: TPUStore | None = None, catalog: Catalog | None = None, config=None,
-                 device="cuda"):
+                 device="cuda", mesh_devices=None):
         from ..config import Config
         from . import builtins_host
         from .sysvar import SysVarStore
@@ -286,8 +288,9 @@ class Session:
         # fresh session must not inherit a previous session's SET
         builtins_host.BLOCK_ENCRYPTION_MODE = "aes-128-ecb"
         # a new store lives on `device`: "cuda" unless the caller asks for
-        # the CPU (it raises without CUDA, as runtime.resolve_device does)
-        self.store = store or TPUStore(device=device)
+        # the CPU (it raises without CUDA, as runtime.resolve_device does);
+        # its mesh tier shards over `mesh_devices` (runtime.mesh_devices)
+        self.store = store or TPUStore(device=device, mesh_devices=mesh_devices)
         if catalog is None and store is not None:
             # reopening an existing store: recover the schema from the
             # m-prefix keyspace (ref: domain.go:1131 infoschema reload)
@@ -2005,6 +2008,7 @@ class Session:
                             allow_mpp=self.sysvars.get_bool("tidb_allow_mpp"),
                             allow_mesh=self.sysvars.get_bool("tidb_enable_tpu_mesh"),
                             columnar_routed=_columnar_routed,
+                            n_devices=len(self.store.mesh_devices),
                         )
                         gc = self.sysvars.get_int("tidb_tpu_group_capacity")
                         if decision.tier == "mpp":
@@ -2024,7 +2028,7 @@ class Session:
                             # mpp declined (counted fallback): the mesh
                             # shortcut still applies unless the columnar
                             # replica owns the plan (engine routing)
-                            from .seams import try_mesh_select
+                            from ..parallel.sql import try_mesh_select
 
                             chunk = try_mesh_select(
                                 self.store, plan.dag, ranges, ts,

@@ -18,7 +18,12 @@ region tasks together (ref: copr/batch_coprocessor.go): tasks of one DAG
 and snapshot are grouped, bucketed by power-of-two capacity, and each
 bucket of regions runs ONE execution of the region-batched program
 (drive_batched_program_info); a lane whose flags fired, and a whole
-bucket on any error, take the single-request path.
+bucket on any error, take the single-request path. A group of requests
+with `mesh` set first tries the MESH tier (`_run_cop_mesh`): the group's
+lanes split over the store's `mesh_devices` (runtime.mesh_devices), each shard
+runs the region-batched program, the partial states merge across the
+shards, and the group answers with ONE merged state (`mesh_merged`);
+any decline or failure degrades the group to the batched tier.
 
 The store also carries the SQL session's write side: the Percolator
 engine (`txn`, store/txn.py; every commit bumps the write version, which
@@ -26,10 +31,9 @@ drops the result cache), the registry of open snapshots that bounds MVCC
 GC (`register_snapshot`, `run_gc`, `gc_safepoint`), `advance_tso`,
 `ping_store` and the admission gate (server/admission.py).
 
-Left out, beside the reference: the mesh tier (a request with `mesh` set
-takes the batched tier, as the reference does when its mesh tier
-declines), replica reads (a follower read answers other_error),
-failpoints, metrics (the batched tier's counts are in stats()), Top SQL
+Left out, beside the reference: replica reads (a follower read answers
+other_error), failpoints, most metrics (the batched and mesh tiers' counts
+are in stats(), the mesh counters also in util/metrics.py), Top SQL
 and PD flow recording, and the write path's quorum and CDC guards: the
 engine's replication, quorum, CDC and group-commit hooks are None, and
 the two the bulk loader calls itself (`_check_write_quorum`,
@@ -39,6 +43,7 @@ the two the bulk loader calls itself (`_check_write_quorum`,
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
 from dataclasses import dataclass, field, replace
@@ -51,6 +56,7 @@ from ..exec.builder import DEFAULT_GROUP_CAPACITY, ProgramCache
 from ..exec.dag import DAGRequest
 from ..exec.executor import (OverflowRetryError, _pow2, drive_batched_program_info, drive_program_info,
                              run_dag_reference)
+from ..runtime import mesh_devices as _mesh_devices
 from ..runtime import resolve_device
 from ..types import Datum
 from .kv import MemKV
@@ -81,9 +87,10 @@ class CopRequest:
     cop_handler.go:210 lastRange). Row-local DAGs only — aggregations
     cannot produce correct partials from a partial scan.
 
-    mesh and mesh_min_rows belong to the reference's mesh tier; this store
-    has none (batch_coprocessor serves a mesh request in its batched tier),
-    but they travel on the wire, so they are kept."""
+    mesh: the request may take the store's mesh tier (batch_coprocessor
+    merges a same-DAG group's partial states across the mesh devices);
+    mesh_min_rows: the data-size floor the store holds the group's decoded
+    rows to before it tries the mesh."""
 
     dag: DAGRequest
     ranges: list
@@ -131,7 +138,7 @@ class CopResponse:
     exec_summaries: list = field(default_factory=list)
     last_range: list | None = None  # [KeyRange] resume cursor; None = drained
     batched: int = 0  # the bucket's id when the batched tier served it
-    mesh_merged: int = 0  # the reference's mesh-tier marker; always 0 here
+    mesh_merged: int = 0  # the mesh tier served it: the lanes its merged state covers
 
 
 def _apply_radix_attribution(summaries: list, walk, info) -> None:
@@ -179,10 +186,12 @@ def split_by_rows(total_ns: int, rows: list) -> list:
 # caches missed, and the batched tier's buckets (batch_batches: program
 # executions over a bucket; batch_regions: lanes a bucket served;
 # batch_launches_saved: executions a bucket spared over one per region;
-# batch_fallbacks: groups or buckets that an error sent to the single path)
+# batch_fallbacks: groups or buckets that an error sent to the single path;
+# mesh_batches / mesh_lanes / mesh_fallbacks: the mesh tier's launches, the
+# lanes they merged, and the groups it declined or that failed)
 STAT_KEYS = ("device_served", "oracle_fallbacks", "result_cache_hits", "other_errors", "chunk_decodes",
              "native_decodes", "device_uploads", "aux_uploads", "batch_batches", "batch_regions",
-             "batch_launches_saved", "batch_fallbacks")
+             "batch_launches_saved", "batch_fallbacks", "mesh_batches", "mesh_lanes", "mesh_fallbacks")
 
 
 class TPUStore:
@@ -192,8 +201,11 @@ class TPUStore:
     _AUX_CACHE_MAX = 16
     _COP_CACHE_MAX = 128
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", mesh_devices=None):
         self.device = resolve_device(device)
+        # the devices the mesh tier shards over (runtime.mesh_devices: all
+        # visible cards for a cuda store, the store's device for a cpu one)
+        self.mesh_devices = _mesh_devices(device, mesh_devices)
         self.kv = MemKV()
         self.cluster = Cluster()
         self.programs = ProgramCache()
@@ -823,8 +835,113 @@ class TPUStore:
                 i, req, _region = entries[0]
                 responses[i] = self.coprocessor(req, group_capacity)
                 continue
+            if entries[0][1].mesh and self._run_cop_mesh(entries, responses, group_capacity):
+                continue  # merged across the mesh; else degrade to the batched tier
             self._run_cop_batch(entries, responses, group_capacity)
         return responses
+
+    # data-size floor for the mesh tier on the group's ACTUAL decoded rows
+    # (the client's estimate only gated the attempt): below it the batched
+    # tier serves. Environment-tunable for benches.
+    MESH_MIN_GROUP_ROWS = int(os.environ.get("TIDB_TPU_MESH_MIN_ROWS", "0"))
+
+    def _mesh_fallback(self) -> bool:
+        from ..util import metrics
+
+        metrics.MESH_COP_FALLBACKS.inc()
+        self._count("mesh_fallbacks")
+        return False
+
+    def _run_cop_mesh(self, entries, responses, group_capacity: int) -> bool:
+        """ONE mesh-program run for a same-DAG group of region tasks (the
+        dispatch planner's MESH tier): decode every lane, stack to the
+        group's max power-of-two capacity, pad the region axis to a
+        multiple of the mesh width, and merge the per-region results
+        across the shards — a sum / min / max of partial aggregate states,
+        a merge-mode re-group for GROUP BY tables, a re-top-k for TopN. The
+        group's first lane answers with the ONE merged chunk; the rest
+        answer empty with the same mesh_merged marker, so the root merges a
+        single state per store.
+
+        Returns True when every lane was answered; False degrades the whole
+        group to the batched tier (an ineligible DAG, too few rows, padding
+        skew, overflow, or any failure of the mesh program), which owns the
+        per-lane capacity ladder and the oracle fallback. The dispatch
+        planner marks requests for the mesh only on two or more devices."""
+        from ..distsql.planner import mesh_merge_kind
+        from ..exec.dag import executor_walk
+        from ..exec.executor import drive_mesh_program_info
+        from ..parallel.mesh import region_mesh
+        from ..util import metrics, tracing
+
+        req0 = entries[0][1]
+        dag = req0.dag
+        kind = mesh_merge_kind(dag)
+        if kind is None:
+            return False
+        t0 = time.monotonic_ns()
+        try:
+            with tracing.span("cop.mesh_decode", regions=len(entries)) as dsp:
+                chunks = [self.region_chunk(region, req.ranges, dag, req.start_ts) for (_i, req, region) in entries]
+                if dsp is not None:
+                    dsp.set("bytes_to_device", sum(ch.nbytes() for ch in chunks))
+                aux_batches = [self._aux_batch(c) for c in req0.aux_chunks]
+        except Exception:  # noqa: BLE001 — degrade, never lose the group
+            return False
+        floor = max(self.MESH_MIN_GROUP_ROWS, req0.mesh_min_rows)
+        if sum(ch.num_rows() for ch in chunks) < floor:
+            # the data-size tier rule: small groups ride the batched tier
+            # (counted, so a decline shows apart from "never attempted")
+            return self._mesh_fallback()
+        caps = [_pow2(max(ch.num_rows(), 1)) for ch in chunks]
+        cap = max(caps)
+        # skew guard: every lane pads to the group's MAX capacity, so one
+        # giant region among small ones would inflate the stack toward
+        # lanes * max; past 4x the honest footprint the bucketed tier serves
+        if cap * len(caps) > 4 * sum(caps):
+            return self._mesh_fallback()
+        D = min(len(self.mesh_devices), len(chunks))
+        mesh = region_mesh(self.mesh_devices, D)
+        R_pad = -(-len(chunks) // D) * D  # empty lanes pad the region axis
+        lanes = list(chunks) + [Chunk.empty(chunks[0].field_types()) for _ in range(R_pad - len(chunks))]
+        try:
+            with tracing.span("cop.mesh_execute", regions=len(entries), devices=D, kind=kind) as xsp:
+                stacked = to_stacked_device_batch(lanes, cap, device=mesh.lead)
+                merged, lane_counts, info = drive_mesh_program_info(self.programs, dag, stacked, aux_batches,
+                                                                    group_capacity, kind, mesh,
+                                                                    small_groups=req0.small_groups)
+                if xsp is not None:
+                    xsp.set("cache_hit", info["cache_hit"])
+        except Exception:  # noqa: BLE001 — degrade, never lose the group
+            return self._mesh_fallback()
+        if merged is None:
+            # the global overflow flag: the batched tier's PER-LANE ladder
+            # isolates the overflowing region instead
+            return self._mesh_fallback()
+        elapsed = time.monotonic_ns() - t0
+        # one run served every lane: its time splits by each lane's decoded
+        # rows, and the shares sum exactly to the run's
+        shares = split_by_rows(elapsed, [ch.num_rows() for ch in chunks])
+        walk = executor_walk(dag.executors)
+        out_fts = merged.field_types()
+        metrics.MESH_COP_BATCHES.inc()
+        self._count("mesh_batches")
+        for k, (i, _req, _region) in enumerate(entries):
+            metrics.MESH_COP_LANES.inc()
+            self._count("mesh_lanes")
+            self._count("device_served")
+            # the first lane carries the one merged state; the rest answer
+            # empty, so the root sees one row block per store
+            out_chunk = merged if k == 0 else Chunk.empty(out_fts)
+            summaries = self._lane_attribution(chunks[k], out_chunk.nbytes() if k == 0 else 0, lane_counts[k],
+                                               shares[k], compile_ns=info["compile_ns"] if k == 0 else 0,
+                                               cache_hit=info["cache_hit"] if k == 0 else True, walk=walk,
+                                               radix_info=info if k == 0 else None)
+            # not result-cached: the merged state covers the whole group, not
+            # one region's data version
+            responses[i] = CopResponse(chunk=out_chunk, exec_summaries=summaries, batched=1,
+                                       mesh_merged=len(entries))
+        return True
 
     def _lane_attribution(self, in_chunk, out_bytes: int, counts, share: int, compile_ns: int,
                           cache_hit: bool, walk, radix_info=None) -> list:

@@ -181,24 +181,55 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      MAX (the gather and sign-flip merges), phase 9's Q3 (K2 and K3 once a
      shard) and the TopN, each equal to numpy and to the batch tier, the
      push half's batch_stats one mesh batch over every region, no mesh
-     fallback; then a Session over that store, its mesh select (the hash
-     exchange) for TPC-H Q1's GROUP BY, GROUP BY l_orderkey (514,729
-     groups), a grouped COUNT(DISTINCT) (the raw-row exchange) and
-     lineitem JOIN orders grouped by o_orderdate (the shuffle join), each
-     equal to numpy and counted by MESH_SELECTS, the ladder's rung and the
-     exchange's bytes and bucket capacities printed; and the join 1:32
-     (a 2^16-row build, 700 groups) through parallel.sql.try_mesh_select
-     with its radix plan and K4's launches; median host ms of 3 runs on the
-     mesh and on the batch tier (with --profile, the device busy share of
-     the mesh Q1 and the session join).
+     fallback; then a Session over that store: TPC-H Q1's GROUP BY, GROUP
+     BY l_orderkey (514,729 groups), a grouped COUNT(DISTINCT) (the raw-row
+     exchange) and lineitem JOIN orders grouped by o_orderdate (the shuffle
+     join) on its MPP tier (mpp/dispatch.py try_mpp_select: the fragment
+     plan through the wire frames, the probe scan through select, the
+     exchange program; MPP_SELECTS +1, MPP_FALLBACKS +0 a statement), on
+     the mesh select (SET tidb_allow_mpp = OFF) and on the batch tier, each
+     equal to numpy and the two exchange tiers to each other; the fragment
+     frame's bytes, MPP_FRAGMENTS, MPP_TASKS, MPP_EXCHANGED_BYTES, the
+     ladder's rung and the exchange's bytes and bucket capacities printed;
+     Q1's GROUP BY once with each of mpp/dispatch-lost and
+     mpp/exchange-stall armed (one MPP_FALLBACKS each, the mesh select
+     answers) and cop-region-error armed for one hit (DISTSQL_RETRIES +1,
+     MPP still serves); and the join 1:32 (a 2^16-row build, 700 groups)
+     through parallel.sql.try_mesh_select with its radix plan and K4's
+     launches; median host ms of 3 runs a path (GROUP BY l_orderkey: one)
+     (with --profile, the device busy share of the mesh Q1 and the
+     session join on the MPP tier);
+ 13. the control plane on phase 11's session and store: three logical
+     placement stores (three peers a region), TiKV's split thresholds and
+     one PD tick, SHOW PLACEMENT; follower reads (SET tidb_replica_read =
+     'follower') of TPC-H Q1 (K1), Q6 and the Q3-shaped join (K2) in the
+     pool and batch tiers, each equal to numpy and to the leader read,
+     REPLICA_READS{follower} growing, median host ms of 3 runs beside the
+     leader read; failover: the leader store of lineitem's first region
+     down, Q1 and Q6 equal to numpy, PD_FAILOVERS and PD_TRANSFER_LEADER
+     up with no placement move, then set_up, a tick and every breaker
+     closed; the safe_ts gate: replica/apply-lag armed for the store the
+     follower router picks next, an UPDATE of the lineitem rows with
+     l_orderkey < 64 (l_quantity + 1) committed as one transaction of its
+     rows through the store's Percolator engine, a follower read at the new
+     snapshot that takes
+     DataIsNotReady on that store's peers, retries and equals numpy on the
+     updated rows, then disarm, a tick, no safe_ts lag and that store
+     serving follower reads again; and a split storm: the PD timer every
+     0.05 s at a 2^17-key limit while Q1 and Q6 run in the pool tier, until
+     no region holds more than 2^17 keys, every answer equal to numpy, the
+     regions and operators printed. Phases 6, 10, 11 and 12 print the time
+     their loads spent in the store's write hooks (the quorum gate, the
+     flow record and the replication proposals).
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6-12); the last line is {"ok": true,
+the main paths of phases 4 and 6-13); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -916,6 +947,26 @@ def _customer_encode(span):
     return W.customer_items(codec, W.customer_rows(types, _LOAD_TABLE, lo, hi))
 
 
+def hook_seconds(store) -> float:
+    """Seconds the store's bulk-write hooks have taken so far: the
+    write-quorum gate before each bulk apply (TxnEngine's pre_apply) and the
+    PD flow record and replication proposals after it (on_apply). Timing
+    wrappers go onto the store's transaction engine at the first call."""
+    clock = getattr(store.txn, "_hook_clock", None)
+    if clock is None:
+        clock = store.txn._hook_clock = [0.0]
+        for attr in ("_pre_apply", "_on_apply"):
+            def timed(*a, _real=getattr(store.txn, attr), **k):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    clock[0] += time.perf_counter() - t0
+
+            setattr(store.txn, attr, timed)
+    return clock[0]
+
+
 def load_store(store, n: int, n_orders: int, init=_load_init, initargs=None, encode=_load_encode, chunk=None):
     """Encode the table's rows with the port's Python row encoder in
     LOAD_WORKERS processes, `chunk` rows at a time (STORE_LOAD_CHUNK by
@@ -960,9 +1011,11 @@ def store_phase(E, X, T, W, counters, dev, profile: bool) -> None:
         raise SystemExit("phase 6: the native row decoder did not build")
     n, tid = STORE_ROWS, W.LINEITEM_TABLE_ID
     store = TPUStore(device=dev)
+    h0 = hook_seconds(store)
     secs, nbytes = load_store(store, n, STORE_ORDERS)
     log(f"phase 6 load: {n} rows ({nbytes} B of keys and rowcodec values, {nbytes / n:.1f} B a row) "
-        f"in {secs:.2f} s ({n / secs:.0f} rows/s, {LOAD_WORKERS} encoder processes)")
+        f"in {secs:.2f} s ({n / secs:.0f} rows/s, {LOAD_WORKERS} encoder processes; the store's write hooks"
+        f" {hook_seconds(store) - h0:.2f} s of it)")
     store.cluster.split(codec.encode_row_key(tid, STORE_SPLIT))
     t = W.store_lineitem(n, STORE_ORDERS)
     regions = [(r, lo, hi) for r, (lo, hi) in zip(store.cluster.regions(), [(0, STORE_SPLIT), (STORE_SPLIT, n)])]
@@ -1833,9 +1886,11 @@ def expr_phase(store, E, X, T, W, counters, profile: bool, card: str, line_sizes
     store.cluster.split(codec.record_prefix(ctid))
     for h in range(EXPR_REGION, n, EXPR_REGION):
         store.cluster.split(codec.encode_row_key(ctid, h))
+    h0 = hook_seconds(store)
     secs, nbytes = load_store(store, n, None, _customer_init, (n,), _customer_encode)
     log(f"phase 10 load: {n} customer rows ({nbytes} B of keys and rowcodec values, {nbytes / n:.1f} B a row) in "
-        f"{secs:.2f} s ({LOAD_WORKERS} encoder processes), {n // EXPR_REGION} regions of {EXPR_REGION} rows")
+        f"{secs:.2f} s ({LOAD_WORKERS} encoder processes; the store's write hooks {hook_seconds(store) - h0:.2f} s"
+        f" of it), {n // EXPR_REGION} regions of {EXPR_REGION} rows")
     cust = W.store_customer(n)
     line = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
 
@@ -2345,8 +2400,10 @@ def session_phase(old, E, X, T, W, counters, profile: bool, card: str, line_size
         store.cluster.split(codec.record_prefix(tids[name]))
         for h in handles:
             store.cluster.split(codec.encode_row_key(tids[name], h))
+    h0, t_copy = hook_seconds(store), time.perf_counter()
     n_line = copy_table(old, W.LINEITEM_TABLE_ID, store, tids["lineitem"])
     n_cust = copy_table(old, W.CUSTOMER_TABLE_ID, store, tids["customer"])
+    t_copy, h_copy = time.perf_counter() - t_copy, hook_seconds(store) - h0
     secs, _nbytes = load_store(store, SESSION_ORDERS, SESSION_CUSTOMERS, _orders_init,
                                (SESSION_ORDERS, SESSION_CUSTOMERS, tids["orders"]), _orders_encode,
                                chunk=max(SESSION_ORDERS // LOAD_WORKERS, 1))
@@ -2356,8 +2413,10 @@ def session_phase(old, E, X, T, W, counters, profile: bool, card: str, line_size
     cust = W.store_customer(EXPR_ROWS)
     okey, _ocust, odate = (c[0] for c in W.store_q3_build_columns(SESSION_ORDERS, SESSION_CUSTOMERS)[0])
     log(f"phase 11 load: lineitem {n_line} rows ({len(line_sizes)} regions) and customer {n_cust} rows (4 regions)"
-        f" copied from phase 10's store under the catalog's table ids {tids}, orders {SESSION_ORDERS} rows"
-        f" encoded in {secs:.2f} s ({LOAD_WORKERS} processes, 2 regions); {time.perf_counter() - t0:.2f} s")
+        f" copied from phase 10's store under the catalog's table ids {tids} in {t_copy:.2f} s (the store's write"
+        f" hooks {h_copy:.2f} s of it), orders {SESSION_ORDERS} rows encoded in {secs:.2f} s ({LOAD_WORKERS}"
+        f" processes, 2 regions; write hooks {hook_seconds(store) - h0 - h_copy:.2f} s);"
+        f" {time.perf_counter() - t0:.2f} s")
     r = s.execute(f"SELECT o_orderkey, o_orderdate, o_custkey FROM orders WHERE o_orderkey = {SESSION_ORDERS - 3}")
     if [(r.rows[0][0].val, r.rows[0][1].val.packed, r.rows[0][2].val)] != [
             (SESSION_ORDERS - 3, int(odate[-3]), int(_ocust[-3]))]:
@@ -2573,6 +2632,9 @@ MESH_Q3_GROUPS = 1 << 17        # Q3's 70,670 groups at 2^21 rows: the store's g
 MESH_OKEY_GROUPS = 1 << 19      # GROUP BY l_orderkey's 514,729 groups (and a shard's Partial1 table)
 MESH_JOIN_BUILD = 1 << 16       # the join 1:32's build: the first 2^16 order keys
 MESH_JOIN_GROUPS = JOIN_GROUPS  # its payload's groups (bench.py's ladder section)
+MESH_OKEY_REPS = 1              # GROUP BY l_orderkey: one run a path (its 514,729-row Result takes 10-14 s)
+MPP_COUNTERS = ("MPP_SELECTS", "MPP_FALLBACKS", "MESH_SELECTS", "MPP_FRAGMENTS", "MPP_TASKS", "MPP_EXCHANGED_BYTES",
+                "DISTSQL_RETRIES")
 MESH_SESSION = {
     # name: (statement, tidb_tpu_group_capacity); no ORDER BY, whose Sort
     # keeps a plan off the mesh select
@@ -2648,6 +2710,7 @@ def mesh_phase(src, E, X, T, W, counters, profile: bool, card: str, line_sizes: 
         for h in handles:
             store.cluster.split(codec.encode_row_key(tids[name], h))
     # the session store's encoded pairs, through bulk_ingest (no re-encoding)
+    h0 = hook_seconds(store)
     n_line = copy_table(src.store, tids["lineitem"], store, tids["lineitem"])
     n_ord = copy_table(src.store, tids["orders"], store, tids["orders"])
     if (n_line, n_ord) != (STORE_ROWS, SESSION_ORDERS):
@@ -2656,7 +2719,7 @@ def mesh_phase(src, E, X, T, W, counters, profile: bool, card: str, line_sizes: 
     lanes = -(-regions // MESH_SHARDS) * MESH_SHARDS
     log(f"phase 12 load: lineitem {n_line} rows in {regions} regions (padded to {lanes} lanes, {lanes // MESH_SHARDS}"
         f" a shard) and orders {n_ord} rows copied into a TPUStore(mesh_devices={shards}) in"
-        f" {time.perf_counter() - t0:.2f} s")
+        f" {time.perf_counter() - t0:.2f} s (the store's write hooks {hook_seconds(store) - h0:.2f} s of it)")
 
     t = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
     tid = tids["lineitem"]
@@ -2749,11 +2812,11 @@ def mesh_phase(src, E, X, T, W, counters, profile: bool, card: str, line_sizes: 
         tier = {"mesh": True} if mesh else {"mesh": False, "batch_cop": True}
         return execute_root(store, dag, ranges, ts, **extra, **tier)
 
-    def timed(fn, first=None):
-        """(median ms of MESH_REPS runs, the first run's result); the first
+    def timed(fn, first=None, reps=MESH_REPS):
+        """(median ms of `reps` runs, the first run's result); the first
         run is `first` (the checked main-path run) when given."""
         ms, out = [], None
-        for i in range(MESH_REPS):
+        for i in range(reps):
             t1 = time.perf_counter()
             res = (first if i == 0 and first is not None else fn)()
             torch.cuda.synchronize()
@@ -2823,55 +2886,104 @@ def mesh_phase(src, E, X, T, W, counters, profile: bool, card: str, line_sizes: 
             log("phase 12: one card visible: the default mesh (every visible card) is 1 wide and declines; the"
                 f" {MESH_SHARDS} shards above share it")
 
-        # the session's mesh select
+        # the session's exchange statements: the MPP tier (tidb_allow_mpp
+        # ON, the default: try_mpp_select, the fragment plan through the
+        # wire frames, the probe scan through select), the mesh select
+        # (tidb_allow_mpp OFF) and the batch tier (the mesh off)
+        from tidb_tpu_torch.codec.wire import encode_fragment_plan
+        from tidb_tpu_torch.mpp.fragment import fragment_plan
+        from tidb_tpu_torch.parser import parse_one
+        from tidb_tpu_torch.sql import plan_select
+        from tidb_tpu_torch.util import failpoint
+
         s = Session(store=store, catalog=src.catalog, device=DEVICE)
         _okey, _ocust, odate = (c[0] for c in W.store_q3_build_columns(SESSION_ORDERS, SESSION_CUSTOMERS)[0])
         want = session_mesh_answers(t, odate, T)
+        tiers = {"mpp": (1, 0, 1), "mesh": (0, 0, 1)}  # (MPP_SELECTS, MPP_FALLBACKS, MESH_SELECTS) a run
+
+        def mpp_counts() -> dict:
+            return {k: getattr(metrics, k).value for k in MPP_COUNTERS}
+
         for name, (sql, gc) in MESH_SESSION.items():
             s.execute(f"SET tidb_tpu_group_capacity = {gc}")
+            reps = MESH_OKEY_REPS if name == "okey" else MESH_REPS
 
-            def on_mesh(sql=sql):
+            def on_tier(tier, sql=sql, name=name):
+                """One run on `tier`, its counters held to the tier's."""
                 store.clear_result_cache()
-                m0 = metrics.MESH_SELECTS.value
+                c0 = mpp_counts()
                 res = s.execute(sql)
-                if metrics.MESH_SELECTS.value != m0 + 1:
-                    raise SystemExit(f"phase 12 {name}: MESH_SELECTS moved by {metrics.MESH_SELECTS.value - m0}")
-                return res
+                d = {k: v - c0[k] for k, v in mpp_counts().items()}
+                if (d["MPP_SELECTS"], d["MPP_FALLBACKS"], d["MESH_SELECTS"]) != tiers[tier]:
+                    raise SystemExit(f"phase 12 session {name} ({tier}): counters moved by {d}, not "
+                                     f"(MPP_SELECTS, MPP_FALLBACKS, MESH_SELECTS) = {tiers[tier]}")
+                return res, d
 
-            def first_on_mesh(sql=sql, name=name):
+            def first_on(tier, name=name):
                 # the main path: counters zeroed around it, its exchanges
                 # read from the trace's spans
-                with tracing.trace(f"session {name}") as root:
-                    res = counters.path(f"session {name} mesh select", on_mesh, phase=12)
-                moved.update(exchange_spans(root))
+                with tracing.trace(f"session {name} {tier}") as root:
+                    res, d = counters.path(f"session {name} {tier}", lambda: on_tier(tier), phase=12)
+                moved[tier] = (exchange_spans(root), d, len(root.find("mpp.dispatch")))
                 return res
 
             t1 = time.perf_counter()
             st0, o0, f0 = store.stats(), oracle_calls[0], metrics.MESH_COP_FALLBACKS.value
             moved = {}
-            # the first run of each tier is checked against numpy, and every
-            # run is timed (a 514,729-row Result takes seconds to build)
-            ms_mesh, res = timed(on_mesh, first=first_on_mesh)
-            what = session_mesh_answer(name, res, want[name], T)
+            dag = plan_select(parse_one(sql), s.catalog).dag
+            frame = encode_fragment_plan(fragment_plan(dag, n_tasks=MESH_SHARDS))
+            answers, ms = {}, {}
+            for tier in ("mpp", "mesh"):
+                s.execute(f"SET tidb_allow_mpp = {'ON' if tier == 'mpp' else 'OFF'}")
+                # the first run of each tier is checked against numpy, and
+                # every run is timed (a 514,729-row Result takes seconds)
+                ms[tier], res = timed(lambda tier=tier: on_tier(tier)[0], first=lambda tier=tier: first_on(tier),
+                                      reps=reps)
+                what = session_mesh_answer(name, res, want[name], T)
+                answers[tier] = sorted(tuple(None if d.is_null() else str(d.val) for d in r) for r in res.rows)
+            s.execute("SET tidb_allow_mpp = ON")
+            if answers["mpp"] != answers["mesh"]:
+                raise SystemExit(f"phase 12 session {name}: the MPP tier's answer differs from the mesh select's")
             clean(f"session {name}", st0, o0, f0)
-            from tidb_tpu_torch.parser import parse_one
-            from tidb_tpu_torch.sql import plan_select
-
-            rung = mppd.ladder_rung(plan_select(parse_one(sql), s.catalog).dag, MESH_SHARDS, gc)
+            rung = mppd.ladder_rung(dag, MESH_SHARDS, gc)
             s.execute("SET tidb_enable_tpu_mesh = 0")
             s.execute("SET tidb_allow_batch_cop = 1")
-            ms_batch, res = timed(lambda sql=sql: (store.clear_result_cache(), s.execute(sql))[1])
+            ms_batch, res = timed(lambda sql=sql: (store.clear_result_cache(), s.execute(sql))[1], reps=reps)
             session_mesh_answer(name, res, want[name], T)
             s.execute("SET tidb_enable_tpu_mesh = 1")
             s.execute("SET tidb_allow_batch_cop = 0")
             clean(f"session {name} timed", st0, o0, f0)
-            log(f"phase 12 session {name}: the mesh select -> {what} == numpy; ladder rung (group capacity, scale)"
-                f" {rung}; exchanges {moved['exchanges']}, {moved['bytes']} B of send buckets, bucket capacities"
-                f" {moved['bucket_caps']}; each shard's local join {sorted({str(j) for j in moved['joins']})};"
-                f" median of {MESH_REPS}: mesh {ms_mesh:.3f} ms, batch tier {ms_batch:.3f} ms [{card}]"
-                f" ({time.perf_counter() - t1:.1f} s)")
+            ex, d, spans = moved["mpp"]
+            log(f"phase 12 session {name}: the MPP tier -> {what} == numpy == the mesh select; fragment plan frame"
+                f" {len(frame)} B, {spans} mpp.dispatch span; MPP_FRAGMENTS +{d['MPP_FRAGMENTS']}, MPP_TASKS"
+                f" +{d['MPP_TASKS']}, MPP_EXCHANGED_BYTES +{d['MPP_EXCHANGED_BYTES']}; ladder rung (group"
+                f" capacity, scale) {rung}; exchanges {ex['exchanges']}, {ex['bytes']} B of send buckets, bucket"
+                f" capacities {ex['bucket_caps']}; each shard's local join {sorted({str(j) for j in ex['joins']})};"
+                f" median of {reps}: MPP {ms['mpp']:.3f} ms, mesh select {ms['mesh']:.3f} ms, batch tier"
+                f" {ms_batch:.3f} ms [{card}] ({time.perf_counter() - t1:.1f} s)")
             if profile and name == "join":
-                profile_path("phase 12 session join on the mesh select", on_mesh, ms_mesh)
+                profile_path("phase 12 session join on the MPP tier", lambda: on_tier("mpp"), ms["mpp"])
+        # the MPP tier's failure discipline on Q1's GROUP BY: a lost
+        # dispatch and a stalled exchange are counted fallbacks that the
+        # mesh select answers; an injected epoch error in the probe scan
+        # is retried by the dispatch loop and MPP still serves
+        sql, gc = MESH_SESSION["q1"]
+        s.execute(f"SET tidb_tpu_group_capacity = {gc}")
+        for fp_name, hits, moves in (("mpp/dispatch-lost", True, {"MPP_FALLBACKS": 1, "MPP_SELECTS": 0}),
+                                     ("mpp/exchange-stall", True, {"MPP_FALLBACKS": 1, "MPP_SELECTS": 0}),
+                                     ("cop-region-error", 1, {"DISTSQL_RETRIES": 1, "MPP_SELECTS": 1,
+                                                              "MPP_FALLBACKS": 0})):
+            st0, o0, f0 = store.stats(), oracle_calls[0], metrics.MESH_COP_FALLBACKS.value
+            store.clear_result_cache()
+            c0 = mpp_counts()
+            with failpoint.enabled(fp_name, hits):
+                res = s.execute(sql)
+            d = {k: v - c0[k] for k, v in mpp_counts().items()}
+            if any(d[k] != v for k, v in moves.items()) or d["MESH_SELECTS"] != 1:
+                raise SystemExit(f"phase 12 {fp_name}: counters moved by {d}, expected {moves} and MESH_SELECTS 1")
+            what = session_mesh_answer("q1", res, want["q1"], T)
+            clean(f"session q1 under {fp_name}", st0, o0, f0)
+            log(f"phase 12 session q1 with {fp_name} armed ({hits}): {what} == numpy; counters moved by {d}")
         s.execute("SET tidb_tpu_group_capacity = 4096")
 
         # the join 1:32 through try_mesh_select, the build as aux_chunks
@@ -2955,6 +3067,292 @@ def session_mesh_answer(name, res, want, T) -> str:
         raise SystemExit(f"phase 12 session {name}: {len(got)} groups, numpy {len(want)}; first difference at {bad}:"
                          f" {got.get(bad)} != {want.get(bad)}")
     return f"{len(got)} groups"
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the control plane
+# ---------------------------------------------------------------------------
+
+CONTROL_STORES = 3               # logical placement stores: three peers a region
+CONTROL_REPS = 3
+CONTROL_SPLIT_SIZE = 96 << 20    # TiKV's documented region-split-size (bytes)
+CONTROL_SPLIT_KEYS = 960_000     # TiKV's documented region-split-keys (the setup's; no region is near it)
+CONTROL_STORM_KEYS = 1 << 17     # the storm's key limit: every 2^18-row region splits in two
+CONTROL_STORM_TICK = 0.05        # seconds between the PD timer's ticks during the storm
+CONTROL_STORM_SECONDS = 60.0     # the storm's deadline
+CONTROL_UPDATE_KEYS = 64         # the gated UPDATE touches the lineitem rows with l_orderkey below this
+CONTROL_STATEMENTS = ("q1", "q6", "q3")
+
+
+def region_errors(metrics, kind: str) -> int:
+    return metrics.REGISTRY.counter_vec("tidb_tpu_region_errors_total", labelnames=("kind",)).labels(kind).value
+
+
+def control_phase(sess, E, X, T, W, counters, profile: bool, card: str) -> None:
+    """Phase 13: the control plane on phase 11's session and store (see the
+    module docstring)."""
+    import numpy as np
+
+    import tidb_tpu_torch.exec as EXP
+    import tidb_tpu_torch.exec.executor as EX
+    from tidb_tpu_torch import codec
+    from tidb_tpu_torch.codec import record_prefix
+    from tidb_tpu_torch.replication import QUORUM_SAFE_TS_MAX
+    from tidb_tpu_torch.util import failpoint, metrics
+
+    t0 = time.perf_counter()
+    s, store = sess, sess.store
+    pd, repl = store.pd, store.replication
+    tids = {name: s.catalog.table(name).table_id for name in ("lineitem", "orders", "customer")}
+
+    def table_regions(name):
+        tid = s.catalog.table(name).table_id
+        lo, hi = record_prefix(tid), record_prefix(tid + 1)
+        return store.cluster.regions_in_range(lo, hi)
+
+    def follower_reads() -> int:
+        return metrics.REPLICA_READS.labels("follower").value
+
+    oracle_calls = [0]
+    real_oracle = (EX.run_dag_reference, EXP.run_dag_reference)
+
+    def counted_oracle(*a, **k):
+        oracle_calls[0] += 1
+        return real_oracle[0](*a, **k)
+
+    st_start = store.stats()
+
+    def clean(what):
+        st = store.stats()
+        if st["oracle_fallbacks"] != st_start["oracle_fallbacks"] or st["other_errors"] != st_start["other_errors"]:
+            raise SystemExit(f"phase 13 {what}: an oracle answer or an other_error ({st})")
+        if oracle_calls[0]:
+            raise SystemExit(f"phase 13 {what}: the root's row oracle ran {oracle_calls[0]} times")
+
+    t = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
+    cust = W.store_customer(EXPR_ROWS)
+    okey, _ocust, odate = (c[0] for c in W.store_q3_build_columns(SESSION_ORDERS, SESSION_CUSTOMERS)[0])
+    want = numpy_sql(t, cust, (okey, odate), T)
+    need = {"q1": "dense_agg", "q3": "postsort_segscan"}
+
+    def run(name, what, checked=True, main=False):
+        """One run of a SESSION_STATEMENTS statement, its answer held to
+        numpy; on the main path, with the launch counters around it."""
+        text, arg = SESSION_STATEMENTS[name]
+        sql = text.format(d=arg)
+
+        def once():
+            store.clear_result_cache()
+            res = s.execute(sql)
+            return res, session_answer(name, res, want[name]) if checked else ""
+
+        if main:
+            return counters.path(f"{name} ({what})", once, need=(need[name],) if name in need else (), phase=13)
+        return once()
+
+    def median_run(name, what) -> float:
+        ms = []
+        for _ in range(CONTROL_REPS):
+            t1 = time.perf_counter()
+            run(name, what)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(ms)
+
+    EX.run_dag_reference = EXP.run_dag_reference = counted_oracle
+    try:
+        # setup: three peers a region over three logical placement stores,
+        # TiKV's split thresholds (no region is near them), one PD tick
+        pd.conf.max_region_size, pd.conf.max_region_keys = CONTROL_SPLIT_SIZE, CONTROL_SPLIT_KEYS
+        store.cluster.set_stores(CONTROL_STORES)
+        n_regions0 = len(store.cluster.regions())
+        ops0 = pd.tick()
+        rows = s.execute("SHOW PLACEMENT").rows
+        peers = {len(store.cluster.peers_of(r.region_id)) for r in store.cluster.regions()}
+        if peers != {CONTROL_STORES}:
+            raise SystemExit(f"phase 13: peer-set sizes {peers}, not {CONTROL_STORES}")
+        log(f"phase 13 setup: {n_regions0} regions over {CONTROL_STORES} stores, {CONTROL_STORES} peers each; one PD"
+            f" tick dispatched {sorted(collections.Counter(o.kind for o in ops0).items())}; SHOW PLACEMENT"
+            f" {len(rows)} rows; leaders per store {store.cluster.counts_per_store()}")
+
+        # follower reads beside leader reads, in the pool and batch tiers
+        t1 = time.perf_counter()
+        for tier in ("pool", "batch"):
+            s.execute(f"SET tidb_allow_batch_cop = {1 if tier == 'batch' else 0}")
+            for name in CONTROL_STATEMENTS:
+                s.execute("SET tidb_replica_read = 'leader'")
+                leader_res, _ = run(name, f"leader read, {tier}")
+                ms_leader = median_run(name, tier)
+                s.execute("SET tidb_replica_read = 'follower'")
+                f0, d0 = follower_reads(), region_errors(metrics, "data_not_ready")
+                res, what = run(name, f"follower read, {tier}", main=True)
+                if follower_reads() <= f0:
+                    raise SystemExit(f"phase 13 {name} ({tier}): no follower read was counted")
+                if sorted(map(str, res.values())) != sorted(map(str, leader_res.values())):
+                    raise SystemExit(f"phase 13 {name} ({tier}): the follower read differs from the leader read")
+                ms_follower = median_run(name, tier)
+                clean(f"{name} follower read ({tier})")
+                log(f"phase 13 {name} ({tier}): the follower read -> {what} == numpy == the leader read;"
+                    f" REPLICA_READS{{follower}} +{follower_reads() - f0} over {1 + CONTROL_REPS} runs,"
+                    f" data_not_ready +{region_errors(metrics, 'data_not_ready') - d0}; median of {CONTROL_REPS}:"
+                    f" follower {ms_follower:.3f} ms, leader {ms_leader:.3f} ms [{card}]")
+        s.execute("SET tidb_allow_batch_cop = 0")
+        log(f"phase 13 follower reads: {time.perf_counter() - t1:.1f} s")
+
+        # failover: the leader store of lineitem's first region goes down;
+        # leader reads fail its regions over by leader transfer (three
+        # peers, two alive: quorum holds)
+        t1 = time.perf_counter()
+        s.execute("SET tidb_replica_read = 'leader'")
+        user_tables = [n for n in s.catalog.tables() if not n.startswith("mysql")]
+        counts0 = {n: s.execute(f"SELECT count(*) FROM {n}").scalar() for n in user_tables}
+        line = table_regions("lineitem")
+        down = store.cluster.leader_of(line[0].region_id)
+        f0, x0 = metrics.PD_FAILOVERS.value, metrics.PD_TRANSFER_LEADER.value
+        peers0 = {r.region_id: store.cluster.peers_of(r.region_id) for r in store.cluster.regions()}
+        hist0 = len(pd.queue.history_view())
+        store.set_down(down)
+        try:
+            for name in ("q1", "q6"):
+                _res, what = run(name, f"store {down} down", main=True)
+                log(f"phase 13 failover {name}: -> {what} == numpy with store {down} down")
+        finally:
+            store.set_up(down)
+        moved_placement = [r.region_id for r in store.cluster.regions()
+                           if r.region_id in peers0 and store.cluster.peers_of(r.region_id) != peers0[r.region_id]]
+        kinds = collections.Counter(o.kind for o in pd.queue.history_view()[hist0:])
+        if metrics.PD_FAILOVERS.value <= f0 or metrics.PD_TRANSFER_LEADER.value <= x0:
+            raise SystemExit(f"phase 13 failover: PD_FAILOVERS +{metrics.PD_FAILOVERS.value - f0}, PD_TRANSFER_LEADER"
+                             f" +{metrics.PD_TRANSFER_LEADER.value - x0}")
+        if moved_placement or kinds.get("failover"):
+            raise SystemExit(f"phase 13 failover: a placement move ({moved_placement}, {kinds})")
+        open_after = dict(store.breakers.states())
+        pd.tick()
+        # the tick re-closes the breaker of a store that leads no region; a
+        # store that still leads some is re-closed by its own traffic (the
+        # breaker's half-open probe): one count(*) of each table it leads
+        probed = []
+        for n in user_tables:
+            sick = {sid for sid, st in store.breakers.states().items() if st != "closed"}
+            if not sick:
+                break
+            if any(store.cluster.leader_of(r.region_id) in sick for r in table_regions(n)):
+                got = s.execute(f"SELECT count(*) FROM {n}").scalar()
+                if got != counts0[n]:
+                    raise SystemExit(f"phase 13 failover: count(*) of {n} {got}, before {counts0[n]}")
+                probed.append(n)
+        if not store.breakers.all_closed():
+            raise SystemExit(f"phase 13 failover: breakers {store.breakers.states()} after set_up, a tick and"
+                             f" traffic to {probed}")
+        clean("failover")
+        log(f"phase 13 failover: PD_FAILOVERS +{metrics.PD_FAILOVERS.value - f0}, PD_TRANSFER_LEADER"
+            f" +{metrics.PD_TRANSFER_LEADER.value - x0}, operators {sorted(kinds.items())}, no placement move;"
+            f" breakers {open_after} after the queries; every breaker closed after set_up, a tick and the"
+            f" half-open probes of count(*) over {probed}; leaders per store {store.cluster.counts_per_store()}"
+            f" ({time.perf_counter() - t1:.1f} s)")
+
+        # the safe_ts gate: a store whose apply loop lags may not serve a
+        # snapshot past what it applied
+        t1 = time.perf_counter()
+        # the lagging store: the one the follower router will pick next (the
+        # least read-loaded; the UPDATE's own scan adds a read at the
+        # leader of each lineitem region)
+        loads = repl.read_counts()
+        for r in table_regions("lineitem"):
+            lead = store.cluster.leader_of(r.region_id)
+            loads[lead] = loads.get(lead, 0) + 1
+        lag_store = min(range(CONTROL_STORES), key=lambda sid: (loads.get(sid, 0), sid))
+        q1_name = "q1"
+        with failpoint.enabled("replica/apply-lag", {lag_store}):
+            # the UPDATE of l_quantity + 1 where l_orderkey < 64, committed
+            # as one transaction of its rows through the store's Percolator
+            # engine (the session's COMMIT path: the quorum gate, the flow
+            # record, one replication proposal a region). SQL's UPDATE of a
+            # table without a primary key scans every row to the host as
+            # Datums first, about two minutes at 2^21 rows.
+            touched = t["okey"] < CONTROL_UPDATE_KEYS
+            t["qty"] = t["qty"] + np.where(touched, 100, 0)
+            rows = [next(W.store_rows(T, t, h, h + 1)) for h in np.nonzero(touched)[0].tolist()]
+            muts = dict(W.store_items(codec, rows, table_id=tids["lineitem"]))
+            store.txn.commit_txn(muts, store.next_ts(), store.next_ts)
+            want.update(numpy_sql(t, cust, (okey, odate), T))
+            lagged = {r.region_id: repl.safe_ts(r.region_id, lag_store) for r in table_regions("lineitem")}
+            gated = sum(1 for v in lagged.values() if v < store.kv.max_committed())
+            if not gated:
+                raise SystemExit(f"phase 13: no lineitem region of store {lag_store} lags ({lagged})")
+            s.execute("SET tidb_replica_read = 'follower'")
+            f0, d0 = follower_reads(), region_errors(metrics, "data_not_ready")
+            res, what = run(q1_name, "follower read past a lagging store's safe_ts", main=True)
+            dnr = region_errors(metrics, "data_not_ready") - d0
+            if dnr < 1:
+                raise SystemExit(f"phase 13: no DataIsNotReady from store {lag_store}'s lagging peers")
+        clean("the safe_ts gate")
+        pd.tick()
+        lag = repl.lag_view()
+        if any(lag.values()):
+            raise SystemExit(f"phase 13: safe_ts lag {lag} after the catch-up tick")
+        caught = {r.region_id: repl.safe_ts(r.region_id, lag_store) for r in table_regions("lineitem")}
+        if any(v != QUORUM_SAFE_TS_MAX for v in caught.values()):
+            raise SystemExit(f"phase 13: store {lag_store}'s safe_ts after the catch-up {caught}")
+        loads = repl.read_counts()
+        routed = min(range(CONTROL_STORES), key=lambda sid: (loads.get(sid, 0), sid)) == lag_store
+        r0 = loads.get(lag_store, 0)
+        d1 = region_errors(metrics, "data_not_ready")
+        run(q1_name, "follower read after the catch-up")
+        served = repl.read_counts().get(lag_store, 0) - r0
+        if region_errors(metrics, "data_not_ready") != d1 or (routed and served < 1):
+            raise SystemExit(f"phase 13: after the catch-up store {lag_store} served {served} reads, data_not_ready"
+                             f" +{region_errors(metrics, 'data_not_ready') - d1}")
+        log(f"phase 13 safe_ts gate: store {lag_store}'s apply lagged under the committed UPDATE of"
+            f" {int(touched.sum())} rows"
+            f" ({gated} of {len(lagged)} lineitem regions gated); the follower read at the new snapshot took"
+            f" DataIsNotReady {dnr} times, retried and -> {what} == numpy on the updated rows; after disarm and a"
+            f" tick the lag is {lag}, and store {lag_store} served {served} follower reads with no DataIsNotReady"
+            f" ({time.perf_counter() - t1:.1f} s)")
+
+        # PD scheduling during queries: the timer splits every region above
+        # the storm's key limit while Q1 and Q6 run in the pool tier
+        t1 = time.perf_counter()
+        pd.conf.max_region_keys, pd.conf.max_region_size = CONTROL_STORM_KEYS, CONTROL_SPLIT_SIZE
+        before = {name: len(table_regions(name)) for name in tids}
+        n_before = len(store.cluster.regions())
+        r0 = metrics.DISTSQL_RETRIES.value
+        hist0 = len(pd.queue.history_view())
+        e0 = {k: region_errors(metrics, k) for k in ("epoch_not_match", "not_leader")}
+
+        def biggest() -> int:
+            stats = pd.flow.stats()
+            return max(stats.get(r.region_id, (0, 0))[1] for r in store.cluster.regions())
+
+        timer = pd.timer(CONTROL_STORM_TICK).start()
+        runs = 0
+        try:
+            deadline = time.perf_counter() + CONTROL_STORM_SECONDS
+            while True:
+                for name in ("q1", "q6"):
+                    run(name, "the split storm")
+                    runs += 1
+                if biggest() <= CONTROL_STORM_KEYS:
+                    break
+                if time.perf_counter() > deadline:
+                    raise SystemExit(f"phase 13 storm: a region of {biggest()} keys after {CONTROL_STORM_SECONDS} s")
+        finally:
+            timer.stop()
+        if timer.error_count:
+            raise SystemExit(f"phase 13 storm: the PD timer failed {timer.error_count} times ({timer.last_error})")
+        for name in ("q1", "q6"):
+            run(name, "after the split storm", main=True)
+        after = {name: len(table_regions(name)) for name in tids}
+        ops = collections.Counter((o.kind, o.state) for o in pd.queue.history_view()[hist0:])
+        clean("the split storm")
+        log(f"phase 13 split storm: {runs} statements == numpy while the PD timer ticked every {CONTROL_STORM_TICK} s"
+            f" ({timer.fire_count} ticks); regions {n_before} -> {len(store.cluster.regions())} (by table {before}"
+            f" -> {after}); the largest {biggest()} keys; operators {sorted(ops.items())}; DISTSQL_RETRIES"
+            f" +{metrics.DISTSQL_RETRIES.value - r0}, region errors"
+            f" {({k: region_errors(metrics, k) - v for k, v in e0.items()})} ({time.perf_counter() - t1:.1f} s)")
+    finally:
+        EX.run_dag_reference, EXP.run_dag_reference = real_oracle
+        s.execute("SET tidb_replica_read = 'leader'")
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s; store {store.stats()}")
 
 
 def main() -> int:
@@ -3689,6 +4087,8 @@ def main() -> int:
     sess = session_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
     # phase 12: the device mesh, four shards of the card
     mesh_phase(sess, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
+    # phase 13: the control plane on phase 11's session and store
+    control_phase(sess, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -590,12 +590,25 @@ def test_not_leader_hint_switches_peers_once():
 
 
 def test_follower_read_ends_in_cop_internal_error():
-    """The port's store has no replica reads: a follower read answers
-    other_error, which dispatch raises as CopInternalError."""
-    store = bc_fill(P, n=60, regions=1)
-    store.cluster.set_stores(3)
-    with pytest.raises(TD.CopInternalError, match="replica reads are not ported"):
-        TD.select(store, bc_req(P, bc_scan_dag(P), concurrency=1, replica_read="follower"))
+    """A follower read is served by a follower peer whose safe_ts covers the
+    snapshot (the store's replication gate), in both packages alike and
+    equal to the leader read; an other_error on that path
+    (`cop-other-error` armed) ends in CopInternalError, in both."""
+    def case(pkg):
+        store = bc_fill(pkg, n=60, regions=1)
+        store.cluster.set_stores(3)
+        f0 = pkg.metrics.REPLICA_READS.labels("follower").value
+        res = pkg.D.select(store, bc_req(pkg, bc_scan_dag(pkg), concurrency=1, replica_read="follower"))
+        served = pkg.metrics.REPLICA_READS.labels("follower").value - f0
+        lead = pkg.D.select(store, bc_req(pkg, bc_scan_dag(pkg), concurrency=1))
+        assert served == 1 and all_vals(res) == all_vals(lead) == [h * 3 for h in range(60)]
+        with pkg.failpoint.enabled("cop-other-error"):
+            with pytest.raises(pkg.D.CopInternalError, match="injected coprocessor error"):
+                pkg.D.select(store, bc_req(pkg, bc_scan_dag(pkg), concurrency=1, replica_read="follower"))
+        return served, all_vals(res)
+
+    j, t = both(case)
+    assert t == j
 
 
 def test_store_exposes_the_client_seams():

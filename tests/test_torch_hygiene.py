@@ -59,6 +59,8 @@ def test_import_leaves_jax_unloaded():
         "import tidb_tpu_torch.server, tidb_tpu_torch.tools, tidb_tpu_torch.util.memory, tidb_tpu_torch.util.stmtlog\n"
         "import tidb_tpu_torch.parallel, tidb_tpu_torch.parallel.sql, tidb_tpu_torch.parallel.joinmesh\n"
         "import tidb_tpu_torch.mpp.exchange_op, tidb_tpu_torch.mpp.dispatch, tidb_tpu_torch.mpp.fragment\n"
+        "import tidb_tpu_torch.replication, tidb_tpu_torch.pd, tidb_tpu_torch.pd.schedulers\n"
+        "import tidb_tpu_torch.background, tidb_tpu_torch.interop, tidb_tpu_torch.sql.seams\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -296,9 +298,11 @@ def test_seams_decline_and_swallow_no_error():
     from tidb_tpu_torch.sql import CatalogError, PlanError, Session, seams
 
     assert seams.columnar_would_serve(None, None, [], ("tpu", "columnar")) is False
-    assert seams.try_mpp_select(None, None, [], 1) is None
-    # the mesh select is the real one (parallel/sql.py), not a seam
+    assert seams.pitr_tick(None) is None
+    # the mesh select (parallel/sql.py) and the MPP tier (mpp/dispatch.py)
+    # are the real ones, not seams
     assert not hasattr(seams, "try_mesh_select")
+    assert not hasattr(seams, "try_mpp_select")
     s = Session(device="cpu")
     for q in ("SET tidb_enable_tpu_mesh = 1", "SET tidb_allow_mpp = 1",
               "SET tidb_isolation_read_engines = 'tpu,columnar'"):
@@ -361,6 +365,57 @@ def test_a_mesh_session_leaves_jax_unloaded():
         "assert metrics.MESH_SELECTS.value == m0 + 2\n"
         "assert str(s.execute('SELECT sum(v) FROM t').scalar()) == '2016'\n"
         "assert s.store.stats()['mesh_batches'] >= 1\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+
+
+def test_a_store_carries_its_control_plane():
+    """TPUStore(device="cpu") attaches the placement driver and the
+    replication manager, as the reference's store does; the cluster points
+    back at both, and the transaction engine's write hooks are the store's
+    quorum gate and write-flow recorders."""
+    from tidb_tpu_torch.pd import PlacementDriver
+    from tidb_tpu_torch.replication import ReplicaManager
+    from tidb_tpu_torch.store import TPUStore
+
+    store = TPUStore(device="cpu")
+    assert isinstance(store.pd, PlacementDriver) and isinstance(store.replication, ReplicaManager)
+    assert store.cluster.pd is store.pd and store.cluster.replica is store.replication
+    assert store.txn._pre_apply == store._check_write_quorum
+    assert store.txn._on_apply == store.record_applied_writes
+    assert store.txn._on_apply_group == store.record_applied_writes_grouped
+
+
+def test_control_plane_leaves_jax_unloaded():
+    """A follower read, a failover, a PD tick (split, merge, balance) and
+    the MPP tier run in a fresh process with nothing of JAX loaded."""
+    code = (
+        "import sys\n"
+        "from tidb_tpu_torch.sql import Session\n"
+        "from tidb_tpu_torch.util import metrics\n"
+        "from tidb_tpu_torch.codec import tablecodec\n"
+        "s = Session(device='cpu', mesh_devices=['cpu'] * 4)\n"
+        "s.execute('CREATE TABLE t (a BIGINT PRIMARY KEY, g INT, v BIGINT)')\n"
+        "s.execute('INSERT INTO t VALUES ' + ','.join(f'({i}, {i % 5}, {i})' for i in range(64)))\n"
+        "tid = s.catalog.table('t').table_id\n"
+        "for h in (16, 32, 48):\n"
+        "    s.store.cluster.split(tablecodec.encode_row_key(tid, h))\n"
+        "s.store.cluster.set_stores(3)\n"
+        "s.execute(\"SET tidb_replica_read = 'follower'\")\n"
+        "assert str(s.execute('SELECT sum(v) FROM t').scalar()) == '2016'\n"
+        "s.store.set_down(s.store.cluster.leader_of(s.store.cluster.regions()[1].region_id))\n"
+        "s.execute(\"SET tidb_replica_read = 'leader'\")\n"
+        "assert str(s.execute('SELECT sum(v) FROM t').scalar()) == '2016'\n"
+        "assert metrics.PD_FAILOVERS.value > 0\n"
+        "s.store.pd.conf.max_region_keys = 8\n"
+        "s.store.pd.tick()\n"
+        "m0 = metrics.MPP_SELECTS.value\n"
+        "assert len(s.execute('SELECT g, count(*) FROM t GROUP BY g').rows) == 5\n"
+        "assert metrics.MPP_SELECTS.value == m0 + 1\n"
+        "assert len(s.execute('SHOW PLACEMENT').rows) > 3\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -187,9 +187,9 @@ class TestNonUniqueRadixBuild:
         assert int(tres.n_out) == int(jres.n_out)
 
     def test_non_unique_build_join_on_session_path(self):
-        """A join keyed on a NON-unique build column: the JAX session takes
-        its MPP tier, the port's its mesh select (the MPP seam declines);
-        rows equal in order, and equal to the mesh-off path."""
+        """A join keyed on a NON-unique build column: each session takes its
+        MPP tier (whose exchange program counts MESH_SELECTS); rows equal in
+        order, and equal to the mesh-off path."""
         def case(pkg):
             s = pkg.session()
             s.execute("create table cust (c_id bigint primary key, seg varchar(2))")

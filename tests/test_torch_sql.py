@@ -310,8 +310,8 @@ MESH_CASES = [name for name, steps in SQL_CASES.items() if _grouped_or_joined(st
 @pytest.mark.parametrize("name", MESH_CASES)
 def test_sql_case_mesh_on(name):
     """The GROUP BY and join cases with the mesh on: the JAX session on
-    eight devices, the port's on eight CPU shards (statement tier "mpp",
-    whose seam declines in the port, then the mesh select)."""
+    eight devices, the port's on eight CPU shards (statement tier "mpp":
+    each package's try_mpp_select, the mesh select where it declines)."""
     run_case(SQL_CASES[name], session_pair(mesh=True))
 
 
@@ -483,3 +483,31 @@ def test_range_estimate_over_an_analyzed_date_column():
     assert [[got[0][0], int(str(got[0][1]))]] == [[want[0][0], int(str(want[0][1]))]]
     rows = [i for i in range(0, 600, 2) if (10 + i % 13, 1 + i % 9, 10 + i % 10) > (15, 5, 1)]
     assert want[0][0] == len(rows) and int(str(want[0][1])) == sum(rows)
+
+
+def test_group_by_a_select_alias_of_an_expression():
+    """The repair of a planner fault both packages had (sql/planner.py
+    group_key): GROUP BY naming a select alias of an expression grouped by
+    the expression lowered over the wrong column. The JAX package still
+    raises; the port groups by the alias's expression, and its answer
+    equals a numpy group count (and the answer of naming the expression)."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    phones = [f"{rng.integers(10, 35)}-{rng.integers(100, 999)}-{rng.integers(1000, 9999)}" for _ in range(300)]
+    bal = rng.integers(-500, 5000, 300)
+    make = ["CREATE TABLE c (id BIGINT PRIMARY KEY, phone CHAR(15) NOT NULL, bal BIGINT NOT NULL)",
+            "INSERT INTO c VALUES " + ", ".join(f"({i}, '{p}', {b})" for i, (p, b) in enumerate(zip(phones, bal)))]
+    alias = "SELECT SUBSTRING(phone, 1, 2) AS cc, COUNT(*), SUM(bal) FROM c GROUP BY cc"
+    named = "SELECT SUBSTRING(phone, 1, 2) AS cc, COUNT(*), SUM(bal) FROM c GROUP BY SUBSTRING(phone, 1, 2)"
+    sessions = session_pair()
+    run_case(make, sessions)
+    with pytest.raises(IndexError, match="[Tt]oo many indices"):
+        sessions["jax"]["s"].execute(alias)
+    port = sessions["port"]["s"]
+    got = {r[0]: (r[1], int(str(r[2]))) for r in port.execute(alias).values()}
+    cc = np.array([int(p[:2]) for p in phones])
+    want = {f"{k}": (int((cc == k).sum()), int(bal[cc == k].sum())) for k in np.unique(cc)}
+    assert got == want
+    assert {r[0]: (r[1], int(str(r[2]))) for r in port.execute(named).values()} == want
+    assert {r[0]: (r[1], int(str(r[2]))) for r in sessions["jax"]["s"].execute(named).values()} == want

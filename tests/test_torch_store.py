@@ -351,6 +351,15 @@ def test_group_concat_goes_to_the_oracle_in_both(pair):
 
 
 def test_a_follower_read_is_refused_and_a_follower_is_not_leader():
+    """A plain read at a follower answers NotLeader with the leader as the
+    hint; a replica read there is served while the follower's safe_ts
+    covers the snapshot (equal to the leader's answer), and refused with
+    DataIsNotReady once its apply loop lags behind a newer write."""
+    from tidb_tpu_torch.codec import encode_row_key
+    from tidb_tpu_torch.store import DataIsNotReady, parse_region_error
+    from tidb_tpu_torch.types import Datum
+    from tidb_tpu_torch.util import failpoint
+
     ts_ = TStore(device="cpu")
     ts_.cluster.set_stores(3)
     (_, tdag), _ = _dags("q6")
@@ -361,9 +370,16 @@ def test_a_follower_read_is_refused_and_a_follower_is_not_leader():
     nl = ts_.coprocessor(TReq(peer_store=follower, **base))
     assert nl.region_error.startswith("not_leader") and f"leader_store={leader}" in nl.region_error
     rr = ts_.coprocessor(TReq(peer_store=follower, replica_read=True, **base))
-    assert "replica reads are not ported" in rr.other_error
     ok = ts_.coprocessor(TReq(peer_store=leader, **base))
     assert ok.other_error is None and ok.region_error is None
+    assert rr.other_error is None and rr.region_error is None and rr.chunk.rows() == ok.chunk.rows()
+    with failpoint.enabled("replica/apply-lag", {follower}):
+        ts_.put_row(7, 1, [1], [Datum.i64(1)], ts=ts_.next_ts())
+        assert ts_.cluster.locate(encode_row_key(7, 1)).region_id == r.region_id
+        late = dict(base, start_ts=ts_.next_ts())
+        refused = ts_.coprocessor(TReq(peer_store=follower, replica_read=True, **late))
+        err = parse_region_error(refused.region_error)
+        assert isinstance(err, DataIsNotReady) and err.store_id == follower
 
 
 def test_the_default_device_needs_cuda():

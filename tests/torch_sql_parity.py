@@ -30,33 +30,62 @@ import math
 from dataclasses import dataclass, fields, is_dataclass
 from types import SimpleNamespace
 
+import tidb_tpu.background as j_background
 import tidb_tpu.codec.tablecodec as j_tablecodec
+import tidb_tpu.codec.wire as j_wire
+import tidb_tpu.distsql.dispatch as j_dispatch
+import tidb_tpu.exec.dag as j_dag
+import tidb_tpu.expr as j_expr
+import tidb_tpu.mpp.fragment as j_fragment
 import tidb_tpu.parser as j_parser
+import tidb_tpu.pd.core as j_pd
+import tidb_tpu.replication as j_replication
 import tidb_tpu.sql as j_sql
 import tidb_tpu.sql.catalog as j_catalog
 import tidb_tpu.store as j_store
 import tidb_tpu.store.kv as j_kv
+import tidb_tpu.store.region as j_region
 import tidb_tpu.store.txn as j_txn
+import tidb_tpu.types as j_types
+import tidb_tpu.util.failpoint as j_failpoint
+import tidb_tpu.util.metrics as j_metrics
 
+import tidb_tpu_torch.background as p_background
 import tidb_tpu_torch.codec.tablecodec as p_tablecodec
+import tidb_tpu_torch.codec.wire as p_wire
+import tidb_tpu_torch.distsql.dispatch as p_dispatch
+import tidb_tpu_torch.exec.dag as p_dag
+import tidb_tpu_torch.expr as p_expr
+import tidb_tpu_torch.interop as p_interop
+import tidb_tpu_torch.mpp.fragment as p_fragment
 import tidb_tpu_torch.parser as p_parser
+import tidb_tpu_torch.pd.core as p_pd
+import tidb_tpu_torch.replication as p_replication
 import tidb_tpu_torch.sql as p_sql
 import tidb_tpu_torch.sql.catalog as p_catalog
 import tidb_tpu_torch.store as p_store
 import tidb_tpu_torch.store.kv as p_kv
+import tidb_tpu_torch.store.region as p_region
 import tidb_tpu_torch.store.txn as p_txn
+import tidb_tpu_torch.types as p_types
+import tidb_tpu_torch.util.failpoint as p_failpoint
+import tidb_tpu_torch.util.metrics as p_metrics
 
 REL = 1e-12
 
 JAX = SimpleNamespace(
     name="jax", sql=j_sql, catalog=j_catalog, store=j_store, kv=j_kv, txn=j_txn, tablecodec=j_tablecodec,
     parse_one=j_parser.parse_one, new_store=lambda: j_store.TPUStore(),
-    new_session=lambda store=None, catalog=None, mesh=False: j_sql.Session(store, catalog))
+    new_session=lambda store=None, catalog=None, mesh=False: j_sql.Session(store, catalog),
+    background=j_background, wire=j_wire, dispatch=j_dispatch, dag=j_dag, expr=j_expr, fragment=j_fragment,
+    pd=j_pd, replication=j_replication, region=j_region, types=j_types, fp=j_failpoint, metrics=j_metrics)
 PORT = SimpleNamespace(
     name="port", sql=p_sql, catalog=p_catalog, store=p_store, kv=p_kv, txn=p_txn, tablecodec=p_tablecodec,
     parse_one=p_parser.parse_one, new_store=lambda: p_store.TPUStore(device="cpu"),
     new_session=lambda store=None, catalog=None, mesh=False: p_sql.Session(
-        store, catalog, device="cpu", mesh_devices=["cpu"] * 8 if mesh else None))
+        store, catalog, device="cpu", mesh_devices=["cpu"] * 8 if mesh else None),
+    background=p_background, wire=p_wire, dispatch=p_dispatch, dag=p_dag, expr=p_expr, fragment=p_fragment,
+    pd=p_pd, replication=p_replication, region=p_region, types=p_types, fp=p_failpoint, metrics=p_metrics)
 
 
 @dataclass
@@ -177,3 +206,91 @@ def split_at(table: str, *handles):
             s.store.cluster.split(pkg.tablecodec.encode_row_key(tid, h))
 
     return Call(fn)
+
+
+# ----------------------------------------------------------- control plane
+# The store-level cases of the control-plane tests (test_torch_replication,
+# test_torch_pd, test_torch_chaos, test_torch_mpp): both packages' stores
+# start from one plain state through the port's interop (load_store_state
+# on a JAX TPUStore, store_from_state for the port's), then one scenario
+# runs on each, each package arming its own failpoints and reading its own
+# metrics, and what the scenario returns must agree exactly.
+
+
+def row_kv(tid: int, rows: int, ts: int = 10, value=lambda h: h) -> list:
+    """Plain (row key, value, ts) pairs of a one-BIGINT-column table
+    (column id 1), encoded by the port's codec (byte-equal to the JAX
+    package's, tests/test_torch_codec.py)."""
+    from tidb_tpu_torch.codec.rowcodec import RowEncoder
+
+    enc = RowEncoder()
+    return [(p_tablecodec.encode_row_key(tid, h), enc.encode([1], [p_types.Datum.i64(value(h))]), ts)
+            for h in range(rows)]
+
+
+def region_table(split_keys, n_stores: int) -> list:
+    """The plain region table [(region_id, start, end, epoch, peers,
+    leader)] of a cluster split at `split_keys` (in that order) and
+    scattered over `n_stores` stores, as the reference tests' fill_store
+    lays it out."""
+    c = p_region.Cluster()
+    for k in split_keys:
+        c.split(k)
+    c.set_stores(n_stores)
+    c.scatter()
+    return p_interop.region_table(c)
+
+
+def store_pair(kv, regions, n_stores: int, flows: dict | None = None, mesh: bool = False) -> dict:
+    """A JAX TPUStore and a port TPUStore(device="cpu") started from the
+    same plain state."""
+    j = p_interop.load_store_state(j_store.TPUStore(), kv, regions, n_stores, flows)
+    p = p_interop.store_from_state(kv, regions, n_stores, flows, device="cpu",
+                                   mesh_devices=["cpu"] * 8 if mesh else None)
+    return {"jax": j, "port": p}
+
+
+def fill_pair(tid: int, rows: int = 120, regions: int = 4, stores: int = 4, pin_store=None) -> dict:
+    """The reference tests' fill_store, carried across: a JAX TPUStore
+    filled as they fill it (`rows` one-column rows put at ts 10, split
+    into `regions` regions at i * rows // regions, over `stores` stores,
+    every region's leader moved to `pin_store` when given), its state read
+    out as plain values (interop.store_state: versions, region table with
+    the store count and the PD's per-region flow), and both packages'
+    stores started from that state."""
+    ref = j_store.TPUStore()
+    for h in range(rows):
+        ref.put_row(tid, h, [1], [j_types.Datum.i64(h)], ts=10)
+    for i in range(1, regions):
+        ref.cluster.split(j_tablecodec.encode_row_key(tid, i * rows // regions))
+    ref.cluster.set_stores(stores)
+    ref.cluster.scatter()
+    if pin_store is not None:
+        for r in ref.cluster.regions():
+            ref.cluster.set_store(r.region_id, pin_store)
+    return store_pair(**p_interop.store_state(ref))
+
+
+def layout(store) -> list:
+    """A store's region table as plain values (ids, keys, epochs, peers,
+    leaders)."""
+    return p_interop.region_table(store.cluster)
+
+
+def chunk_rows(chunks) -> list:
+    """Every row of a select's chunks, in order, as plain values."""
+    return norm([r for c in chunks if c is not None for r in c.rows()])
+
+
+def run_both(scenario, stores: dict | None = None, err: bool = False):
+    """Run scenario(pkg) (or scenario(pkg, store) with `stores`) on each
+    package and hold the outcomes equal; the JAX package's must succeed
+    (or fail, with err=True). Returns the JAX outcome."""
+    outs = {}
+    for pkg in (JAX, PORT):
+        args = (pkg,) if stores is None else (pkg, stores[pkg.name])
+        outs[pkg.name] = outcome(lambda: scenario(*args))
+    j_out, p_out = outs["jax"], outs["port"]
+    assert (j_out[0] == "err") == err, f"the JAX package gave {j_out}"
+    assert same(j_out, p_out), f"\n  jax  {j_out}\n  port {p_out}"
+    return j_out

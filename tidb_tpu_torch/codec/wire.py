@@ -408,6 +408,68 @@ def decode_dag(b: bytes):
     return DAGRequest(executors, offsets, tz, flags)
 
 
+# ------------------------------------------------------- mpp fragment frames
+
+# exchange partition-mode tags (ref: tipb.ExchangeType — PassThrough /
+# Broadcast / Hash; mpp/fragment.py mirrors the same three modes)
+_EXCH_MODES = ("hash", "broadcast", "passthrough")
+
+
+def w_exchange_sender(w: Writer, s):
+    w.u8(_EXCH_MODES.index(s.exchange_type))
+    w.i32(s.target_fragment)
+    w.i32(len(s.partition_keys))
+    for k in s.partition_keys:
+        w_expr(w, k)
+
+
+def r_exchange_sender(r: Reader):
+    from ..mpp.fragment import ExchangeSender
+
+    mode = _EXCH_MODES[r.u8()]
+    target = r.i32()
+    keys = tuple(r_expr(r) for _ in range(r.i32()))
+    return ExchangeSender(mode, keys, target)
+
+
+def encode_fragment_plan(fplan) -> bytes:
+    """FragmentPlan -> bytes — the per-query ExchangeSender wire seam (the
+    tipb.DispatchTaskRequest analog: fragment topology + per-fragment plan
+    slices). mpp/dispatch.py round-trips every dispatched plan through
+    this frame, so the fragment graph is proven wire-clean per query, the
+    way use_wire proves the cop DAG."""
+    w = Writer()
+    w.i32(fplan.n_tasks)
+    w.i32(fplan.root)
+    w.i32(len(fplan.fragments))
+    for f in fplan.fragments:
+        w.i32(f.idx)
+        w.i32(len(f.executors))
+        for ex in f.executors:
+            w_executor(w, ex)
+        w.i32(len(f.receivers))
+        for rcv in f.receivers:
+            w.i32(rcv.source_fragment)
+        w_exchange_sender(w, f.sender)
+    return w.done()
+
+
+def decode_fragment_plan(b: bytes):
+    from ..mpp.fragment import ExchangeReceiver, Fragment, FragmentPlan
+
+    r = Reader(b)
+    n_tasks = r.i32()
+    root = r.i32()
+    frags = []
+    for _ in range(r.i32()):
+        idx = r.i32()
+        executors = tuple(r_executor(r) for _ in range(r.i32()))
+        receivers = tuple(ExchangeReceiver(r.i32()) for _ in range(r.i32()))
+        sender = r_exchange_sender(r)
+        frags.append(Fragment(idx, executors, receivers, sender))
+    return FragmentPlan(tuple(frags), n_tasks, root)
+
+
 # -------------------------------------------------------------- chunks
 
 def encode_chunk(ch: Chunk) -> bytes:

@@ -11,12 +11,13 @@ another, so the device work of the threads serializes on one stream (the
 hand kernels keep their scratch per (device, stream) and rely on that),
 while region decode, upload and host encode overlap.
 
-Two seams of the reference's store are absent from the port's, and are
-treated as the reference treats a store without them: no replication
-manager (the replica selector sees no read loads; a follower read is
-answered `other_error` by the store, so it ends in CopInternalError), and
-no PD (a region whose leader store is down cannot fail over: dispatch backs
-off on the store_unavailable budget, then raises RegionUnavailableError).
+The store's control plane is the reference's: the replica selector reads
+each store's read load from `store.replication`, a follower read that its
+peer's safe_ts does not cover answers DataIsNotReady and retries on the
+leader, and a region whose leader store is down fails over through
+`store.pd` (a leader transfer among the live peers, or a placement move
+when quorum is lost); only when nothing can serve does dispatch back off
+on the store_unavailable budget and raise RegionUnavailableError.
 """
 
 from __future__ import annotations
@@ -343,9 +344,8 @@ def _route_ctx(store) -> tuple:
     pass — the batch grouping loop calls _route_task once per lane, and
     these inputs are loop-invariant there (re-snapshotting per lane
     would take the board/down/replica locks O(lanes) times)."""
-    replication = getattr(store, "replication", None)
-    loads = replication.read_counts() if replication is not None else {}
-    return store.down_stores() | store.breakers.unroutable_stores(), loads
+    return (store.down_stores() | store.breakers.unroutable_stores(),
+            store.replication.read_counts())
 
 
 def _route_task(store, req, task, avoid=frozenset(), leader_only=False,

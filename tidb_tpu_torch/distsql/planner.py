@@ -19,8 +19,8 @@ execution tier by data size and topology.
 `choose_statement_tier` answers the SQL session's statement-level
 question above execute_root: on two or more mesh devices an eligible
 GROUP BY (or a join feeding one) takes the "mpp" tier (tidb_allow_mpp ON;
-the session's MPP seam declines it, and the mesh select runs) or the
-"mesh" tier (parallel/sql.py try_mesh_select), else "root". The device
+mpp/dispatch.py try_mpp_select, and the mesh select when it declines) or
+the "mesh" tier (parallel/sql.py try_mesh_select), else "root". The device
 count is the store's mesh width, `len(store.mesh_devices)`.
 """
 
@@ -109,9 +109,10 @@ def choose_statement_tier(dag, *, allow_mpp: bool, allow_mesh: bool,
     (port of tidb_tpu/distsql/planner.py choose_statement_tier; ref:
     mpp_gather.go:40 useMPPExecution). Returns:
 
-      "mpp"   plan the statement as an exchange-linked fragment graph (the
-              session's MPP seam, which declines in the port; the mesh
-              select then runs the same exchange program).
+      "mpp"   plan the statement as an exchange-linked fragment graph
+              (mpp/dispatch.py try_mpp_select: the fragment plan through
+              the wire frames, the probe scan through select, the exchange
+              program); when it declines, the mesh select runs next.
       "mesh"  the whole-plan mesh select (parallel/sql.try_mesh_select).
       "root"  no statement-level shortcut: execute_root owns dispatch.
 

@@ -1,23 +1,41 @@
-"""The exchange plan's execution core (port of tidb_tpu/mpp/dispatch.py's
-execute_exchange_plan; ref: pkg/executor/mpp_gather.go MPPGather).
+"""MPP dispatch (port of tidb_tpu/mpp/dispatch.py; ref:
+pkg/executor/mpp_gather.go MPPGather + store/copr/mpp.go DispatchMPPTask).
 
-`execute_exchange_plan` runs an exchange program over already-scanned
-region chunks: the chunks play the task lanes (stacked and padded to a
-multiple of the mesh width), each join's build table is sliced over the
-shards so each slice plays a region shard, and an overflow retries on a
-3-rung capacity ladder that reuses the scanned chunks. The session's mesh
-select (parallel/sql.py) calls it.
+`try_mpp_select` is the MPP statement tier: it cuts an eligible DAG into
+fragments (`fragment_plan`), round-trips the fragment plan through the
+wire codec's fragment frames (the executed plan is the DECODED one, the
+seam a real coordinator ships across the network), sources the probe-side
+scan, and launches the exchange program. The probe scan comes from the
+columnar replica when one covers the snapshot (`_replica_probe_chunks`;
+the port has no columnar replica, so it answers None through
+sql/seams.py columnar_would_serve, as the reference does when no replica
+serves), else from the row store's scan pushdown through
+distsql.dispatch.select, whose typed region errors and epoch fall-out are
+the per-region path's. Every decline is a counted fallback
+(`MPP_FALLBACKS`), and the session's next tier (the mesh select) runs as
+if routing never happened. The task count is the store's mesh width,
+`len(store.mesh_devices)`, where the reference reads jax.devices().
 
-The MPP tier's own dispatch (`try_mpp_select`: the fragment plan through
-the wire codec's fragment frames, the columnar replica as the probe
-source) is not ported; the session's seam declines it, as the reference
-does when its MPP tier declines, and the mesh select runs next.
+Failpoints:
+  mpp/dispatch-lost   a task dispatch is lost before launch — counted
+                      fallback to the non-MPP tiers.
+  mpp/exchange-stall  an exchange never delivers mid-run — the
+                      coordinator abandons the run (counted fallback).
+
+`execute_exchange_plan` is the execution core this tier shares with the
+mesh select (parallel/sql.py): the chunks play the task lanes (stacked and
+padded to a multiple of the mesh width), each join's build table is sliced
+over the shards so each slice plays a region shard, and an overflow
+retries on a 3-rung capacity ladder that reuses the scanned chunks.
 """
 
 from __future__ import annotations
 
 from ..chunk import Chunk
-from .fragment import chunks_exchange_safe
+from ..exec.dag import DAGRequest
+from .fragment import chunks_exchange_safe, fragment_kind, fragment_plan
+
+MPP_SYSVAR = "tidb_allow_mpp"
 
 # (encoded dag, n devices, base group capacity) -> the last successful
 # (gc, scale) ladder rung; a bounded FIFO, see execute_exchange_plan
@@ -114,3 +132,83 @@ def ladder_rung(dag, n_devices: int, group_capacity: int) -> tuple[int, int] | N
     from ..codec.wire import encode_dag
 
     return _LADDER_HINTS.get((encode_dag(dag), n_devices, group_capacity))
+
+
+def _chunks_nbytes(chunks) -> int:
+    return sum(int(c.nbytes()) for c in chunks if c is not None)
+
+
+def _replica_probe_chunks(store, dag, ranges, engines):
+    """The probe scan from the columnar replica's stable chunks, or None
+    when no replica covers the snapshot: the row store's scan pushdown is
+    then the probe source, not a query failure. The port has no columnar
+    replica, so sql/seams.py columnar_would_serve answers that none
+    serves."""
+    from ..sql.seams import columnar_would_serve
+
+    if not columnar_would_serve(store, dag, ranges, engines):
+        return None
+    raise NotImplementedError("a columnar replica would serve the probe scan, but the port has none")
+
+
+def try_mpp_select(store, dag: DAGRequest, ranges: list, start_ts: int, *, group_capacity: int = 1024,
+                   min_devices: int = 2, aux_chunks: list | None = None, engines: tuple = (),
+                   backoff_weight: int = 2, checker=None) -> Chunk | None:
+    """Plan and run an eligible DAG as an MPP fragment graph on the store's
+    mesh devices; None = not taken (a counted fallback where the run was
+    abandoned — the caller dispatches to the mesh select / per-region
+    tiers as if MPP routing never happened). `backoff_weight` and
+    `checker` are the reference's replica-readiness wait's, which the row
+    store's scan does not take."""
+    kind = fragment_kind(dag)
+    if kind is None:
+        return None
+    if kind == "join" and not aux_chunks:
+        return None
+    devs = list(store.mesh_devices)
+    if len(devs) < min_devices:
+        return None
+    fplan = fragment_plan(dag, n_tasks=len(devs))
+    if fplan is None:
+        return None
+    from ..codec.wire import decode_fragment_plan, encode_fragment_plan
+    from ..util import failpoint, metrics, tracing
+
+    # the wire seam: a real coordinator ships each fragment inside a
+    # DispatchMPPTaskRequest — round-trip the topology through the codec
+    # so the EXECUTED plan is the decoded one, byte-exact
+    fplan = decode_fragment_plan(encode_fragment_plan(fplan))
+    if failpoint.eval("mpp/dispatch-lost"):
+        # a task dispatch was lost before launch: abandon the MPP run
+        metrics.MPP_FALLBACKS.inc()
+        return None
+    with tracing.span("mpp.dispatch", kind=kind, n_fragments=len(fplan.fragments), n_tasks=fplan.n_tasks,
+                      n_ranges=len(ranges)) as sp:
+        chunks = _replica_probe_chunks(store, dag, ranges, engines)
+        replica_served = chunks is not None
+        if chunks is None:
+            # row-store scan pushdown (paging / retry, typed region errors
+            # and epoch fall-out preserved — a mid-query split raises the
+            # same typed shape the per-region path does)
+            from ..distsql.dispatch import KVRequest, select
+
+            scan = dag.executors[0]
+            scan_dag = DAGRequest((scan,), output_offsets=tuple(range(len(scan.columns))))
+            res = select(store, KVRequest(scan_dag, ranges, start_ts))
+            chunks = [c for c in res.chunks if c is not None and c.num_rows() > 0]
+        if failpoint.eval("mpp/exchange-stall"):
+            # an exchange never delivered mid-run: abandon the MPP run
+            metrics.MPP_FALLBACKS.inc()
+            return None
+        out = execute_exchange_plan(dag, chunks, aux_chunks, kind, devs, group_capacity=group_capacity)
+        if out is None:
+            metrics.MPP_FALLBACKS.inc()
+            return None
+        metrics.MPP_SELECTS.inc()
+        metrics.MPP_FRAGMENTS.inc(len(fplan.fragments))
+        metrics.MPP_TASKS.inc(len(fplan.fragments) * fplan.n_tasks)
+        metrics.MPP_EXCHANGED_BYTES.inc(_chunks_nbytes(chunks) + _chunks_nbytes(aux_chunks or []))
+        if sp is not None:
+            sp.set("rows", out.num_rows())
+            sp.set("replica_served", replica_served)
+        return out

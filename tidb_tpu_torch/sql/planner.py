@@ -1703,7 +1703,21 @@ def _plan_select(stmt: A.SelectStmt, catalog: Catalog, mat: dict | None = None, 
         _plan_windows(win_nodes, low, executors)
 
     # ---- aggregation
-    group_asts = [positional(b.expr) for b in stmt.group_by]
+    def group_key(e):
+        """A GROUP BY item as the AST it groups by: a position is its
+        select field, and a bare name that is no column of the FROM clause
+        but a select alias is the alias's expression (MySQL searches the
+        FROM clause first for GROUP BY, then the select list), so the
+        select field of that expression reads the group key."""
+        e = positional(e)
+        if isinstance(e, A.ColumnName) and not e.table and e.name.lower() in aliases:
+            try:
+                scope.resolve(e)
+            except PlanError:
+                return aliases[e.name.lower()]
+        return e
+
+    group_asts = [group_key(b.expr) for b in stmt.group_by]
     need_agg = bool(group_asts) or any(_has_agg(f.expr) for f in fields) or (
         stmt.having is not None and _has_agg(stmt.having)
     )

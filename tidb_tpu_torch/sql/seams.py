@@ -1,4 +1,5 @@
-"""Where the SQL session meets a subsystem the port does not have yet.
+"""Where the SQL session (and the PD tick) meets a subsystem the port does
+not have yet.
 
 Each function stands at a call the reference session makes into a package
 that is not ported, and answers as the reference does when that subsystem
@@ -6,10 +7,10 @@ declines or has nothing attached. None of them succeeds silently where the
 reference would do work:
 
   columnar_would_serve  False: there is no columnar replica, so the row
-                        store serves every plan
-  try_mpp_select        None, the reference's "declined" (the MPP tier's
-                        fragment dispatch is not ported; the session then
-                        takes the mesh select, parallel/sql.py)
+                        store serves every plan (and the MPP tier's probe
+                        scan, mpp/dispatch.py)
+  pitr_tick             the PD tick's pd.pitr phase: nothing, as on a
+                        reference store with no log backup attached
   columnar_views, changefeed_views, log_backup_views
                         the rows of SHOW COLUMNAR TABLES / CHANGEFEEDS /
                         BACKUP LOGS: none, as on a reference store with no
@@ -27,7 +28,7 @@ def columnar_would_serve(store, dag, ranges, engines) -> bool:
     return False
 
 
-def try_mpp_select(store, dag, ranges, start_ts, **kwargs):
+def pitr_tick(store) -> None:
     return None
 
 

@@ -17,9 +17,11 @@ tidb_tpu). The session runs over the port's store on `device` (default
 "cuda"), its mesh tier and mesh select over `mesh_devices` (the store's
 device list, runtime.mesh_devices). What differs from the reference: the
 subsystems the port does not have answer through `seams.py` (no columnar
-replica, no MPP fragment dispatch; CHANGEFEED, BACKUP, RESTORE and log
-backup raise "not ported"), and LOAD STATS resolves a relative path
-against the working directory.
+replica; CHANGEFEED, BACKUP, RESTORE and log backup raise "not ported"),
+and LOAD STATS resolves a relative path against the working directory.
+The MPP tier (mpp/dispatch.py try_mpp_select), follower reads, SHOW
+PLACEMENT and the PD knobs of Config reach the store's control plane (its
+`pd` and `replication`), as in the reference.
 """
 
 from __future__ import annotations
@@ -2012,7 +2014,7 @@ class Session:
                         )
                         gc = self.sysvars.get_int("tidb_tpu_group_capacity")
                         if decision.tier == "mpp":
-                            from .seams import try_mpp_select
+                            from ..mpp.dispatch import try_mpp_select
 
                             chunk = try_mpp_select(
                                 self.store, plan.dag, ranges, ts,

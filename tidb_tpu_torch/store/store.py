@@ -28,16 +28,30 @@ any decline or failure degrades the group to the batched tier.
 The store also carries the SQL session's write side: the Percolator
 engine (`txn`, store/txn.py; every commit bumps the write version, which
 drops the result cache), the registry of open snapshots that bounds MVCC
-GC (`register_snapshot`, `run_gc`, `gc_safepoint`), `advance_tso`,
-`ping_store` and the admission gate (server/admission.py).
+GC (`register_snapshot`, `run_gc`, `gc_safepoint`), `advance_tso` and the
+admission gate (server/admission.py).
 
-Left out, beside the reference: replica reads (a follower read answers
-other_error), failpoints, most metrics (the batched and mesh tiers' counts
-are in stats(), the mesh counters also in util/metrics.py), Top SQL
-and PD flow recording, and the write path's quorum and CDC guards: the
-engine's replication, quorum, CDC and group-commit hooks are None, and
-the two the bulk loader calls itself (`_check_write_quorum`,
-`record_applied_writes`) do nothing.
+And the control plane (ref: tidb_tpu/store/store.py:166-205, 368-467):
+`pd` (pd/core.py PlacementDriver) and `replication` (replication/
+ReplicaManager). Every write records its flow into the PD heartbeat and
+proposes through the region's replication group, after a write-quorum gate
+that refuses it (QuorumLostError) when the region's acks cannot reach
+quorum: put_row / delete_row / put_index directly, the engine's commits,
+group commits and bulk ingests through its on_apply / on_apply_group /
+pre_apply hooks. Every served region read records its read flow. A request
+routed to a peer (`peer_store`) meets the fault ladder (`_region_fault`):
+a down store or the `store/unreachable` failpoint answer StoreUnavailable,
+`store/not-leader` and `store/server-busy` their typed errors, a
+non-leader peer NotLeader with the leader as the hint, and a replica read
+serves only where the peer's safe_ts covers its start_ts, else
+DataIsNotReady. The `cop-region-error`, `cop-other-error` and
+`cop-debug-raise` failpoints act at the endpoint as in the reference.
+
+Left out, beside the reference: the CDC write guard and the columnar
+replica (the port has neither), Top SQL's device attribution, and some
+metrics (the batched and mesh tiers' counts are in stats(), the mesh
+counters also in util/metrics.py; COP_REQUESTS, COP_ERRORS, COP_DURATION
+and REPLICA_READS are counted as in the reference).
 """
 
 from __future__ import annotations
@@ -62,6 +76,28 @@ from ..types import Datum
 from .kv import MemKV
 from .region import Cluster, Region
 from .txn import TxnEngine
+
+
+def _fault_matches(value, store_id: int) -> bool:
+    """Per-store failpoint arming: True fires for every store; a
+    set/list/tuple of ids fires for those stores; a dict
+    `{"stores": ids-or-None, ...}` fires for the listed stores (None =
+    all) and may carry extra payload (`backoff_ms` for server-busy); a
+    ZERO-arg callable returns any of those shapes per hit (a value
+    arriving un-invoked via `failpoint.peek` is asked here).
+    None/falsy never fires."""
+    if not value:
+        return False
+    if callable(value):  # peek path hands over the raw callable
+        return _fault_matches(value(), store_id)
+    if value is True or isinstance(value, int):
+        return True
+    if isinstance(value, (set, frozenset, list, tuple)):
+        return store_id in value
+    if isinstance(value, dict):
+        stores = value.get("stores")
+        return stores is None or store_id in stores
+    return True
 
 
 @dataclass(frozen=True)
@@ -103,7 +139,9 @@ class CopRequest:
     peer_store: int = -1  # the peer the client routed to (-1 = whoever
     # leads at serve time); a non-leader peer answers NotLeader unless
     # replica_read (ref: kvrpcpb.Context.peer)
-    replica_read: bool = False  # follower read (not ported: other_error)
+    replica_read: bool = False  # follower read: a non-leader peer may
+    # serve IF its safe_ts covers start_ts, else DataIsNotReady
+    # (ref: kvrpcpb.Context.replica_read)
     mesh: bool = False
     mesh_min_rows: int = 0
 
@@ -202,6 +240,9 @@ class TPUStore:
     _COP_CACHE_MAX = 128
 
     def __init__(self, device="cuda", mesh_devices=None):
+        from ..pd.core import PlacementDriver
+        from ..replication import ReplicaManager
+
         self.device = resolve_device(device)
         # the devices the mesh tier shards over (runtime.mesh_devices: all
         # visible cards for a cuda store, the store's device for a cpu one)
@@ -209,10 +250,21 @@ class TPUStore:
         self.kv = MemKV()
         self.cluster = Cluster()
         self.programs = ProgramCache()
+        # the control plane: flow stats always record (cheap increments);
+        # the schedulers only act when tick() or a timer runs (ref: every
+        # TiKV store heartbeats PD whether or not PD is scheduling)
+        self.pd = PlacementDriver(self)
+        # the replication overlay: peer sets live on the cluster, per-peer
+        # applied watermarks (safe_ts) live here; every committed write
+        # proposes through it
+        self.replication = ReplicaManager(self)
         # Percolator 2PC; a commit bumps the write version (and so drops
-        # the result cache) as put_row does. The reference's replication,
-        # quorum, CDC and group-commit hooks have no subsystem here.
-        self.txn = TxnEngine(self.kv, on_commit=self._bump_write_ver)
+        # the result cache) as put_row does, and its applied keys pass the
+        # write-quorum gate before and record flow and propose after
+        self.txn = TxnEngine(self.kv, on_commit=self._bump_write_ver,
+                             on_apply=self.record_applied_writes,
+                             pre_apply=self._check_write_quorum,
+                             on_apply_group=self.record_applied_writes_grouped)
         self._tso = itertools.count(100)  # guarded_by: _tso_lock
         self._tso_lock = threading.Lock()
         self._active_snapshots: dict[int, int] = {}  # guarded_by: _tso_lock
@@ -275,9 +327,15 @@ class TPUStore:
             return set(self._down_stores)
 
     def ping_store(self, store_id: int) -> bool:
-        """Store liveness probe: False while the store is switched down
-        (the port has no failpoints, so set_down is the only switch)."""
-        return not self.store_down(store_id)
+        """Store liveness probe (ref: client-go store liveness check /
+        PD's store heartbeat watchdog): False when the store is switched
+        down OR the unreachable failpoint is armed for it. Non-consuming —
+        a probe must never eat a fire-N-times count."""
+        from ..util import failpoint
+
+        if self.store_down(store_id):
+            return False
+        return not _fault_matches(failpoint.peek("store/unreachable"), store_id)
 
     def evict_caches(self) -> None:
         """Drop the decoded-chunk, device-batch, build-side and result
@@ -351,34 +409,105 @@ class TPUStore:
         with self._cop_lock:
             return self._write_ver
 
+    def _record_write_flow(self, key: bytes, value: bytes | None, prev_live: bool,
+                           ts: int, placement: tuple | None = None):
+        """Per-key write flow into the PD heartbeat snapshot (ref: TiKV's
+        flow observer feeding pdpb.RegionHeartbeat bytes/keys_written) +
+        a replication proposal carrying the change entry: the write rides
+        the region's raft-lite log, commits on quorum ack and advances
+        follower safe_ts."""
+        self.pd.flow.record_write(key, 0 if value is None else len(value),
+                                  prev_live=prev_live, delete=value is None)
+        if placement is None:
+            placement = self.cluster.locate_placement(key)
+        rid, leader, peers = placement
+        self.replication.propose(rid, ts, placement=(leader, peers),
+                                 entries=[(key, value)])
+
+    def record_applied_writes(self, items, ts: int | None = None):
+        """Batch write flow for appliers that land many keys at once (2PC
+        commit, bulk ingest, LOAD DATA): items of (key, value|None,
+        prev_live). Called AFTER the kv critical section so the flow
+        bookkeeping never extends the reader-blocking window. Each touched
+        region gets ONE replication proposal at the batch's commit ts
+        carrying exactly its own keys' changes. `ts` defaults to the store
+        commit watermark; batch appliers pass their actual commit_ts."""
+        self.pd.flow.record_writes(
+            [(k, 0 if v is None else len(v), prev, v is None) for k, v, prev in items]
+        )
+        if ts is None:
+            ts = self.kv.max_committed()
+        values = {k: v for k, v, _prev in items}
+        for rid, keys in self.cluster.group_keys_by_region(list(values)).items():
+            self.replication.propose(rid, ts,
+                                     entries=[(k, values[k]) for k in keys])
+
+    def record_applied_writes_grouped(self, lanes):
+        """Group-commit write flow: lanes of (applied items, commit_ts)
+        from ONE coalesced window, ascending commit ts. One flow-stats
+        batch for the whole window, then ONE replication proposal per
+        touched region carrying every lane's entries at its own commit ts
+        (ReplicaManager.propose_group)."""
+        from ..util import metrics
+
+        flow_items = []
+        per_region: dict[int, list] = {}
+        pairs = 0
+        for applied, ts in lanes:
+            flow_items.extend(
+                (k, 0 if v is None else len(v), prev, v is None)
+                for k, v, prev in applied
+            )
+            values = {k: v for k, v, _prev in applied}
+            for rid, keys in self.cluster.group_keys_by_region(list(values)).items():
+                per_region.setdefault(rid, []).append(
+                    (ts, [(k, values[k]) for k in keys])
+                )
+                pairs += 1
+        self.pd.flow.record_writes(flow_items)
+        for rid, groups in per_region.items():
+            self.replication.propose_group(rid, groups)
+        if pairs > len(per_region):
+            metrics.COALESCE_GROUP_PROPOSALS_SAVED.inc(pairs - len(per_region))
+
+    def _check_write_quorum(self, keys) -> None:
+        """The pre-apply write gate: every region a write touches must
+        hold quorum, else the whole write is refused with a typed
+        QuorumLostError (MySQL 9005 at the session boundary) BEFORE
+        anything turns durable on the shared KV. One cluster-lock
+        acquisition fetches every placement."""
+        for rid, placement in self.cluster.placements_of_keys(keys).items():
+            self.replication.check_write_quorum(rid, placement=placement)
+
     # -- write path (ref: table.AddRecord -> memdb -> prewrite/commit) ------
     def put_row(self, table_id: int, handle: int, col_ids: list[int], datums: list[Datum], ts: int):
         key = tablecodec.encode_row_key(table_id, handle)
-        self.kv.put(key, self._row_encoder.encode(col_ids, datums), ts)
-        self._bump_write_ver()
+        val = self._row_encoder.encode(col_ids, datums)
+        self._put_checked(key, val, ts)
 
     def delete_row(self, table_id: int, handle: int, ts: int):
-        self.kv.put(tablecodec.encode_row_key(table_id, handle), None, ts)
-        self._bump_write_ver()
+        self._put_checked(tablecodec.encode_row_key(table_id, handle), None, ts)
 
     def put_index(self, key: bytes, value: bytes, ts: int):
-        self.kv.put(key, value, ts)
+        self._put_checked(key, value, ts)
+
+    def _put_checked(self, key: bytes, value: bytes | None, ts: int) -> None:
+        """One direct write: the region's quorum gate, the put, its flow
+        and replication proposal, then the write-version bump."""
+        placement = self.cluster.locate_placement(key)
+        self.replication.check_write_quorum(placement[0], placement=placement[1:])
+        prev = self.kv.put(key, value, ts)
+        self._record_write_flow(key, value, prev, ts, placement=placement)
         self._bump_write_ver()
 
     def bulk_ingest(self, items, ts: int) -> None:
         """Apply (key, value) pairs at commit ts `ts` in one critical section
         (TxnEngine.bulk_ingest: raises KeyIsLocked, applying nothing, when a
-        live transaction holds one of the keys)."""
+        live transaction holds one of the keys, and QuorumLostError when a
+        region the keys touch cannot reach quorum; the applied keys record
+        their flow and propose per region)."""
         self.txn.bulk_ingest(list(items), ts)
         self._bump_write_ver()
-
-    def _check_write_quorum(self, keys) -> None:
-        """The reference's write-quorum gate before a bulk apply. The port
-        has no replication, so every write has its quorum: nothing to do."""
-
-    def record_applied_writes(self, items, ts: int | None = None) -> None:
-        """The reference's write-flow, replication and CDC feed after a
-        bulk apply. The port has none of them: nothing to do."""
 
     # -- scan/decode with caching -------------------------------------------
     def region_chunk(self, region: Region, ranges: list, dag: DAGRequest, start_ts: int) -> Chunk:
@@ -619,7 +748,9 @@ class TPUStore:
         already see every committed version (start_ts >= kv.max_version at
         put time), so with the write version unchanged any request at
         start_ts >= the entry's sees byte-identical data; an older snapshot
-        might predate a version the entry includes and must miss."""
+        might predate a version the entry includes and must miss. A hit
+        still records read flow: the region logically served the rows, and
+        the hot-region scheduler must see the most re-read regions."""
         if not self._cop_cacheable(req):
             return None
         with self._cop_lock:
@@ -627,16 +758,20 @@ class TPUStore:
             ent = self._cop_cache.get(key)
             if ent is None:
                 return None
-            resp, entry_ts = ent
+            resp, entry_ts, flow = ent
             if req.start_ts < entry_ts:
                 return None
             self._cop_cache.pop(key)  # refresh LRU position
             self._cop_cache[key] = ent
+        self.pd.flow.record_read(req.region_id, flow[0], flow[1])
         summaries = [replace(s, cache_hit=True, time_compile_ns=0) for s in resp.exec_summaries]
         return CopResponse(chunk=resp.chunk, exec_summaries=summaries)
 
-    def _cop_cache_put(self, req: CopRequest, resp: CopResponse, write_ver: int) -> None:
-        """write_ver is the caller's snapshot of _write_ver taken BEFORE it
+    def _cop_cache_put(self, req: CopRequest, resp: CopResponse, write_ver: int, flow: tuple = (0, 0)) -> None:
+        """flow = (decoded bytes, rows) of the region read, replayed into
+        the PD heartbeat on every hit.
+
+        write_ver is the caller's snapshot of _write_ver taken BEFORE it
         read the region: the insert is refused under _cop_lock if a write
         landed since (version moved, or a half-applied commit already
         raised kv.max_version) — otherwise a pre-write response could be
@@ -657,25 +792,62 @@ class TPUStore:
             # different visibility) — only the all-seeing snapshot caches
             if req.start_ts < self.kv.max_committed():
                 return
-            self._cop_cache[self._cop_cache_key(req, write_ver)] = (resp, req.start_ts)
+            self._cop_cache[self._cop_cache_key(req, write_ver)] = (resp, req.start_ts, flow)
             while len(self._cop_cache) > self._COP_CACHE_MAX:
                 self._cop_cache.pop(next(iter(self._cop_cache)))
 
-    def _region_fault(self, region_id: int, peer_store: int = -1, replica_read: bool = False):
+    def _count_replica_read(self, req: CopRequest) -> None:
+        """tidb_tpu_replica_read_total{target=} — one count per routed
+        request (req.peer_store >= 0), marker-deduped because a batch lane
+        can be re-served by the single-request path (singleton groups,
+        overflow fall-outs) after the batch already admitted it. Also
+        feeds the closest-replica router's per-store read load."""
+        if req.peer_store < 0 or getattr(req, "_replica_counted", False):
+            return
+        req._replica_counted = True
+        from ..util import metrics
+
+        target = "follower" if req.peer_store != self.cluster.leader_of(req.region_id) else "leader"
+        metrics.REPLICA_READS.labels(target).inc()
+        self.replication.note_read(req.peer_store)
+
+    def _region_fault(self, region_id: int, peer_store: int = -1, replica_read: bool = False,
+                      start_ts: int = 0):
         """The typed fault ladder for the peer a request was routed to
         (`peer_store`; -1 = whoever leads at serve time): the set_down
-        switch, then NotLeader (with the current leader as the hint) for a
-        non-leader peer unless the request is a replica read. None = this
-        peer serves (a replica read on a follower is refused by the
-        caller)."""
-        from .errors import NotLeader, StoreUnavailable
+        switch and the three per-store-armable failpoints
+        (`store/unreachable`, `store/not-leader`, `store/server-busy`) —
+        each returns a typed RegionError the dispatch client classifies
+        onto its own backoff budget — then the replication checks: a
+        non-leader peer answers NotLeader WITH the current leader as the
+        hint unless the request is a replica read, and a replica read is
+        gated on the peer's applied watermark (`safe_ts >= start_ts`,
+        else DataIsNotReady — ref: TiKV replica read's resolved-ts
+        check). None = this peer serves."""
+        from ..util import failpoint
+        from .errors import DataIsNotReady, NotLeader, ServerIsBusy, StoreUnavailable
 
         leader = self.cluster.leader_of(region_id)
         sid = peer_store if peer_store >= 0 else leader
         if self.store_down(sid):
             return StoreUnavailable.make(sid)
-        if sid != leader and not replica_read:
+        if _fault_matches(failpoint.eval("store/unreachable"), sid):
+            return StoreUnavailable.make(sid)
+        if _fault_matches(failpoint.eval("store/not-leader"), sid):
+            # injected leadership wobble: the hint is whatever the cluster
+            # currently believes — pointing at the armed store itself
+            # means "election in flight", no usable hint
             return NotLeader.make(region_id, sid, leader)
+        busy = failpoint.eval("store/server-busy")
+        if _fault_matches(busy, sid):
+            ms = busy.get("backoff_ms", 0) if isinstance(busy, dict) else 0
+            return ServerIsBusy.make(sid, ms)
+        if sid != leader:
+            if not replica_read:
+                return NotLeader.make(region_id, sid, leader)
+            safe = self.replication.safe_ts(region_id, sid)
+            if safe < start_ts:
+                return DataIsNotReady.make(region_id, sid, safe)
         return None
 
     # -- the serialized endpoint (the sidecar seam) -------------------------
@@ -694,25 +866,36 @@ class TPUStore:
 
     # -- the coprocessor endpoint -------------------------------------------
     def coprocessor(self, req: CopRequest, group_capacity: int = DEFAULT_GROUP_CAPACITY) -> CopResponse:
+        from ..util import metrics
+
+        metrics.COP_REQUESTS.inc()
+        t_start = time.monotonic()
         resp = self._coprocessor(req, group_capacity)
+        metrics.COP_DURATION.observe(time.monotonic() - t_start)
+        if resp.region_error is not None or resp.other_error is not None:
+            metrics.COP_ERRORS.inc()
         if resp.other_error is not None:
             self._count("other_errors")
         return resp
 
     def _coprocessor(self, req: CopRequest, group_capacity: int) -> CopResponse:
         from ..exec.dag import executor_walk
+        from ..util import failpoint
 
+        if failpoint.eval("cop-region-error"):
+            # fault injection at the RPC seam (ref: unistore/rpc.go:265-271)
+            return CopResponse(region_error="injected epoch_not_match")
+        if failpoint.eval("cop-other-error"):
+            return CopResponse(other_error="injected coprocessor error")
         region = self.cluster.region_by_id(req.region_id)
         if region is None:
             return CopResponse(region_error=f"region {req.region_id} not found")
-        err = self._region_fault(req.region_id, req.peer_store, req.replica_read)
+        err = self._region_fault(req.region_id, req.peer_store, req.replica_read, req.start_ts)
         if err is not None:
             return CopResponse(region_error=str(err))
         if req.region_epoch != region.epoch:
             return CopResponse(region_error=f"epoch_not_match: have {region.epoch}, got {req.region_epoch}")
-        if req.replica_read and req.peer_store >= 0 and req.peer_store != self.cluster.leader_of(req.region_id):
-            return CopResponse(other_error=f"replica read of region {req.region_id} at follower store "
-                                           f"{req.peer_store}: replica reads are not ported")
+        self._count_replica_read(req)
         cached = self._cop_cache_get(req)
         if cached is not None:
             self._count("result_cache_hits")
@@ -721,7 +904,7 @@ class TPUStore:
         t0 = time.monotonic_ns()
         last_range = None
         page = None
-        in_bytes = 0
+        in_bytes, in_rows = 0, 0
         try:
             if req.paging_size is not None:
                 from ..exec.dag import Aggregation as _Agg, Limit as _Limit, Sort as _Sort, TopN as _TopN
@@ -735,12 +918,16 @@ class TPUStore:
                 page, last_range = self._paged_region_chunk(
                     region, req.ranges, req.dag, req.start_ts, req.paging_size
                 )
-                in_bytes = page.nbytes()
+                in_bytes, in_rows = page.nbytes(), page.num_rows()
                 batch = to_device_batch(page, capacity=_pow2(max(page.num_rows(), 1)), device=self.device)
                 self._count("device_uploads")
             else:
-                in_bytes = self.region_chunk(region, req.ranges, req.dag, req.start_ts).nbytes()
+                rc = self.region_chunk(region, req.ranges, req.dag, req.start_ts)
+                in_bytes, in_rows = rc.nbytes(), rc.num_rows()
                 batch = self.region_device_batch(region, req.ranges, req.dag, req.start_ts)
+            # read flow into the PD heartbeat (ref: TiKV flow observer ->
+            # pdpb.RegionHeartbeat bytes/keys_read)
+            self.pd.flow.record_read(region.region_id, in_bytes, in_rows)
             batches = [batch] + [self._aux_batch(c) for c in req.aux_chunks]
             chunk, ex_rows, info = drive_program_info(self.programs, req.dag, batches, group_capacity,
                                                       small_groups=req.small_groups)
@@ -760,8 +947,12 @@ class TPUStore:
                 ex_rows = [chunk.num_rows()] * len(executor_walk(req.dag.executors))
                 info = {"cache_hit": False, "compile_ns": 0}
             except (RuntimeError, TypeError, NotImplementedError, ValueError) as exc:
+                if failpoint.eval("cop-debug-raise"):
+                    raise  # the loud-failure gate
                 return CopResponse(other_error=f"oracle fallback failed: {exc}")
         except (RuntimeError, TypeError) as exc:
+            if failpoint.eval("cop-debug-raise"):
+                raise  # surface kernel bugs with a stack when armed
             return CopResponse(other_error=str(exc))
         elapsed = time.monotonic_ns() - t0
         # per-executor produced-row counts are real (counted inside the
@@ -782,7 +973,7 @@ class TPUStore:
         ]
         _apply_radix_attribution(summaries, walk, info)
         resp = CopResponse(chunk=chunk, exec_summaries=summaries, last_range=last_range)
-        self._cop_cache_put(req, resp, write_ver=ver)
+        self._cop_cache_put(req, resp, write_ver=ver, flow=(in_bytes, in_rows))
         return resp
 
     # -- the batched coprocessor endpoint -----------------------------------
@@ -797,33 +988,42 @@ class TPUStore:
 
         Validation comes first: a missing region, a store fault, a stale
         epoch or a result-cache hit answers at once and falls out of the
-        batch while the rest of the batch stands. Paging requests take the
-        single-request path (their resume cursors live there), as does a
-        group of one. Responses come back in request order."""
+        batch while the rest of the batch stands. Paging requests and armed
+        cop failpoints take the single-request path (resume cursors and
+        injection sites live there), as does a group of one. Responses come
+        back in request order."""
+        from ..util import failpoint, metrics
+
         responses: list = [None] * len(reqs)
         groups: dict = {}
         for i, req in enumerate(reqs):
-            if req.paging_size is not None:
+            if (req.paging_size is not None or failpoint.is_armed("cop-region-error")
+                    or failpoint.is_armed("cop-other-error")):
                 responses[i] = self.coprocessor(req, group_capacity)
                 continue
             region = self.cluster.region_by_id(req.region_id)
             if region is None:
+                metrics.COP_REQUESTS.inc()
+                metrics.COP_ERRORS.inc()
                 responses[i] = CopResponse(region_error=f"region {req.region_id} not found")
                 continue
-            err = self._region_fault(req.region_id, req.peer_store, req.replica_read)
+            err = self._region_fault(req.region_id, req.peer_store, req.replica_read, req.start_ts)
             if err is not None:
                 # a typed store fault falls out like a stale epoch: the lane
                 # answers now, the rest of the batch stands
+                metrics.COP_REQUESTS.inc()
+                metrics.COP_ERRORS.inc()
                 responses[i] = CopResponse(region_error=str(err))
                 continue
             if req.region_epoch != region.epoch:
+                metrics.COP_REQUESTS.inc()
+                metrics.COP_ERRORS.inc()
                 responses[i] = CopResponse(region_error=f"epoch_not_match: have {region.epoch}, got {req.region_epoch}")
                 continue
-            if req.replica_read and req.peer_store >= 0 and req.peer_store != self.cluster.leader_of(req.region_id):
-                responses[i] = self.coprocessor(req, group_capacity)  # its other_error
-                continue
+            self._count_replica_read(req)
             cached = self._cop_cache_get(req)
             if cached is not None:
+                metrics.COP_REQUESTS.inc()
                 self._count("result_cache_hits")
                 responses[i] = cached
                 continue
@@ -926,14 +1126,14 @@ class TPUStore:
         out_fts = merged.field_types()
         metrics.MESH_COP_BATCHES.inc()
         self._count("mesh_batches")
-        for k, (i, _req, _region) in enumerate(entries):
+        for k, (i, _req, region) in enumerate(entries):
             metrics.MESH_COP_LANES.inc()
             self._count("mesh_lanes")
             self._count("device_served")
             # the first lane carries the one merged state; the rest answer
             # empty, so the root sees one row block per store
             out_chunk = merged if k == 0 else Chunk.empty(out_fts)
-            summaries = self._lane_attribution(chunks[k], out_chunk.nbytes() if k == 0 else 0, lane_counts[k],
+            summaries = self._lane_attribution(region, chunks[k], out_chunk.nbytes() if k == 0 else 0, lane_counts[k],
                                                shares[k], compile_ns=info["compile_ns"] if k == 0 else 0,
                                                cache_hit=info["cache_hit"] if k == 0 else True, walk=walk,
                                                radix_info=info if k == 0 else None)
@@ -943,12 +1143,17 @@ class TPUStore:
                                        mesh_merged=len(entries))
         return True
 
-    def _lane_attribution(self, in_chunk, out_bytes: int, counts, share: int, compile_ns: int,
+    def _lane_attribution(self, region, in_chunk, out_bytes: int, counts, share: int, compile_ns: int,
                           cache_hit: bool, walk, radix_info=None) -> list:
-        """One served lane's ExecSummary list: its share of the bucket's
-        time on each executor, the compile attribution, and the bytes on
-        the data movers (the scan's decoded region bytes in, the final
-        executor's result out)."""
+        """One served lane's read flow into the PD heartbeat and its
+        ExecSummary list: its share of the bucket's time on each executor,
+        the compile attribution, and the bytes on the data movers (the
+        scan's decoded region bytes in, the final executor's result out)."""
+        from ..util import metrics
+
+        self.pd.flow.record_read(region.region_id, in_chunk.nbytes(), in_chunk.num_rows())
+        metrics.COP_REQUESTS.inc()
+        metrics.COP_DURATION.observe(share / 1e9)
         in_b = in_chunk.nbytes()
         summaries = [
             ExecSummary(
@@ -1025,7 +1230,7 @@ class TPUStore:
         walk = executor_walk(dag.executors)
         self._count("batch_batches")
         served = 0
-        for lane, ((i, req, _region), ch, res) in enumerate(zip(entries, chunks, per_region)):
+        for lane, ((i, req, region), ch, res) in enumerate(zip(entries, chunks, per_region)):
             if res is None:
                 # this lane's group / join / TopN flag fired: it alone rides
                 # the single-request retry ladder
@@ -1040,13 +1245,13 @@ class TPUStore:
                 lane_info = {"radix": dict(info["radix"], escapes=info["radix"]["escapes_by_lane"][lane])}
             # the one program's build time goes on the first served lane;
             # the others are cache hits by construction
-            summaries = self._lane_attribution(ch, chunk.nbytes(), ex_rows, shares[lane],
+            summaries = self._lane_attribution(region, ch, chunk.nbytes(), ex_rows, shares[lane],
                                                compile_ns=info["compile_ns"] if served == 0 else 0,
                                                cache_hit=info["cache_hit"] if served == 0 else True,
                                                walk=walk, radix_info=lane_info)
             served += 1
             resp = CopResponse(chunk=chunk, exec_summaries=summaries, batched=batch_id)
-            self._cop_cache_put(req, resp, write_ver=write_ver)
+            self._cop_cache_put(req, resp, write_ver=write_ver, flow=(ch.nbytes(), ch.num_rows()))
             responses[i] = resp
         if served > 1:
             self._count("batch_launches_saved", served - 1)

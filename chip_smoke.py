@@ -220,10 +220,42 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      no region holds more than 2^17 keys, every answer equal to numpy, the
      regions and operators printed. Phases 6, 10, 11 and 12 print the time
      their loads spent in the store's write hooks (the quorum gate, the
-     flow record and the replication proposals).
+     flow record and the replication proposals);
+ 14. change data capture and the columnar replica: a Session(mesh_devices=
+     ["cuda:0"] * 4) over its own store holding lineitem_r (the first
+     2^19 rows of phase 11's lineitem, as they stood before phase 13's
+     UPDATE, in four regions) and orders, LOAD STATS of lineitem_r's
+     NDVs; ALTER TABLE lineitem_r SET COLUMNAR REPLICA 1 and one PD tick
+     (the changefeed's birth scan, mount and apply in pd.cdc, the
+     compaction and the upload of the stable batch to the card in
+     pd.columnar, each timed), SHOW COLUMNAR TABLES 2^19 stable rows, the
+     batch on `cuda`; with tidb_isolation_read_engines = 'tpu,columnar'
+     (the MPP tier and the mesh off) TPC-H Q1 without ORDER BY (K1 once),
+     Q6, the Q3-shaped join (K2 once a program run) and the TopN served
+     from the stable batch (COLUMNAR_SCANS +1, no fallback,
+     run_dag_on_chunks not called), each equal to numpy and to the row
+     store, median host ms of 3 runs beside the row store's pool tier;
+     the MPP tier on: Q1's GROUP BY stays with engine routing, and
+     lineitem_r JOIN orders grouped by o_orderdate rides the MPP tier with
+     its probe scan from the replica (replica_served on the mpp.dispatch
+     span), equal to numpy and to the MPP tier over the row store; a file
+     changefeed (build/cdc_phase) from the store's current ts, then one
+     transaction through the store's Percolator engine (an UPDATE of the
+     rows with l_orderkey < 64, an INSERT of 16 rows and a DELETE of 16):
+     a routed Q1 before any tick (one data_not_ready wait, one counted
+     fallback to the row store), after store.cdc.tick() (the delta
+     overlay, run_dag_on_chunks once) and after a PD tick (the compacted
+     stable batch, K1 once), each equal to numpy; the file feed's records
+     exactly the transaction's changes at its commit ts, SHOW CHANGEFEEDS,
+     DROP CHANGEFEED; and columnar/apply-stall armed over one more UPDATE:
+     the replica's feed parks in error, a routed Q1 falls back once, then
+     the disarm, RESUME and a PD tick serve it again, equal to numpy with
+     an empty error in the view. No oracle answer, other_error or bucket
+     fallback, and no COLUMNAR_FALLBACKS but the two provoked (with
+     --profile, a host profile of the overlay read).
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6-13); the last line is {"ok": true,
+the main paths of phases 4 and 6-14); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
@@ -2234,16 +2266,19 @@ def _orders_encode(span):
             for k, c, d in zip(okey[lo:hi].tolist(), cust[lo:hi].tolist(), odate[lo:hi].tolist())]
 
 
-def copy_table(src, src_tid: int, dst, dst_tid: int) -> int:
+def copy_table(src, src_tid: int, dst, dst_tid: int, ts: int | None = None, hi: int | None = None) -> int:
     """Copy a table's rows from store `src` into store `dst` under another
     table id: a row's value bytes depend only on its column ids and types,
-    so only the key's table prefix changes. Returns the rows copied."""
-    from tidb_tpu_torch.codec import record_prefix
+    so only the key's table prefix changes. The rows are those visible at
+    `ts` (the newest by default) with a handle below `hi` (every row by
+    default). Returns the rows copied."""
+    from tidb_tpu_torch.codec import encode_row_key, record_prefix
     from tidb_tpu_torch.distsql import full_table_ranges
 
     (r,) = full_table_ranges(src_tid)
+    end = r.end if hi is None else encode_row_key(src_tid, hi)
     old, new = record_prefix(src_tid), record_prefix(dst_tid)
-    items = [(new + k[len(old):], v) for k, v in src.kv.scan(r.start, r.end, src.next_ts())]
+    items = [(new + k[len(old):], v) for k, v in src.kv.scan(r.start, end, src.next_ts() if ts is None else ts)]
     dst.bulk_ingest(items, dst.next_ts())
     return len(items)
 
@@ -2276,14 +2311,12 @@ def numpy_session_q1(t, T) -> dict:
     return q1
 
 
-def numpy_sql(t, cust, orders, T) -> dict:
-    """The exact answers of SESSION_STATEMENTS over the generated columns,
-    in session_answer's form."""
+def numpy_lineitem_sql(t, orders, T) -> dict:
+    """The exact answers of SESSION_STATEMENTS' q1, q6, q3 and topn (the
+    statements over lineitem and orders) in session_answer's form."""
     import numpy as np
 
-    out = {}
-    out["q1"] = out["q1_ordered"] = numpy_session_q1(t, T)
-    out["q6"] = numpy_q6(t, T)[0]
+    out = {"q1": numpy_session_q1(t, T), "q6": numpy_q6(t, T)[0]}
     okey, o_date = orders
     cut = T.MyTime.parse("1995-03-15", 0).packed
     l_ok = (t["shipdate"] > cut) & (o_date[t["okey"]] < cut)
@@ -2291,6 +2324,16 @@ def numpy_sql(t, cust, orders, T) -> dict:
     lo = T.MyTime.parse("1992-01-01", 0).packed
     idx = numpy_order(np.where(t["shipdate"] >= lo, t["price"], -1), t["shipdate"], TOPN_K)
     out["topn"] = [(int(t["price"][i]), int(t["shipdate"][i])) for i in idx]
+    return out
+
+
+def numpy_sql(t, cust, orders, T) -> dict:
+    """The exact answers of SESSION_STATEMENTS over the generated columns,
+    in session_answer's form."""
+    import numpy as np
+
+    out = numpy_lineitem_sql(t, orders, T)
+    out["q1_ordered"] = out["q1"]
     phone, _ = cust["phone"]
     cc = (phone[:, 0].astype(np.int64) - 48) * 10 + (phone[:, 1].astype(np.int64) - 48)
     bal = cust["acctbal"]
@@ -2300,36 +2343,36 @@ def numpy_sql(t, cust, orders, T) -> dict:
     return out
 
 
-def session_answer(name, res, want) -> str:
+def session_answer(name, res, want, where: str = "phase 11") -> str:
     """Hold a statement's Result against numpy (exact); returns what was
-    compared."""
+    compared. `where` names the phase in a failure."""
     rows = res.rows
     if name in ("q1", "q1_ordered"):
         got = {(r[0].val, r[1].val): [_scaled(r[2], 2), _scaled(r[3], 2), _scaled(r[4], 4), _scaled(r[5], 6),
                                       _scaled(r[6], 6), _scaled(r[7], 6), int(r[8].val)] for r in rows}
         if got != want:
-            raise SystemExit(f"phase 11 {name}: {got} != numpy {want}")
+            raise SystemExit(f"{where} {name}: {got} != numpy {want}")
         if name == "q1_ordered" and list(got) != sorted(got):
-            raise SystemExit(f"phase 11 {name}: rows not in ORDER BY order ({list(got)})")
+            raise SystemExit(f"{where} {name}: rows not in ORDER BY order ({list(got)})")
         return f"{len(got)} groups"
     if name == "q6":
         if len(rows) != 1 or _scaled(rows[0][0], 4) != want:
-            raise SystemExit(f"phase 11 q6: {rows} != numpy {want}")
+            raise SystemExit(f"{where} q6: {rows} != numpy {want}")
         return "the revenue"
     if name == "q3":
         got = {int(r[0].val): _scaled(r[1], 4) for r in rows}
         top = sorted(want.values(), reverse=True)[:10]
         if [_scaled(r[1], 4) for r in rows] != top or any(want.get(k) != v for k, v in got.items()):
-            raise SystemExit(f"phase 11 q3: the top 10 {got} differ from numpy")
+            raise SystemExit(f"{where} q3: the top 10 {got} differ from numpy")
         return f"the top 10 of {len(want)} groups"
     if name == "topn":
         got = [(_scaled(r[0], 2), r[1].val.packed) for r in rows]
         if got != want:
-            raise SystemExit(f"phase 11 topn: the rows differ from numpy's order")
+            raise SystemExit(f"{where} topn: the rows differ from numpy's order")
         return f"{len(got)} rows in order"
     got = {r[0].val: (int(r[1].val), _scaled(r[2], 2)) for r in rows}
     if got != want:
-        raise SystemExit(f"phase 11 q22_cntry: {got} != numpy {want}")
+        raise SystemExit(f"{where} q22_cntry: {got} != numpy {want}")
     return f"{len(got)} groups"
 
 
@@ -3052,7 +3095,7 @@ def session_mesh_answers(t, odate, T) -> dict:
     return out
 
 
-def session_mesh_answer(name, res, want, T) -> str:
+def session_mesh_answer(name, res, want, T, where: str = "phase 12") -> str:
     rows = res.rows
     if name == "q1":
         return session_answer("q1", res, want)
@@ -3064,7 +3107,7 @@ def session_mesh_answer(name, res, want, T) -> str:
         got = {r[0].val.packed: (int(r[1].val), _scaled(r[2], 2)) for r in rows}
     if got != want:
         bad = next((k for k in want if got.get(k) != want[k]), None)
-        raise SystemExit(f"phase 12 session {name}: {len(got)} groups, numpy {len(want)}; first difference at {bad}:"
+        raise SystemExit(f"{where} session {name}: {len(got)} groups, numpy {len(want)}; first difference at {bad}:"
                          f" {got.get(bad)} != {want.get(bad)}")
     return f"{len(got)} groups"
 
@@ -3353,6 +3396,432 @@ def control_phase(sess, E, X, T, W, counters, profile: bool, card: str) -> None:
         EX.run_dag_reference, EXP.run_dag_reference = real_oracle
         s.execute("SET tidb_replica_read = 'leader'")
     log(f"phase 13: {time.perf_counter() - t0:.1f} s; store {store.stats()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: change data capture and the columnar replica
+# ---------------------------------------------------------------------------
+
+CDC_ROWS = 1 << 19               # lineitem_r: the first 2^19 rows of phase 11's lineitem
+CDC_REGIONS = 4
+CDC_REPS = 3
+CDC_DIR = os.path.join("build", "cdc_phase")  # the file changefeed's segments (ignored by git)
+CDC_UPDATE_KEYS = 64             # the UPDATEs touch lineitem_r's rows with l_orderkey below this
+CDC_NEW_ROWS = 16                # the transaction inserts phase 11's lineitem rows CDC_ROWS.. (handles kept)
+CDC_DELETED_ROWS = 16            # and deletes the last 16 rows the UPDATE does not touch
+CDC_STATEMENTS = ("q1", "q6", "q3", "topn")  # SESSION_STATEMENTS over lineitem_r
+
+
+def cdc_sql(name: str) -> str:
+    text, arg = SESSION_STATEMENTS[name]
+    return text.format(d=arg).replace("FROM lineitem ", "FROM lineitem_r ")
+
+
+class Calls:
+    """Counts (and times) the calls of an attribute of `owner` while
+    installed; `close` puts the original back."""
+
+    def __init__(self, owner, name: str, sync: bool = False):
+        import torch
+
+        self.owner, self.name, self.real = owner, name, getattr(owner, name)
+        self.calls, self.seconds = 0, 0.0
+
+        def fn(*a, **k):
+            self.calls += 1
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return self.real(*a, **k)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+
+        setattr(owner, name, fn)
+
+    def close(self):
+        setattr(self.owner, self.name, self.real)
+
+
+class ProgramRuns:
+    """Counts the programs exec.executor.drive_program_info runs (the
+    first and each overflow retry) for callers that look the function up
+    at call time, as the columnar route does; the store's region path binds
+    its own name and is not counted. `close` puts the original back."""
+
+    def __init__(self, EX):
+        self.EX, self.real, self.calls = EX, EX.drive_program_info, 0
+
+        def drive(cache, *a, **k):
+            real_get = cache.get_info
+
+            def get_info(*aa, **kk):
+                self.calls += 1
+                return real_get(*aa, **kk)
+
+            cache.get_info = get_info
+            try:
+                return self.real(cache, *a, **k)
+            finally:
+                del cache.get_info
+
+        EX.drive_program_info = drive
+
+    def close(self):
+        self.EX.drive_program_info = self.real
+
+
+def cdc_phase(src, snap_ts: int, E, X, T, W, counters, profile: bool, card: str) -> None:
+    """Phase 14: change data capture and the columnar replica on the card
+    (see the module docstring). `src` is phase 11's session; lineitem_r and
+    orders are its rows as of `snap_ts`. With `profile`, a host profile of
+    the overlay read."""
+    import shutil
+    from decimal import Decimal
+
+    import numpy as np
+    import torch
+
+    import tidb_tpu_torch.chunk.device as CD
+    import tidb_tpu_torch.exec as EXP
+    import tidb_tpu_torch.exec.executor as EX
+    import tidb_tpu_torch.util.backoff as BO
+    from tidb_tpu_torch import codec
+    from tidb_tpu_torch.cdc import Changefeed, FileSink
+    from tidb_tpu_torch.parser import parse_one
+    from tidb_tpu_torch.sql import Session, plan_select
+    from tidb_tpu_torch.util import failpoint, metrics, tracing
+
+    t0 = time.perf_counter()
+    lead = torch.device(DEVICE, 0) if torch.device(DEVICE).type == "cuda" else torch.device(DEVICE)
+    s = Session(device=DEVICE, mesh_devices=[str(lead)] * MESH_SHARDS)
+    store = s.store
+    # TiKV's split thresholds: the PD ticks below keep lineitem_r's regions
+    store.pd.conf.max_region_size, store.pd.conf.max_region_keys = CONTROL_SPLIT_SIZE, CONTROL_SPLIT_KEYS
+    s.execute(LINEITEM_DDL.replace("TABLE lineitem ", "TABLE lineitem_r "))
+    s.execute(ORDERS_DDL)
+    tid, o_tid = s.catalog.table("lineitem_r").table_id, s.catalog.table("orders").table_id
+    for t_id, handles in ((tid, [CDC_ROWS // CDC_REGIONS * k for k in range(1, CDC_REGIONS)]),
+                          (o_tid, [SESSION_ORDERS // 2])):
+        store.cluster.split(codec.record_prefix(t_id))
+        for h in handles:
+            store.cluster.split(codec.encode_row_key(t_id, h))
+    h0 = hook_seconds(store)
+    n_line = copy_table(src.store, src.catalog.table("lineitem").table_id, store, tid, ts=snap_ts, hi=CDC_ROWS)
+    n_ord = copy_table(src.store, src.catalog.table("orders").table_id, store, o_tid, ts=snap_ts)
+    if (n_line, n_ord) != (CDC_ROWS, SESSION_ORDERS):
+        raise SystemExit(f"phase 14: copied {n_line} lineitem_r and {n_ord} orders rows")
+    log(f"phase 14 load: lineitem_r (phase 11's first {n_line} lineitem rows, {CDC_REGIONS} regions) and orders"
+        f" ({n_ord} rows) copied into a Session(mesh_devices={[str(lead)] * MESH_SHARDS}) in"
+        f" {time.perf_counter() - t0:.2f} s (the store's write hooks {hook_seconds(store) - h0:.2f} s of it)")
+
+    # the model: lineitem_r's rows as numpy columns, kept in handle order
+    full = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
+    okey, _ocust, odate = (c[0] for c in W.store_q3_build_columns(SESSION_ORDERS, SESSION_CUSTOMERS)[0])
+    qty = full["qty"].copy()
+    live = np.arange(CDC_ROWS)
+
+    def model() -> dict:
+        return {k: (qty if k == "qty" else v)[live] for k, v in full.items()}
+
+    want = numpy_lineitem_sql(model(), (okey, odate), T)
+    os.makedirs(SESSION_DIR, exist_ok=True)
+    stats_json = os.path.abspath(os.path.join(SESSION_DIR, "lineitem_r_stats.json"))
+    with open(stats_json, "w") as f:
+        json.dump({"table_name": "lineitem_r", "count": CDC_ROWS, "columns": {
+            "l_returnflag": {"null_count": 0, "histogram": {"ndv": int(len(np.unique(full["rflag"][:CDC_ROWS])))}},
+            "l_linestatus": {"null_count": 0, "histogram": {"ndv": int(len(np.unique(full["lstat"][:CDC_ROWS])))}}}},
+            f)
+    s.execute(f"LOAD STATS '{stats_json}'")
+    hint = plan_select(parse_one(cdc_sql("q1")), s.catalog).small_groups
+    if hint != G:
+        raise SystemExit(f"phase 14: Q1's small-groups hint {hint}, not {G}")
+
+    # the replica's birth: the changefeed's incremental scan and mount (pd.cdc),
+    # the first compaction and its upload (pd.columnar)
+    table = None
+
+    def replica_view(what, state="normal") -> dict:
+        """The table's view, held to a live, device-resident, error-free
+        replica; and the feed's state to `state`."""
+        v = table.view()
+        got = store.columnar.feed_state(tid)
+        if not v["on_device"] or v["error"] or got != state:
+            raise SystemExit(f"phase 14 {what}: the replica's view {v}, its feed {got}")
+        return v
+
+    s.execute("ALTER TABLE lineitem_r SET COLUMNAR REPLICA 1")
+    table = store.columnar.table_for(tid)
+    upload = Calls(CD, "to_device_batch", sync=True)
+    scan = Calls(Changefeed, "_recover_lost")
+    try:
+        t1 = time.perf_counter()
+        store.pd.tick()
+        tick_s = time.perf_counter() - t1
+    finally:
+        upload.close()
+        scan.close()
+    spans = {c.name: c.duration_ns / 1e9 for c in store.pd.last_tick_root.children}
+    rows = s.execute("SHOW COLUMNAR TABLES").values()
+    v = replica_view("birth")
+    if [r[:5] for r in rows] != [["lineitem_r", "normal", 1, 0, CDC_ROWS]] or v["stable_rows"] != CDC_ROWS:
+        raise SystemExit(f"phase 14 birth: SHOW COLUMNAR TABLES {rows}")
+    batch = table._stable_batch
+    if batch.device.type != torch.device(DEVICE).type or upload.calls != 1:
+        raise SystemExit(f"phase 14 birth: the stable batch on {batch.device}, {upload.calls} uploads")
+    log(f"phase 14 birth: one PD tick {tick_s:.2f} s: pd.cdc {spans['pd.cdc']:.2f} s (the incremental scan"
+        f" {scan.seconds:.2f} s, then the mount and the apply of {v['applied_events']} events), pd.columnar"
+        f" {spans['pd.columnar']:.2f} s (the fold and Chunk.from_rows, then the upload {upload.seconds:.3f} s of a"
+        f" {batch.capacity}-row batch to {batch.device}); SHOW COLUMNAR TABLES {rows[0]}")
+
+    oracle_calls = [0]
+    real_oracle = (EX.run_dag_reference, EXP.run_dag_reference)
+
+    def counted_oracle(*a, **k):
+        oracle_calls[0] += 1
+        return real_oracle[0](*a, **k)
+
+    st_start = store.stats()
+
+    def clean(what):
+        st = store.stats()
+        if any(st[k] != st_start[k] for k in ("oracle_fallbacks", "other_errors", "batch_fallbacks")) or \
+                oracle_calls[0]:
+            raise SystemExit(f"phase 14 {what}: an oracle answer, an other_error or a bucket fallback ({st},"
+                             f" root oracle {oracle_calls[0]})")
+
+    chunks = Calls(EX, "run_dag_on_chunks")
+    waits = Calls(BO.Backoffer, "backoff")
+    runs = ProgramRuns(EX)
+    need = {"q1": "dense_agg", "q3": "postsort_segscan"}
+
+    def moved(fn):
+        """(fn(), COLUMNAR_SCANS, COLUMNAR_FALLBACKS, run_dag_on_chunks
+        calls, program runs, backoffs moved by it)."""
+        c0 = (metrics.COLUMNAR_SCANS.value, metrics.COLUMNAR_FALLBACKS.value, chunks.calls, runs.calls, waits.calls)
+        out = fn()
+        c1 = (metrics.COLUMNAR_SCANS.value, metrics.COLUMNAR_FALLBACKS.value, chunks.calls, runs.calls, waits.calls)
+        return (out,) + tuple(b - a for a, b in zip(c0, c1))
+
+    def routed(name, what, scans=1, fallbacks=0, overlay=0, k1=1, backoffs=0):
+        """One routed run of a statement on the main path: its answer held
+        to numpy, the counters to what `what` must move, K1 / K2 to one
+        launch a program run when the replica serves."""
+        sql = cdc_sql(name)
+
+        def once():
+            store.clear_result_cache()
+            return moved(lambda: s.execute(sql))
+
+        res, d_scans, d_fb, d_chunks, d_runs, d_waits = counters.path(
+            f"{name} ({what})", once, need=(need[name],) if name in need else (), phase=14)
+        if (d_scans, d_fb, d_chunks, d_waits) != (scans, fallbacks, overlay, backoffs):
+            raise SystemExit(f"phase 14 {name} ({what}): COLUMNAR_SCANS +{d_scans}, COLUMNAR_FALLBACKS +{d_fb},"
+                             f" run_dag_on_chunks {d_chunks} calls, {d_waits} backoffs; not +{scans}, +{fallbacks},"
+                             f" {overlay}, {backoffs}")
+        for k, got in counters.last.items():
+            k_want = 0
+            if need.get(name) == k:
+                k_want = k1 if k == "dense_agg" else d_runs
+            require_launches(f"phase 14 {name} ({what}) {k}", got, k_want)
+        return res, session_answer(name, res, want[name], where=f"phase 14 ({what})"), d_runs
+
+    def host_ms(sql) -> float:
+        ms = []
+        for _ in range(CDC_REPS):
+            store.clear_result_cache()
+            t1 = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(ms)
+
+    def engines(which):
+        s.execute(f"SET tidb_isolation_read_engines = '{which}'")
+
+    EX.run_dag_reference = EXP.run_dag_reference = counted_oracle
+    try:
+        # routed reads: execute_root's columnar branch (the MPP tier and the
+        # mesh select off), each beside the row store's pool tier
+        t1 = time.perf_counter()
+        s.execute("SET tidb_allow_mpp = 0")
+        s.execute("SET tidb_enable_tpu_mesh = 0")
+        for name in CDC_STATEMENTS:
+            engines("tpu,columnar")
+            res, what, n_runs = routed(name, "routed")
+            ms_routed = host_ms(cdc_sql(name))
+            engines("tpu")
+            store.clear_result_cache()
+            row = s.execute(cdc_sql(name))
+            session_answer(name, row, want[name], where="phase 14 (row store)")
+            if sorted(map(str, row.values())) != sorted(map(str, res.values())):
+                raise SystemExit(f"phase 14 {name}: the routed answer differs from the row store's")
+            ms_row = host_ms(cdc_sql(name))
+            clean(f"{name} routed")
+            log(f"phase 14 {name}: routed to the replica -> {what} == numpy == the row store; COLUMNAR_SCANS +1,"
+                f" COLUMNAR_FALLBACKS +0, run_dag_on_chunks 0 calls, {n_runs} program run(s) over the stable batch;"
+                f" median of {CDC_REPS} runs, result cache cleared: routed {ms_routed:.3f} ms, row store (pool of 4,"
+                f" {CDC_REGIONS} regions) {ms_row:.3f} ms [{card}]")
+        log(f"phase 14 routed reads: {time.perf_counter() - t1:.1f} s")
+
+        # the MPP tier: the statement tier hands a replicated single-table
+        # plan to engine routing (distsql/planner.py choose_statement_tier),
+        # and takes a join whose probe table is replicated, its probe scan
+        # from the replica's stable chunks
+        t1 = time.perf_counter()
+        engines("tpu,columnar")
+        s.execute("SET tidb_enable_tpu_mesh = 1")
+        s.execute("SET tidb_allow_mpp = 1")
+        m0 = metrics.MPP_SELECTS.value
+        _res, what, _n = routed("q1", "the MPP tier on, engine routing")
+        if metrics.MPP_SELECTS.value != m0:
+            raise SystemExit("phase 14 q1: the MPP tier took a plan the columnar replica owns")
+        join_sql, join_gc = MESH_SESSION["join"]
+        join_sql = join_sql.replace("FROM lineitem ", "FROM lineitem_r ")
+        s.execute(f"SET tidb_tpu_group_capacity = {join_gc}")
+        m = model()
+        join_want = {d: (c, sm) for d, (sm, c) in _sum_by(odate[m["okey"]], m["price"]).items()}
+        answers, ms = {}, {}
+        for which in ("tpu,columnar", "tpu"):
+            engines(which)
+
+            def mpp_once():
+                store.clear_result_cache()
+                c0 = (metrics.MPP_SELECTS.value, metrics.MPP_FALLBACKS.value)
+                with tracing.trace("phase 14 mpp") as root:
+                    res = s.execute(join_sql)
+                served = [sp.attrs.get("replica_served") for sp in root.find("mpp.dispatch")]
+                return res, (metrics.MPP_SELECTS.value - c0[0], metrics.MPP_FALLBACKS.value - c0[1]), served
+
+            res, d_mpp, served = counters.path(f"join ({which}, the MPP tier)", mpp_once, phase=14)
+            if d_mpp != (1, 0) or served != [which != "tpu"]:
+                raise SystemExit(f"phase 14 join ({which}): MPP_SELECTS, MPP_FALLBACKS moved by {d_mpp}, the"
+                                 f" mpp.dispatch spans' replica_served {served}")
+            what = session_mesh_answer("join", res, join_want, T, where="phase 14")
+            answers[which] = sorted(map(str, res.values()))
+            ms[which] = host_ms(join_sql)
+        if answers["tpu,columnar"] != answers["tpu"]:
+            raise SystemExit("phase 14 join: the replica-served MPP answer differs from the row store's")
+        s.execute("SET tidb_tpu_group_capacity = 4096")
+        s.execute("SET tidb_allow_mpp = 0")
+        s.execute("SET tidb_enable_tpu_mesh = 0")
+        clean("the MPP tier")
+        log(f"phase 14 MPP tier: Q1's GROUP BY stays with engine routing (MPP_SELECTS +0, COLUMNAR_SCANS +1, K1"
+            f" once); lineitem_r JOIN orders grouped by o_orderdate on the MPP tier with its probe scan from the"
+            f" replica (replica_served true on the mpp.dispatch span) -> {what} == numpy == the MPP tier over the"
+            f" row store; median of {CDC_REPS} runs: replica probe {ms['tpu,columnar']:.3f} ms, row-store probe"
+            f" {ms['tpu']:.3f} ms [{card}] ({time.perf_counter() - t1:.1f} s)")
+
+        # writes through the feed: a file changefeed from now, then one
+        # transaction (UPDATE, INSERT, DELETE) through the store's
+        # Percolator engine, as phase 13 commits its UPDATE
+        t1 = time.perf_counter()
+        engines("tpu,columnar")
+        shutil.rmtree(CDC_DIR, ignore_errors=True)
+        feed_ts = store.next_ts()
+        s.execute(f"CREATE CHANGEFEED f INTO 'file://{CDC_DIR}' FOR TABLE lineitem_r WITH start_ts = {feed_ts}")
+        touched = np.nonzero(full["okey"][:CDC_ROWS] < CDC_UPDATE_KEYS)[0]
+        deleted = np.nonzero(full["okey"][:CDC_ROWS] >= CDC_UPDATE_KEYS)[0][-CDC_DELETED_ROWS:]
+        new = np.arange(CDC_ROWS, CDC_ROWS + CDC_NEW_ROWS)
+
+        def commit_update(handles, more=None) -> int:
+            """l_quantity + 1 on `handles` (and the `more` mutations) in one
+            transaction; returns its commit ts."""
+            qty[handles] += 100
+            cur = dict(full, qty=qty)
+            muts = dict(W.store_items(codec, [next(W.store_rows(T, cur, h, h + 1)) for h in handles.tolist()],
+                                      table_id=tid))
+            muts.update(more or {})
+            return store.txn.commit_txn(muts, store.next_ts(), store.next_ts)
+
+        more = dict(W.store_items(codec, W.store_rows(T, full, CDC_ROWS, CDC_ROWS + CDC_NEW_ROWS), table_id=tid))
+        more.update({codec.encode_row_key(tid, int(h)): None for h in deleted})
+        commit_ts = commit_update(touched, more)
+        live = np.concatenate([np.setdiff1d(np.arange(CDC_ROWS), deleted), new])
+        want["q1"] = numpy_session_q1(model(), T)
+        # (a) the frontier trails the commit: one data_not_ready wait, then
+        # a counted fallback to the row store (K1 once a region)
+        _res, what, _n = routed("q1", "the frontier behind the commit", scans=0, fallbacks=1, k1=CDC_REGIONS,
+                                backoffs=1)
+        log(f"phase 14 (a): the transaction (UPDATE of {len(touched)} rows, INSERT of {len(new)}, DELETE of"
+            f" {len(deleted)}) committed at {commit_ts}; the routed Q1 before any tick waited once on"
+            f" data_not_ready and fell back to the row store -> {what} == numpy on the new rows")
+        # (b) the changefeeds alone: the delta overlay serves on the host
+        t2 = time.perf_counter()
+        emitted = store.cdc.tick()
+        tick_ms = (time.perf_counter() - t2) * 1e3
+        v = replica_view("after the changefeed tick")
+        if v["delta_rows"] != len(touched) + len(new) + len(deleted):
+            raise SystemExit(f"phase 14 (b): {v['delta_rows']} delta rows after the tick")
+        t2 = time.perf_counter()
+        _res, what, _n = routed("q1", "the delta overlay", overlay=1)
+        overlay_ms = (time.perf_counter() - t2) * 1e3
+        log(f"phase 14 (b): store.cdc.tick() emitted {emitted} events in {tick_ms:.1f} ms ({v['delta_rows']} delta"
+            f" rows); the routed Q1 from the delta overlay (the host merge, run_dag_on_chunks once) -> {what} =="
+            f" numpy in {overlay_ms:.1f} ms [{card}]")
+        if profile:
+            host_profile("phase 14 the overlay read", lambda: s.execute(cdc_sql("q1")))
+        # (c) the PD tick compacts: back on the device-resident batch
+        t2 = time.perf_counter()
+        store.pd.tick()
+        compact_s = store.pd.last_tick_root.find("pd.columnar")[0].duration_ns / 1e9
+        v = replica_view("after the compaction")
+        if (v["delta_rows"], v["stable_rows"]) != (0, CDC_ROWS + len(new) - len(deleted)):
+            raise SystemExit(f"phase 14 (c): the view after the compaction {v}")
+        _res, what, _n = routed("q1", "compacted")
+        log(f"phase 14 (c): a PD tick folded the delta (pd.columnar {compact_s:.2f} s, the tick"
+            f" {time.perf_counter() - t2:.2f} s); the routed Q1 from the stable batch -> {what} == numpy")
+
+        # the file changefeed holds exactly the transaction's changes
+        recs = FileSink(CDC_DIR, "f").read_records()
+        got = [(r["handle"], r["op"], r["commit_ts"]) for r in recs if r["type"] == "row"]
+        exp = sorted([(int(h), "put") for h in touched] + [(int(h), "put") for h in new]
+                     + [(int(h), "delete") for h in deleted])
+        if sorted((h, op) for h, op, _ts in got) != exp or len(got) != len(exp) or \
+                any(ts != commit_ts for _h, _op, ts in got):
+            raise SystemExit(f"phase 14 file feed: {len(got)} row records, the transaction made {len(exp)}")
+        for r in recs:
+            if r["type"] == "row" and r["op"] == "put":
+                q = int(Decimal(str(r["columns"]["l_quantity"])) * 100)
+                if q != int(qty[r["handle"]]):
+                    raise SystemExit(f"phase 14 file feed: handle {r['handle']} l_quantity {q}, not {qty[r['handle']]}")
+        feeds = {row[0]: row for row in s.execute("SHOW CHANGEFEEDS").values()}
+        if feeds["f"][1] != "normal" or feeds["f"][4] < commit_ts:
+            raise SystemExit(f"phase 14: SHOW CHANGEFEEDS {feeds['f']}")
+        s.execute("DROP CHANGEFEED f")
+        log(f"phase 14 file feed: {len(got)} row records in {len(FileSink(CDC_DIR, 'f').writer.segments())}"
+            f" segment(s), the transaction's changes each once at its commit ts, the puts' l_quantity as committed;"
+            f" SHOW CHANGEFEEDS f checkpoint {feeds['f'][4]} >= {commit_ts}; dropped"
+            f" ({time.perf_counter() - t1:.1f} s)")
+
+        # the staleness gate under a fault: the replica's apply loop stalls
+        t1 = time.perf_counter()
+        with failpoint.enabled("columnar/apply-stall"):
+            stall_ts = commit_update(touched)
+            want["q1"] = numpy_session_q1(model(), T)
+            store.cdc.tick()
+            if store.columnar.feed_state(tid) != "error":
+                raise SystemExit(f"phase 14 apply-stall: the replica's feed is {store.columnar.feed_state(tid)}")
+            _res, what, _n = routed("q1", "the apply loop stalled", scans=0, fallbacks=1, k1=CDC_REGIONS,
+                                    backoffs=1)
+        store.columnar.resume_all()
+        store.pd.tick()
+        v = replica_view("after the resume")
+        if v["applied_ts"] < stall_ts:
+            raise SystemExit(f"phase 14 apply-stall: applied_ts {v['applied_ts']} < the commit {stall_ts}")
+        _res, what2, _n = routed("q1", "resumed")
+        log(f"phase 14 apply-stall: the UPDATE at {stall_ts} parked the replica's feed in error; the routed Q1 fell"
+            f" back once -> {what} == numpy; after the disarm, RESUME and a PD tick the replica serves again ->"
+            f" {what2} == numpy, its view's error empty ({time.perf_counter() - t1:.1f} s)")
+        clean("the writes")
+    finally:
+        EX.run_dag_reference, EXP.run_dag_reference = real_oracle
+        for c in (chunks, runs, waits):
+            c.close()
+        failpoint.disable("columnar/apply-stall")
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s; store {store.stats()}")
 
 
 def main() -> int:
@@ -4087,8 +4556,12 @@ def main() -> int:
     sess = session_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
     # phase 12: the device mesh, four shards of the card
     mesh_phase(sess, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
+    # phase 14 reads phase 11's tables as they stand before phase 13 writes
+    snap_ts = sess.store.next_ts()
     # phase 13: the control plane on phase 11's session and store
     control_phase(sess, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    # phase 14: change data capture and the columnar replica
+    cdc_phase(sess, snap_ts, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -61,6 +61,7 @@ def test_import_leaves_jax_unloaded():
         "import tidb_tpu_torch.mpp.exchange_op, tidb_tpu_torch.mpp.dispatch, tidb_tpu_torch.mpp.fragment\n"
         "import tidb_tpu_torch.replication, tidb_tpu_torch.pd, tidb_tpu_torch.pd.schedulers\n"
         "import tidb_tpu_torch.background, tidb_tpu_torch.interop, tidb_tpu_torch.sql.seams\n"
+        "import tidb_tpu_torch.cdc, tidb_tpu_torch.columnar\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )
@@ -264,14 +265,9 @@ def test_session_defaults_to_cuda_and_raises_without_it(how, monkeypatch):
 
 
 NOT_PORTED = {
-    "CREATE CHANGEFEED f INTO 'memory://'": "CREATE CHANGEFEED",
-    "PAUSE CHANGEFEED f": "PAUSE CHANGEFEED",
-    "RESUME CHANGEFEED f": "RESUME CHANGEFEED",
-    "DROP CHANGEFEED f": "DROP CHANGEFEED",
     "BACKUP DATABASE * TO 'file:///nowhere'": "BACKUP",
     "RESTORE DATABASE * FROM 'file:///nowhere'": "RESTORE",
     "BACKUP LOG TO 'file:///nowhere'": "BACKUP LOG",
-    "ALTER TABLE t SET COLUMNAR REPLICA 1": "SET COLUMNAR REPLICA",
 }
 
 
@@ -292,17 +288,19 @@ def test_seams_raise_not_ported(sql):
 
 
 def test_seams_decline_and_swallow_no_error():
-    """The read-side seams decline (the row store serves; no rows of a
-    subsystem that is not there) with the statement tiers switched on,
-    and an error of the statement itself still reaches the caller."""
+    """The seams that remain (BR and log backup) do nothing and show no
+    rows, with the statement tiers and the columnar engine switched on, and
+    an error of the statement itself still reaches the caller."""
     from tidb_tpu_torch.sql import CatalogError, PlanError, Session, seams
 
-    assert seams.columnar_would_serve(None, None, [], ("tpu", "columnar")) is False
     assert seams.pitr_tick(None) is None
-    # the mesh select (parallel/sql.py) and the MPP tier (mpp/dispatch.py)
-    # are the real ones, not seams
-    assert not hasattr(seams, "try_mesh_select")
-    assert not hasattr(seams, "try_mpp_select")
+    assert seams.log_backup_views(None) == []
+    # the mesh select (parallel/sql.py), the MPP tier (mpp/dispatch.py),
+    # changefeeds (cdc/) and the columnar replica (columnar/) are the real
+    # ones, not seams
+    for gone in ("try_mesh_select", "try_mpp_select", "columnar_would_serve", "columnar_views",
+                 "changefeed_views"):
+        assert not hasattr(seams, gone), gone
     s = Session(device="cpu")
     for q in ("SET tidb_enable_tpu_mesh = 1", "SET tidb_allow_mpp = 1",
               "SET tidb_isolation_read_engines = 'tpu,columnar'"):
@@ -421,3 +419,58 @@ def test_control_plane_leaves_jax_unloaded():
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
+
+
+def test_cdc_and_columnar_leave_jax_unloaded(tmp_path):
+    """The changefeed and columnar replica paths' lazy imports run too:
+    CREATE / PAUSE / RESUME / DROP CHANGEFEED into a file sink, ALTER TABLE
+    ... SET COLUMNAR REPLICA, a PD tick (pd.cdc, pd.columnar, pd.pitr), a
+    routed read from the stable batch, a mid-feed ALTER and the MPP tier's
+    probe from the replica, on four CPU shards."""
+    code = (
+        "import sys\n"
+        "from tidb_tpu_torch.sql import Session\n"
+        "from tidb_tpu_torch.util import metrics\n"
+        "s = Session(device='cpu', mesh_devices=['cpu'] * 4)\n"
+        "s.execute('CREATE TABLE t (a BIGINT PRIMARY KEY, g INT, v BIGINT)')\n"
+        "s.execute('INSERT INTO t VALUES ' + ','.join(f'({i}, {i % 5}, {i})' for i in range(64)))\n"
+        f"s.execute(\"CREATE CHANGEFEED f INTO 'file://{tmp_path}' FOR TABLE t\")\n"
+        "s.execute('PAUSE CHANGEFEED f')\n"
+        "s.execute('RESUME CHANGEFEED f')\n"
+        "s.execute('ALTER TABLE t SET COLUMNAR REPLICA 1')\n"
+        "s.store.pd.tick()\n"
+        "c0, m0 = metrics.COLUMNAR_SCANS.value, metrics.MPP_SELECTS.value\n"
+        "s.execute('SET tidb_allow_mpp = 0')\n"
+        "assert str(s.execute('SELECT sum(v) FROM t').scalar()) == '2016'\n"
+        "s.execute('SET tidb_allow_mpp = 1')\n"
+        "s.execute('CREATE TABLE d (g INT PRIMARY KEY, name VARCHAR(8))')\n"
+        "s.execute('INSERT INTO d VALUES ' + ','.join(f\"({g}, 'g{g}')\" for g in range(5)))\n"
+        "s.store.pd.tick()\n"
+        "assert len(s.execute('SELECT name, sum(v) FROM t JOIN d ON t.g = d.g GROUP BY name').rows) == 5\n"
+        "assert metrics.COLUMNAR_SCANS.value == c0 + 1 and metrics.MPP_SELECTS.value == m0 + 1\n"
+        "s.execute('ALTER TABLE t ADD COLUMN w BIGINT DEFAULT 1')\n"
+        "s.store.pd.tick()\n"
+        "assert [r[1] for r in s.execute('SHOW COLUMNAR TABLES').values()] == ['normal']\n"
+        "assert len(s.execute('SHOW CHANGEFEEDS').rows) == 2\n"
+        "s.execute('DROP CHANGEFEED f')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+
+
+def test_a_store_carries_its_changefeed_hub_and_columnar_replica():
+    """TPUStore(device="cpu") attaches the changefeed hub, the columnar
+    replica and the schema journal, as the reference's store does; the
+    cluster points back at the hub, and the transaction engine's write
+    guard is the hub's."""
+    from tidb_tpu_torch.cdc import ChangefeedHub, SchemaJournal
+    from tidb_tpu_torch.columnar import ColumnarReplica
+    from tidb_tpu_torch.store import TPUStore
+
+    store = TPUStore(device="cpu")
+    assert isinstance(store.cdc, ChangefeedHub) and isinstance(store.columnar, ColumnarReplica)
+    assert isinstance(store.schema_journal, SchemaJournal)
+    assert store.cluster.cdc is store.cdc
+    assert store.txn._write_guard == store.cdc.guard.writing

@@ -1,9 +1,9 @@
 """The port's MPP tier (tidb_tpu_torch/mpp/dispatch.py try_mpp_select and
 the wire codec's fragment frames) against the JAX package's, on the CPU:
-tests/test_mpp.py's TestFragmentWire and TestMppDispatch, but
+tests/test_mpp.py's TestFragmentWire and TestMppDispatch, with the session
+path of its non-unique build join. Its
 `test_replica_served_probe_matches_row_store`, whose probe scan comes from
-the columnar replica (not ported); with the session path of its
-non-unique build join.
+the columnar replica, is in tests/test_torch_columnar.py.
 
 The fragment frames are byte-exact: the port's encode_fragment_plan of the
 Q3 chain (one and three joins), the aggregation shape and the partitioned

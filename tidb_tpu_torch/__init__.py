@@ -29,6 +29,10 @@ module's counterpart is easy to find:
                    the SQL session (sql.Session): parser, planner, plan
                    cache and Percolator transactions over execute_root;
                    sql/seams.py answers for what is not ported yet
+  cdc/, columnar/  changefeeds over the replication log, and the columnar
+                   replica they feed: delta + stable layers whose stable
+                   batches stay on the store's device, served to
+                   execute_root's engine routing and the MPP tier's probe
 
 Every entry point takes an explicit `device` (default "cuda") and raises
 when CUDA is absent; the tests pass device="cpu". Dtypes are explicit:

@@ -27,9 +27,10 @@ retry. A store made on `cuda` merges on the card, one made with
 `device="cpu"` on the host. `low_memory` folds the regions' partial
 states one region at a time over `dispatch.select_stream` (Partial2).
 
-Left out, beside the reference: the columnar replica. `isolation_engines`
-is accepted, and a request that allows `columnar` is served by the row
-store, as the reference serves it when its replica declines.
+Before the split, `execute_root` consults the columnar replica
+(columnar/route.py try_columnar_select) when `isolation_engines` allows
+`columnar`: an eligible analytical scan runs whole over the replica's
+stable batch on the store's device, as in the reference.
 """
 
 from __future__ import annotations
@@ -190,8 +191,12 @@ def execute_root(
     pushdown half per region, merge at root. The caller-visible result is
     identical to running the whole DAG over all rows at once.
 
-    isolation_engines (tidb_isolation_read_engines): the port has no
-    columnar replica, so every engine list is served by the row store.
+    isolation_engines (tidb_isolation_read_engines) is the engine-routing
+    consult (ref: kv.StoreType{TiKV,TiFlash} selection): when it includes
+    `columnar` and the plan is an eligible analytical scan, the WHOLE DAG
+    runs over the columnar replica's device-resident chunks at the same
+    snapshot — no split, no per-region dispatch — with a typed-staleness
+    fallback to the row store when the replica's frontier lags.
 
     mesh (tidb_enable_tpu_mesh) lets the dispatch planner pick the mesh
     tier for eligible partial-agg/TopN pushdowns on >= 2 devices; the
@@ -226,8 +231,24 @@ def _execute_root(
     replica_read="leader", mesh=None, mesh_min_rows=0,
     isolation_engines=("tpu",),
 ) -> Chunk:
-    # isolation_engines: no columnar replica in the port — the row store
-    # serves, as the reference's does when its replica declines
+    if "columnar" in isolation_engines:
+        # engine routing: eligible analytical scans ride the columnar
+        # replica; None = not ours / frontier lagged after the
+        # data_not_ready wait — the row store serves as if never routed
+        from ..columnar.route import try_columnar_select
+
+        served = try_columnar_select(
+            store, dag, ranges, start_ts, aux_chunks or [], cache=cache,
+            group_capacity=group_capacity, small_groups=small_groups,
+            backoff_weight=backoff_weight, checker=checker,
+        )
+        if served is not None:
+            if summary_sink is not None:
+                # dict entries are dispatch attribution, filtered from the
+                # per-task summary lists by EXPLAIN ANALYZE (same contract
+                # as batch_stats)
+                summary_sink.append({"columnar": {"rows": served.num_rows()}})
+            return served
     plan = split_dag(dag)
     if low_memory and plan.root_dag is not None:
         folded = _execute_root_lowmem(store, plan, ranges, start_ts, aux_chunks or [], cache, group_capacity,

@@ -6,10 +6,10 @@ fragments (`fragment_plan`), round-trips the fragment plan through the
 wire codec's fragment frames (the executed plan is the DECODED one, the
 seam a real coordinator ships across the network), sources the probe-side
 scan, and launches the exchange program. The probe scan comes from the
-columnar replica when one covers the snapshot (`_replica_probe_chunks`;
-the port has no columnar replica, so it answers None through
-sql/seams.py columnar_would_serve, as the reference does when no replica
-serves), else from the row store's scan pushdown through
+columnar replica's stable chunks when the replica covers the snapshot
+(`_replica_probe_chunks`: columnar_would_serve and the data_not_ready
+readiness gate; the span's `replica_served` says which), else from the
+row store's scan pushdown through
 distsql.dispatch.select, whose typed region errors and epoch fall-out are
 the per-region path's. Every decline is a counted fallback
 (`MPP_FALLBACKS`), and the session's next tier (the mesh select) runs as
@@ -138,17 +138,47 @@ def _chunks_nbytes(chunks) -> int:
     return sum(int(c.nbytes()) for c in chunks if c is not None)
 
 
-def _replica_probe_chunks(store, dag, ranges, engines):
-    """The probe scan from the columnar replica's stable chunks, or None
-    when no replica covers the snapshot: the row store's scan pushdown is
-    then the probe source, not a query failure. The port has no columnar
-    replica, so sql/seams.py columnar_would_serve answers that none
-    serves."""
-    from ..sql.seams import columnar_would_serve
+def _replica_probe_chunks(store, dag, ranges, start_ts, n_lanes, engines, backoff_weight, checker):
+    """Source the probe scan from the columnar replica's stable chunks,
+    sliced into n_lanes task shards. Returns a chunk list, or None when
+    the replica does not cover the snapshot (the row-store scan pushdown
+    is the fallback source — not a query failure)."""
+    from ..columnar.replica import ColumnarNotReady, _schema_sig
+    from ..columnar.route import _plan_intervals, _wait_ready, columnar_would_serve
+    from ..util import metrics
 
+    # the probe fragment's scan is the bare TableScan — the mpp eligibility
+    # gate already proved the analytical shape, so would-serve is asked on
+    # the FULL dag (Aggregation present) with the probe's ranges
     if not columnar_would_serve(store, dag, ranges, engines):
         return None
-    raise NotImplementedError("a columnar replica would serve the probe scan, but the port has none")
+    plan = _plan_intervals(dag, ranges)
+    if not plan:
+        return None
+    sig = _schema_sig(dag.scan().columns)
+    tables = [store.columnar.table_for(pid) for pid in plan]
+    if any(t is None or t.schema_sig != sig for t in tables):
+        return None
+    ts_eff = _wait_ready(store, tables, start_ts, backoff_weight, checker)
+    if ts_eff is None:
+        metrics.COLUMNAR_FALLBACKS.inc()
+        return None
+    try:
+        scans = [t.scan(ts_eff, plan[pid]) for pid, t in zip(plan, tables)]
+    except ColumnarNotReady:
+        # a compaction advanced the floor between the gate and the scan
+        metrics.COLUMNAR_FALLBACKS.inc()
+        return None
+    except Exception:  # noqa: BLE001 — degrade, never fail: the row
+        # store still owns the authoritative answer
+        metrics.COLUMNAR_FALLBACKS.inc()
+        return None
+    merged = scans[0][0] if len(scans) == 1 else Chunk.concat([c for c, _b in scans])
+    rows = merged.num_rows()
+    if rows == 0:
+        return []
+    step = (rows + n_lanes - 1) // n_lanes
+    return [merged.slice(i * step, min((i + 1) * step, rows)) for i in range(n_lanes) if i * step < rows]
 
 
 def try_mpp_select(store, dag: DAGRequest, ranges: list, start_ts: int, *, group_capacity: int = 1024,
@@ -158,8 +188,7 @@ def try_mpp_select(store, dag: DAGRequest, ranges: list, start_ts: int, *, group
     mesh devices; None = not taken (a counted fallback where the run was
     abandoned — the caller dispatches to the mesh select / per-region
     tiers as if MPP routing never happened). `backoff_weight` and
-    `checker` are the reference's replica-readiness wait's, which the row
-    store's scan does not take."""
+    `checker` bound the columnar replica's readiness wait."""
     kind = fragment_kind(dag)
     if kind is None:
         return None
@@ -184,7 +213,7 @@ def try_mpp_select(store, dag: DAGRequest, ranges: list, start_ts: int, *, group
         return None
     with tracing.span("mpp.dispatch", kind=kind, n_fragments=len(fplan.fragments), n_tasks=fplan.n_tasks,
                       n_ranges=len(ranges)) as sp:
-        chunks = _replica_probe_chunks(store, dag, ranges, engines)
+        chunks = _replica_probe_chunks(store, dag, ranges, start_ts, len(devs), engines, backoff_weight, checker)
         replica_served = chunks is not None
         if chunks is None:
             # row-store scan pushdown (paging / retry, typed region errors

@@ -23,7 +23,8 @@ guess.
 
 Copy of `tidb_tpu/pd/` for the PyTorch port (imports rewritten; it imports
 nothing of tidb_tpu). The tick's pd.pitr phase goes through
-`sql/seams.py pitr_tick`: the port has no log backup to upkeep.
+`sql/seams.py pitr_tick`: the port has no log backup to upkeep, so the
+phase only trims the schema journal.
 """
 
 from .core import Operator, OperatorQueue, PDConfig, PlacementDriver

@@ -428,7 +428,7 @@ class PlacementDriver:
                 # durable-checkpoint gauges and trim the schema journal —
                 # AFTER pd.cdc so this tick's checkpoint slide is visible
                 # (br/ is not ported: the seam does what the reference does
-                # on a store with no log backup, nothing)
+                # on a store with no log backup, the journal trim alone)
                 from ..sql.seams import pitr_tick
 
                 pitr_tick(self.store)

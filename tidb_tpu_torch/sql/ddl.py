@@ -17,8 +17,7 @@ ALTER TABLE actions (ref: ddl_api.go):
   RENAME COLUMN / RENAME TABLE / ADD INDEX / DROP INDEX
 
 Port of `tidb_tpu/sql/ddl.py` (imports rewritten; it imports nothing of
-tidb_tpu). ALTER TABLE ... SET COLUMNAR REPLICA fails: the columnar
-replica is not ported.
+tidb_tpu).
 """
 
 from __future__ import annotations
@@ -151,17 +150,23 @@ def alter_table(session, stmt: A.AlterTableStmt):
 
 
 def _set_columnar_replica(session, meta, count: int):
-    """The columnar replica (and the changefeed that feeds it) is not
-    ported: the job fails, and the session answers SQLError 1105."""
-    raise DDLError("SET COLUMNAR REPLICA is not ported")
+    from ..cdc import ChangefeedError
+
+    try:
+        if count > 0:
+            session.store.columnar.enable_table(session.catalog, meta)
+        else:
+            session.store.columnar.disable_table(meta)
+    except ChangefeedError as exc:
+        raise DDLError(str(exc)) from exc
 
 
 def _propose_schema(session, meta, op: str, query: str) -> None:
     """A row-shape DDL just committed: ride a schema-change entry
     through the replication log so every live changefeed sees the ALTER
     as an ORDERED event between the rows committed before and after it
-    (otherwise feeds discover the drift and park). Mirror/bare stores without the propose hook have no feeds to
-    inform."""
+    (otherwise feeds discover the drift and park). Mirror/bare stores
+    without the propose hook have no feeds to inform."""
     propose = getattr(session.store, "propose_schema_change", None)
     if propose is not None:
         propose(meta, op, query)

@@ -16,9 +16,11 @@ Port of `tidb_tpu/sql/session.py` (imports rewritten; it imports nothing of
 tidb_tpu). The session runs over the port's store on `device` (default
 "cuda"), its mesh tier and mesh select over `mesh_devices` (the store's
 device list, runtime.mesh_devices). What differs from the reference: the
-subsystems the port does not have answer through `seams.py` (no columnar
-replica; CHANGEFEED, BACKUP, RESTORE and log backup raise "not ported"),
-and LOAD STATS resolves a relative path against the working directory.
+subsystem the port does not have answers through `seams.py` (BACKUP,
+RESTORE and log backup raise "not ported"; SHOW BACKUP LOGS is empty), and
+LOAD STATS resolves a relative path against the working directory.
+Changefeeds (cdc/) and the columnar replica (columnar/, routed to by
+tidb_isolation_read_engines) are the port's own, as in the reference.
 The MPP tier (mpp/dispatch.py try_mpp_select), follower reads, SHOW
 PLACEMENT and the PD knobs of Config reach the store's control plane (its
 `pd` and `replication`), as in the reference.
@@ -1209,11 +1211,52 @@ class Session:
         raise SQLError(f"statement {type(stmt).__name__} not supported yet")
 
     def _changefeed(self, stmt: A.ChangefeedStmt) -> Result:
-        """CREATE/PAUSE/RESUME/DROP CHANGEFEED: change data capture is not
-        ported."""
-        from .seams import not_ported
+        """CREATE/PAUSE/RESUME/DROP CHANGEFEED (ref: TiCDC's changefeed
+        lifecycle, SQL-ified like BACKUP/RESTORE): typed CDC errors
+        surface as SQLError."""
+        from ..cdc import ChangefeedError, SinkError
 
-        raise not_ported(f"{stmt.action.upper()} CHANGEFEED")
+        hub = self.store.cdc
+        try:
+            if stmt.action == "create":
+                table_ids = None
+                if stmt.tables:
+                    ids = set()
+                    for t in stmt.tables:
+                        try:
+                            meta = self.catalog.table(t.name)
+                        except CatalogError as exc:
+                            raise SQLError(str(exc)) from exc
+                        ids.add(meta.table_id)
+                        ids.update(meta.physical_ids())
+                    table_ids = ids
+                unknown = set(stmt.options) - {"start_ts"}
+                if unknown:
+                    # a typo'd option silently changing behavior is worse
+                    # than an error (TiCDC rejects unknown options too)
+                    raise SQLError(
+                        f"unknown changefeed option(s) {sorted(unknown)}; "
+                        f"supported: start_ts")
+                raw_ts = stmt.options.get("start_ts", 0)
+                if isinstance(raw_ts, bool) or not isinstance(raw_ts, int):
+                    # a valueless `WITH start_ts` parses as True; a quoted
+                    # value as str — both must be typed errors, not a raw
+                    # ValueError escaping the boundary
+                    raise SQLError(
+                        f"changefeed start_ts must be an integer TSO, got {raw_ts!r}")
+                hub.create(stmt.name, stmt.sink_uri, self.catalog,
+                           table_ids=table_ids, start_ts=raw_ts)
+            elif stmt.action == "pause":
+                hub.pause(stmt.name)
+            elif stmt.action == "resume":
+                hub.resume(stmt.name)
+            elif stmt.action == "drop":
+                hub.drop(stmt.name)
+            else:
+                raise SQLError(f"unknown changefeed action {stmt.action!r}")
+        except (ChangefeedError, SinkError) as exc:
+            raise SQLError(str(exc)) from exc
+        return Result()
 
     def _trace(self, stmt: A.TraceStmt) -> Result:
         """TRACE [FORMAT='row'|'json'] <stmt> (ref: executor/trace.go
@@ -1990,7 +2033,7 @@ class Session:
                         # runs when a mesh attempt is actually on the
                         # table (no double walk when mesh
                         # is off or EXPLAIN ANALYZE pinned the cop path)
-                        from .seams import columnar_would_serve
+                        from ..columnar.route import columnar_would_serve
 
                         return columnar_would_serve(
                             self.store, plan.dag, ranges, engines)
@@ -3490,9 +3533,7 @@ class Session:
             # state, delta/stable layer sizes, and the applied
             # resolved-ts frontier the scan-readiness gate consults
             rows = []
-            from .seams import columnar_views
-
-            for v in columnar_views(self.store):
+            for v in self.store.columnar.views():
                 if not _show_like(stmt, v["table"]):
                     continue
                 rows.append([
@@ -3512,9 +3553,7 @@ class Session:
             # SHOW CHANGEFEEDS (ref: TiCDC `cli changefeed list`): one row
             # per feed with its state, frontier, and emission counts
             rows = []
-            from .seams import changefeed_views
-
-            for v in changefeed_views(self.store):
+            for v in self.store.cdc.views():
                 if not _show_like(stmt, v["name"]):
                     continue
                 rows.append([

@@ -47,8 +47,16 @@ serves only where the peer's safe_ts covers its start_ts, else
 DataIsNotReady. The `cop-region-error`, `cop-other-error` and
 `cop-debug-raise` failpoints act at the endpoint as in the reference.
 
-Left out, beside the reference: the CDC write guard and the columnar
-replica (the port has neither), Top SQL's device attribution, and some
+Change data capture and the columnar replica (ref: tidb_tpu/store/
+store.py:185-196, 247-249, 443-491): `cdc` (cdc/ ChangefeedHub) subscribes
+to every replication proposal, and its WriteGuard brackets every write path
+([commit-ts draw .. capture delivery]: put_row / delete_row / put_index,
+the engine's commits and bulk ingests) so a resolved-ts candidate can prove
+quiescence; `columnar` (columnar/ ColumnarReplica) holds the changefeed-fed
+replicas, whose stable batches live on `device`; `schema_journal` and
+`propose_schema_change` carry a row-shape DDL through the feed.
+
+Left out, beside the reference: Top SQL's device attribution, and some
 metrics (the batched and mesh tiers' counts are in stats(), the mesh
 counters also in util/metrics.py; COP_REQUESTS, COP_ERRORS, COP_DURATION
 and REPLICA_READS are counted as in the reference).
@@ -258,12 +266,29 @@ class TPUStore:
         # applied watermarks (safe_ts) live here; every committed write
         # proposes through it
         self.replication = ReplicaManager(self)
+        # change data capture: the hub subscribes to every replication
+        # proposal; its WriteGuard brackets the write paths so the
+        # resolved-ts frontier can prove quiescence
+        from ..cdc import ChangefeedHub
+        from ..cdc.schema import SchemaJournal
+        from ..columnar import ColumnarReplica
+
+        self.cdc = ChangefeedHub(self)
+        # the columnar replica tier: per-table delta + stable column stores
+        # fed by changefeeds, compacted by the pd.columnar tick phase,
+        # routed to by tidb_isolation_read_engines
+        self.columnar = ColumnarReplica(self)
+        # the ordered store-level log of schema-change entries: the
+        # changefeed recovery source (they are synthetic, never in KV)
+        self.schema_journal = SchemaJournal()
         # Percolator 2PC; a commit bumps the write version (and so drops
         # the result cache) as put_row does, and its applied keys pass the
-        # write-quorum gate before and record flow and propose after
+        # write-quorum gate before and record flow and propose after, all
+        # inside the CDC write guard
         self.txn = TxnEngine(self.kv, on_commit=self._bump_write_ver,
                              on_apply=self.record_applied_writes,
                              pre_apply=self._check_write_quorum,
+                             write_guard=self.cdc.guard.writing,
                              on_apply_group=self.record_applied_writes_grouped)
         self._tso = itertools.count(100)  # guarded_by: _tso_lock
         self._tso_lock = threading.Lock()
@@ -493,12 +518,36 @@ class TPUStore:
 
     def _put_checked(self, key: bytes, value: bytes | None, ts: int) -> None:
         """One direct write: the region's quorum gate, the put, its flow
-        and replication proposal, then the write-version bump."""
+        and replication proposal (inside the CDC write guard), then the
+        write-version bump."""
         placement = self.cluster.locate_placement(key)
         self.replication.check_write_quorum(placement[0], placement=placement[1:])
-        prev = self.kv.put(key, value, ts)
-        self._record_write_flow(key, value, prev, ts, placement=placement)
+        with self.cdc.guard.writing():
+            prev = self.kv.put(key, value, ts)
+            self._record_write_flow(key, value, prev, ts, placement=placement)
         self._bump_write_ver()
+
+    def propose_schema_change(self, meta, op: str, query: str) -> int:
+        """One committed row-shape DDL -> one schema-change entry riding
+        `ReplicaManager.propose` (DDL through the feed). The key is
+        synthetic (`m_schema_<tid>_<ver>`, never in KV); the ts draws
+        INSIDE the CDC WriteGuard so no resolved-ts candidate can prove
+        quiescence past an undelivered schema change, as on the row write
+        paths. The journal records it first: a feed that misses the live
+        delivery (paused, born later, puller-drop) re-injects from the
+        journal on its next tick."""
+        import json
+
+        from ..cdc.schema import encode_schema_key, schema_payload
+
+        key = encode_schema_key(meta.table_id, meta.schema_version)
+        value = json.dumps(schema_payload(meta, op, query)).encode()
+        with self.cdc.guard.writing():
+            ts = self.next_ts()
+            self.schema_journal.append(ts, meta.table_id, key, value)
+            rid = self.cluster.locate_placement(tablecodec.table_prefix(meta.table_id))[0]
+            self.replication.propose(rid, ts, entries=[(key, value)])
+        return ts
 
     def bulk_ingest(self, items, ts: int) -> None:
         """Apply (key, value) pairs at commit ts `ts` in one critical section

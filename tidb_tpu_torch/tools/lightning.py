@@ -9,14 +9,12 @@ batch commits at its own TSO tick and advances a sidecar checkpoint file
 (`<path>.ckpt`), so a crashed import resumes at the last durable batch.
 
 Port of `tidb_tpu/tools/lightning.py` (imports rewritten; it imports nothing of
-tidb_tpu). The reference's CDC write window around a batch is left out:
-the port has no changefeed hub.
+tidb_tpu).
 """
 
 from __future__ import annotations
 
 import os
-from contextlib import nullcontext
 
 from ..codec import tablecodec
 from ..sql.planner import _coerce_datum
@@ -101,9 +99,10 @@ def load_data(session, stmt) -> int:
         # writes — runs in one engine critical section, so no concurrent
         # commit can land between the unique scan and the apply (a
         # read_ts drawn before the lock would let duplicates in)
-        # the reference brackets [ts draw .. record_applied_writes] in the
-        # CDC WriteGuard; the port has no changefeed hub to inform
-        with nullcontext():
+        # the CDC WriteGuard brackets [ts draw .. record_applied_writes]
+        # so a changefeed's resolved-ts sampler counts the batch as in
+        # flight until its change events are delivered
+        with session.store.cdc.guard.writing():
             with session.store.txn.ingest_guard():
                 ts = session.store.next_ts()
                 read_ts = session.store.next_ts()

@@ -223,12 +223,12 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      flow record and the replication proposals);
  14. change data capture and the columnar replica: a Session(mesh_devices=
      ["cuda:0"] * 4) over its own store holding lineitem_r (the first
-     2^19 rows of phase 11's lineitem, as they stood before phase 13's
+     2^18 rows of phase 11's lineitem, as they stood before phase 13's
      UPDATE, in four regions) and orders, LOAD STATS of lineitem_r's
      NDVs; ALTER TABLE lineitem_r SET COLUMNAR REPLICA 1 and one PD tick
      (the changefeed's birth scan, mount and apply in pd.cdc, the
      compaction and the upload of the stable batch to the card in
-     pd.columnar, each timed), SHOW COLUMNAR TABLES 2^19 stable rows, the
+     pd.columnar, each timed), SHOW COLUMNAR TABLES 2^18 stable rows, the
      batch on `cuda`; with tidb_isolation_read_engines = 'tpu,columnar'
      (the MPP tier and the mesh off) TPC-H Q1 without ORDER BY (K1 once),
      Q6, the Q3-shaped join (K2 once a program run) and the TopN served
@@ -252,10 +252,42 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      the disarm, RESUME and a PD tick serve it again, equal to numpy with
      an empty error in the view. No oracle answer, other_error or bucket
      fallback, and no COLUMNAR_FALLBACKS but the two provoked (with
-     --profile, a host profile of the overlay read).
+     --profile, a host profile of the overlay read);
+ 15. the front door over phase 11's store and catalog (as phase 13 left
+     them): a MySQLServer(store=..., catalog=..., device="cuda") on
+     127.0.0.1, port 0; through MiniClient TPC-H Q1 without ORDER BY (K1),
+     Q6 and the Q3-shaped join (K2), each result set equal, value for
+     value as text, to the same statement through an in-process
+     Session.execute on the same store and to numpy, K1 and K2 launched
+     as many times as in process, the median host ms of 3 runs over the
+     wire beside in process; 32 connections with tidb_tpu_enable_coalesce
+     ON each running 64 PREPARE / EXECUTE point gets of orders by seeded
+     o_orderkey (plan-cache hits), every answer equal to the same
+     connections' with coalescing OFF, COALESCE_BATCHES and
+     COALESCE_LAUNCHES_SAVED > 0, no COALESCE_FALLBACKS, the median and
+     p99 ms of a point get either way and the lanes per batch; 32
+     connections each running 32 autocommit single-row INSERTs into a new
+     table with a primary key, every row read back, COALESCE_GROUP_COMMITS
+     and COALESCE_GROUP_PROPOSALS_SAVED > 0; and a StatusServer: /status,
+     the lineitem schema route, /metrics (every sample line parses, the
+     coalescer's families there), /pd/api/v1/regions,
+     /cdc/api/v1/changefeeds and /columnar/api/v1/tables answer 200 and
+     match the catalog, the PD, the hub and the replica;
+ 16. BR and point-in-time recovery over phase 14's session: BACKUP
+     DATABASE * TO a directory (build/br_phase) and BACKUP LOG TO
+     'file://' the same directory, a PD tick, a cut, a transaction shaped
+     like phase 14's (UPDATE of the rows with l_orderkey < 64, INSERT of
+     16 rows, DELETE of 16) and a second cut; at each cut RESTORE DATABASE
+     * FROM it UNTIL TS into a fresh Session(device="cuda"), LOAD STATS of
+     lineitem_r's NDVs, then TPC-H Q1 without ORDER BY (K1) and the
+     Q3-shaped join (K2) on the card, each equal to numpy at the cut and
+     to the source session read at the cut (tidb_snapshot), no oracle
+     answer and no other_error; the backup's, the restores' and the
+     replays' seconds, the bytes written and the segment counts printed;
+     /cdc/api/v1/changefeeds over the source shows the log backup's feed.
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6-14); the last line is {"ok": true,
+the main paths of phases 4 and 6-16); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
@@ -267,6 +299,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 N_ROWS = 1 << 22
@@ -3131,9 +3164,10 @@ def region_errors(metrics, kind: str) -> int:
     return metrics.REGISTRY.counter_vec("tidb_tpu_region_errors_total", labelnames=("kind",)).labels(kind).value
 
 
-def control_phase(sess, E, X, T, W, counters, profile: bool, card: str) -> None:
+def control_phase(sess, E, X, T, W, counters, profile: bool, card: str) -> dict:
     """Phase 13: the control plane on phase 11's session and store (see the
-    module docstring)."""
+    module docstring). Returns the numpy answers of SESSION_STATEMENTS over
+    the tables as it leaves them (phase 15 reads them)."""
     import numpy as np
 
     import tidb_tpu_torch.exec as EXP
@@ -3396,13 +3430,15 @@ def control_phase(sess, E, X, T, W, counters, profile: bool, card: str) -> None:
         EX.run_dag_reference, EXP.run_dag_reference = real_oracle
         s.execute("SET tidb_replica_read = 'leader'")
     log(f"phase 13: {time.perf_counter() - t0:.1f} s; store {store.stats()}")
+    return want
 
 
 # ---------------------------------------------------------------------------
 # phase 14: change data capture and the columnar replica
 # ---------------------------------------------------------------------------
 
-CDC_ROWS = 1 << 19               # lineitem_r: the first 2^19 rows of phase 11's lineitem
+CDC_ROWS = 1 << 18               # lineitem_r: the first 2^18 rows of phase 11's lineitem (2^19 until the
+                                 # whole script outgrew its time limit)
 CDC_REGIONS = 4
 CDC_REPS = 3
 CDC_DIR = os.path.join("build", "cdc_phase")  # the file changefeed's segments (ignored by git)
@@ -3473,11 +3509,13 @@ class ProgramRuns:
         self.EX.drive_program_info = self.real
 
 
-def cdc_phase(src, snap_ts: int, E, X, T, W, counters, profile: bool, card: str) -> None:
+def cdc_phase(src, snap_ts: int, E, X, T, W, counters, profile: bool, card: str):
     """Phase 14: change data capture and the columnar replica on the card
     (see the module docstring). `src` is phase 11's session; lineitem_r and
     orders are its rows as of `snap_ts`. With `profile`, a host profile of
-    the overlay read."""
+    the overlay read. Returns the session and lineitem_r's model as it
+    leaves it (phase 11's generated columns, the l_quantity it wrote and the
+    live handles), for phase 16."""
     import shutil
     from decimal import Decimal
 
@@ -3822,6 +3860,464 @@ def cdc_phase(src, snap_ts: int, E, X, T, W, counters, profile: bool, card: str)
             c.close()
         failpoint.disable("columnar/apply-stall")
     log(f"phase 14: {time.perf_counter() - t0:.1f} s; store {store.stats()}")
+    return s, full, qty, live
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the front door
+# ---------------------------------------------------------------------------
+
+FRONT_CONNS = 32                 # concurrent client connections
+FRONT_POINT_GETS = 64            # PREPARE / EXECUTE point gets a connection
+FRONT_INSERTS = 32               # autocommit single-row INSERTs a connection
+FRONT_REPS = 3
+FRONT_STATEMENTS = ("q1", "q6", "q3")  # SESSION_STATEMENTS that reach K1 and K2 (q1 without ORDER BY)
+FRONT_TIMEOUT = 300.0            # seconds a client socket or a client thread may wait
+FRONT_FAMILIES = ("tidb_tpu_coalesce_batches_total", "tidb_tpu_coalesce_lanes_total",
+                  "tidb_tpu_coalesce_launches_saved_total", "tidb_tpu_coalesce_fallbacks_total",
+                  "tidb_tpu_coalesce_group_commits_total", "tidb_tpu_coalesce_group_proposals_saved_total")
+
+
+def text_rows(res) -> list:
+    """A Result's rows as the wire's text cells."""
+    from tidb_tpu_torch.server.server import datum_text
+
+    return [[datum_text(d) for d in row] for row in res.rows]
+
+
+def run_clients(what: str, n: int, fn) -> list:
+    """fn(i) on n threads released together, each join with a deadline;
+    returns their results in order and fails on the first error."""
+    barrier = threading.Barrier(n)
+    out, errors = [None] * n, []
+
+    def body(i):
+        try:
+            barrier.wait(timeout=FRONT_TIMEOUT)
+            out[i] = fn(i)
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=body, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + FRONT_TIMEOUT
+    for t in threads:
+        t.join(timeout=max(deadline - time.monotonic(), 0.0))
+    if any(t.is_alive() for t in threads):
+        raise SystemExit(f"phase 15 {what}: a client thread still runs after {FRONT_TIMEOUT} s")
+    if errors:
+        raise SystemExit(f"phase 15 {what}: {errors[0]!r}")
+    return out
+
+
+def exposition_ok(text: str) -> dict:
+    """The Prometheus text exposition's families (name -> TYPE); fails on a
+    sample line that does not parse or a sample of a family with no TYPE."""
+    import re
+
+    kinds, line_re = {}, re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^{}]*\})? (\S+)$')
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _h, _t, name, kind = line.split()
+            kinds[name] = kind
+        elif line and not line.startswith("#"):
+            m = line_re.match(line)
+            if m is None:
+                raise SystemExit(f"phase 15 /metrics: the line {line!r} does not parse")
+            float(m.group(3))
+            base = re.sub(r"_(bucket|sum|count|total)$", "", m.group(1))
+            if not ({m.group(1), base, base + "_total"} & set(kinds)):
+                raise SystemExit(f"phase 15 /metrics: {m.group(1)} has no TYPE line")
+    return kinds
+
+
+def fallbacks(metrics) -> int:
+    from tidb_tpu_torch.server.coalesce import FALLBACK_REASONS
+
+    return sum(metrics.COALESCE_FALLBACKS.labels(r).value for r in FALLBACK_REASONS)
+
+
+def front_phase(sess, want: dict, E, X, T, W, counters, profile: bool, card: str) -> None:
+    """Phase 15: the front door over phase 11's store and catalog (see the
+    module docstring). `want` holds numpy's answers over the tables as
+    phase 13 left them."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.server import MiniClient, MySQLServer
+    from tidb_tpu_torch.server.http_api import StatusServer
+    from tidb_tpu_torch.sql import Session
+    from tidb_tpu_torch.util import metrics
+
+    t0 = time.perf_counter()
+    store = sess.store
+    need = {"q1": "dense_agg", "q3": "postsort_segscan"}
+    srv = MySQLServer(store=store, catalog=sess.catalog, device=DEVICE)
+    srv.start_background()
+    http, conns = None, []
+    try:
+        def connect():
+            c = MiniClient(srv.host, srv.port, timeout=FRONT_TIMEOUT)
+            conns.append(c)
+            return c
+
+        # the statements that reach K1 and K2, over the wire and in process
+        local = Session(store=store, catalog=sess.catalog, device=DEVICE)
+        c = connect()
+        if local.store.device != store.device:
+            raise SystemExit(f"phase 15: the in-process session is on {local.store.device}")
+        for name in FRONT_STATEMENTS:
+            text, arg = SESSION_STATEMENTS[name]
+            sql = text.format(d=arg)
+
+            def in_process(sql=sql):
+                store.clear_result_cache()
+                res = local.execute(sql)
+                torch.cuda.synchronize()
+                return res
+
+            def wire(sql=sql):
+                store.clear_result_cache()
+                return c.query(sql)
+
+            res = counters.path(f"{name} (in process)", in_process, need=(need[name],) if name in need else (),
+                                phase=15)
+            n_local = dict(counters.last)
+            what = session_answer(name, res, want[name], where="phase 15 (in process)")
+            cols, rows = counters.path(f"{name} (wire)", wire, need=(need[name],) if name in need else (), phase=15)
+            if counters.last != n_local:
+                raise SystemExit(f"phase 15 {name}: launches over the wire {counters.last}, in process {n_local}")
+            if cols != [str(x) for x in res.columns] or rows != text_rows(res):
+                raise SystemExit(f"phase 15 {name}: the wire's result set differs from the in-process one")
+            ms = {}
+            for how, fn in (("wire", wire), ("in process", in_process)):
+                runs = []
+                for _ in range(FRONT_REPS):
+                    t1 = time.perf_counter()
+                    fn()
+                    runs.append((time.perf_counter() - t1) * 1e3)
+                ms[how] = statistics.median(runs)
+            log(f"phase 15 {name}: over the wire -> {len(rows)} rows, each cell equal to the in-process result's"
+                f" text, {what} == numpy; launches {n_local} either way; median of {FRONT_REPS} runs, result cache"
+                f" cleared: wire {ms['wire']:.3f} ms, in process {ms['in process']:.3f} ms (the protocol and"
+                f" datum_text {ms['wire'] - ms['in process']:.3f} ms) [{card}]")
+
+        # point gets from 32 connections, coalescing OFF then ON
+        t1 = time.perf_counter()
+        _okey, ocust, _odate = (c_[0] for c_ in W.store_q3_build_columns(SESSION_ORDERS, SESSION_CUSTOMERS)[0])
+        keys = np.random.default_rng(15).integers(0, SESSION_ORDERS, size=(FRONT_CONNS, FRONT_POINT_GETS))
+        pool = [c] + [connect() for _ in range(FRONT_CONNS - 1)]
+        for cl in pool:
+            cl.query("PREPARE pg FROM 'SELECT * FROM orders WHERE o_orderkey = ?'")
+
+        def point_gets(on: bool):
+            for cl in pool:
+                cl.query(f"SET tidb_tpu_enable_coalesce = {'ON' if on else 'OFF'}")
+
+            def work(i):
+                out, ms = [], []
+                for k in keys[i].tolist():
+                    t2 = time.perf_counter()
+                    _cols, rows = pool[i].query(f"SET @k = {k}; EXECUTE pg USING @k")
+                    ms.append((time.perf_counter() - t2) * 1e3)
+                    if len(rows) != 1 or rows[0][0] != str(k) or rows[0][3] != str(int(ocust[k])):
+                        raise SystemExit(f"phase 15 point get {k}: {rows}")
+                    out.append(rows)
+                return out, ms
+
+            cpu, wall = time.process_time(), time.perf_counter()
+            res = run_clients(f"point gets (coalescing {'ON' if on else 'OFF'})", FRONT_CONNS, work)
+            busy = (time.process_time() - cpu, time.perf_counter() - wall)
+            return [r for r, _ms in res], sorted(m for _r, ms in res for m in ms), busy
+
+        # one point get alone on this host, in process (then under cProfile)
+        # and over one connection, beside the 32 connections' storm
+        local.execute("PREPARE pg FROM 'SELECT * FROM orders WHERE o_orderkey = ?'")
+
+        def get_in_process(k):
+            local.execute(f"SET @k = {k}")
+            return [[str(d.val) for d in r] for r in local.execute("EXECUTE pg USING @k").rows]
+
+        def get_wire(k):
+            return c.query(f"SET @k = {k}; EXECUTE pg USING @k")[1]
+
+        c.query("SET tidb_tpu_enable_coalesce = OFF")
+        alone = {}
+        for how, fn in (("in process", get_in_process), ("wire", get_wire)):
+            ms = []
+            for k in keys[0].tolist():
+                t2 = time.perf_counter()
+                rows = fn(k)
+                ms.append((time.perf_counter() - t2) * 1e3)
+                if len(rows) != 1 or rows[0][0] != str(k):
+                    raise SystemExit(f"phase 15 point get {k} alone ({how}): {rows}")
+            alone[how] = statistics.median(ms)
+        log(f"phase 15 point get alone, coalescing OFF: median of {FRONT_POINT_GETS} in process"
+            f" {alone['in process']:.3f} ms, over one connection {alone['wire']:.3f} ms [{card}]")
+        host_profile(f"phase 15 {FRONT_POINT_GETS} point gets alone in process",
+                     lambda: [get_in_process(k) for k in keys[0].tolist()], top=8)
+
+        off, off_ms, off_busy = point_gets(False)
+        m0 = (metrics.COALESCE_BATCHES.value, metrics.COALESCE_LAUNCHES_SAVED.value, fallbacks(metrics),
+              metrics.COALESCE_LANES.labels("read").value)
+        on, on_ms, on_busy = point_gets(True)
+        d_batches, d_saved, d_fb, d_lanes = (b - a for a, b in zip(m0, (
+            metrics.COALESCE_BATCHES.value, metrics.COALESCE_LAUNCHES_SAVED.value, fallbacks(metrics),
+            metrics.COALESCE_LANES.labels("read").value)))
+        if on != off:
+            raise SystemExit("phase 15 point gets: a coalesced answer differs from the uncoalesced one")
+        if d_batches < 1 or d_saved < 1 or d_fb:
+            raise SystemExit(f"phase 15 point gets: COALESCE_BATCHES +{d_batches}, COALESCE_LAUNCHES_SAVED +{d_saved},"
+                             f" COALESCE_FALLBACKS +{d_fb}")
+
+        def pct(ms, q):
+            return ms[min(int(q * len(ms)), len(ms) - 1)]
+
+        log(f"phase 15 point gets: {FRONT_CONNS} connections x {FRONT_POINT_GETS} PREPARE / EXECUTE of orders by"
+            f" seeded o_orderkey, every answer equal with coalescing ON and OFF and to numpy's o_custkey;"
+            f" COALESCE_BATCHES +{d_batches}, COALESCE_LAUNCHES_SAVED +{d_saved}, COALESCE_FALLBACKS +0, lanes a batch"
+            f" {d_lanes / d_batches:.2f} ({d_lanes} lanes); a point get (SET @k and EXECUTE, one round trip):"
+            f" coalesced median {pct(on_ms, 0.5):.3f} ms p99 {pct(on_ms, 0.99):.3f} ms, uncoalesced median"
+            f" {pct(off_ms, 0.5):.3f} ms p99 {pct(off_ms, 0.99):.3f} ms; the process's CPU s over the storm's wall s"
+            f" (the server's and the clients' threads): coalesced {on_busy[0]:.3f} / {on_busy[1]:.3f}, uncoalesced"
+            f" {off_busy[0]:.3f} / {off_busy[1]:.3f} ({off_busy[0] * 1e3 / keys.size:.3f} ms of CPU a get)"
+            f" [{card}] ({time.perf_counter() - t1:.1f} s)")
+
+        # group commit: autocommit single-row INSERTs from 32 connections
+        t1 = time.perf_counter()
+        local.execute("CREATE TABLE front_gc (id BIGINT PRIMARY KEY, v BIGINT NOT NULL)")
+        g0 = (metrics.COALESCE_GROUP_COMMITS.value, metrics.COALESCE_GROUP_PROPOSALS_SAVED.value,
+              metrics.COALESCE_LANES.labels("write").value)
+
+        def inserts(i):
+            for j in range(FRONT_INSERTS):
+                if pool[i].query(f"INSERT INTO front_gc VALUES ({i * FRONT_INSERTS + j}, {j})") != 1:
+                    raise SystemExit(f"phase 15 group commit: INSERT {i * FRONT_INSERTS + j} did not write a row")
+
+        run_clients("group commit", FRONT_CONNS, inserts)
+        d_gc, d_prop, d_wl = (b - a for a, b in zip(g0, (
+            metrics.COALESCE_GROUP_COMMITS.value, metrics.COALESCE_GROUP_PROPOSALS_SAVED.value,
+            metrics.COALESCE_LANES.labels("write").value)))
+        n_rows = FRONT_CONNS * FRONT_INSERTS
+        ids = [r[0] for r in local.execute("SELECT id, v FROM front_gc ORDER BY id").values()]
+        agg = local.execute("SELECT count(*), sum(v) FROM front_gc").values()[0]
+        if ids != list(range(n_rows)) or [int(str(x)) for x in agg] != [n_rows, FRONT_CONNS * sum(range(FRONT_INSERTS))]:
+            raise SystemExit(f"phase 15 group commit: read back {len(ids)} rows, count and sum {agg}")
+        if d_gc < 1 or d_prop < 1:
+            raise SystemExit(f"phase 15 group commit: COALESCE_GROUP_COMMITS +{d_gc},"
+                             f" COALESCE_GROUP_PROPOSALS_SAVED +{d_prop}")
+        log(f"phase 15 group commit: {FRONT_CONNS} connections x {FRONT_INSERTS} autocommit INSERTs, all {n_rows} rows"
+            f" read back; COALESCE_GROUP_COMMITS +{d_gc} ({d_wl} write lanes), COALESCE_GROUP_PROPOSALS_SAVED"
+            f" +{d_prop} ({time.perf_counter() - t1:.1f} s)")
+
+        # the status server
+        http = StatusServer(sess).start_background()
+
+        def get(path):
+            with urllib.request.urlopen(f"http://{http.host}:{http.port}{path}", timeout=FRONT_TIMEOUT) as r:
+                if r.status != 200:
+                    raise SystemExit(f"phase 15 GET {path}: {r.status}")
+                body = r.read()
+                return body.decode() if path == "/metrics" else json.loads(body)
+
+        status = get("/status")
+        meta = sess.catalog.table("lineitem")
+        schema = get("/schema/test/lineitem")
+        if schema["id"] != meta.table_id or [c_["name"]["O"] for c_ in schema["cols"]] != [
+                c_.name for c_ in meta.columns]:
+            raise SystemExit(f"phase 15 /schema/test/lineitem: {schema}")
+        kinds = exposition_ok(get("/metrics"))
+        missing = [f for f in FRONT_FAMILIES if kinds.get(f.removesuffix("_total")) is None and f not in kinds]
+        if missing:
+            raise SystemExit(f"phase 15 /metrics: no {missing}")
+        regions = get("/pd/api/v1/regions")
+        if sorted(r["region_id"] for r in regions) != sorted(r.region_id for r in store.cluster.regions()):
+            raise SystemExit("phase 15 /pd/api/v1/regions: the regions differ from the PD's")
+        feeds = get("/cdc/api/v1/changefeeds")
+        if [(f["name"], f["state"]) for f in feeds] != [(v["name"], v["state"]) for v in store.cdc.views()]:
+            raise SystemExit(f"phase 15 /cdc/api/v1/changefeeds: {feeds}")
+        tables = get("/columnar/api/v1/tables")
+        if [v["table"] for v in tables] != [v["table"] for v in store.columnar.views()]:
+            raise SystemExit(f"phase 15 /columnar/api/v1/tables: {tables}")
+        log(f"phase 15 HTTP: /status {status['version']}, /schema/test/lineitem id {schema['id']} with"
+            f" {len(schema['cols'])} columns, /metrics {len(kinds)} families (every sample parses, the coalescer's"
+            f" there), /pd/api/v1/regions {len(regions)} regions == the PD, /cdc/api/v1/changefeeds {len(feeds)},"
+            f" /columnar/api/v1/tables {len(tables)}; each 200")
+    finally:
+        for cl in conns:
+            cl.close()
+        if http is not None:
+            http.close()
+        srv.close()
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: BR and point-in-time recovery
+# ---------------------------------------------------------------------------
+
+BR_DIR = os.path.join("build", "br_phase")  # the full backup and the log backup (ignored by git)
+BR_STATEMENTS = ("q1", "q3")                # over lineitem_r: K1 and K2 on the restored tables
+
+
+def dir_bytes(path: str) -> tuple:
+    """(files, bytes) under `path`."""
+    n = b = 0
+    for root, _dirs, files in os.walk(path):
+        for f in files:
+            n += 1
+            b += os.path.getsize(os.path.join(root, f))
+    return n, b
+
+
+def br_phase(src, full, qty, live, E, X, T, W, counters, profile: bool, card: str) -> None:
+    """Phase 16: BR and point-in-time recovery over phase 14's session (see
+    the module docstring). `full`, `qty` and `live` are lineitem_r's model
+    as phase 14 leaves it."""
+    import shutil
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import tidb_tpu_torch.exec as EXP
+    import tidb_tpu_torch.exec.executor as EX
+    import tidb_tpu_torch.tools.br as BRT
+    from tidb_tpu_torch import codec
+    from tidb_tpu_torch.parser import parse_one
+    from tidb_tpu_torch.server.http_api import StatusServer
+    from tidb_tpu_torch.sql import Session, plan_select
+
+    t0 = time.perf_counter()
+    s, store = src, src.store
+    tid = s.catalog.table("lineitem_r").table_id
+    okey, _ocust, odate = (c[0] for c in W.store_q3_build_columns(SESSION_ORDERS, SESSION_CUSTOMERS)[0])
+    stats_json = os.path.abspath(os.path.join(SESSION_DIR, "lineitem_r_stats.json"))
+    shutil.rmtree(BR_DIR, ignore_errors=True)
+    root = os.path.abspath(BR_DIR)
+
+    def model() -> dict:
+        return {k: (qty if k == "qty" else v)[live] for k, v in full.items()}
+
+    # the full backup, then the log backup on the same root
+    t1 = time.perf_counter()
+    r = s.execute(f"BACKUP DATABASE * TO '{root}'")
+    backup_s = time.perf_counter() - t1
+    keys, snap = r.values()[0][1], r.values()[0][2]
+    manifest = json.load(open(os.path.join(root, "manifest.json")))
+    full_files, full_bytes = dir_bytes(root)
+    s.execute(f"BACKUP LOG TO 'file://{root}'")
+    t1 = time.perf_counter()
+    store.pd.tick()
+    first_tick_s = time.perf_counter() - t1
+    cuts = {"before": store.next_ts()}
+    store.pd.tick()
+    http = StatusServer(s).start_background()
+    try:
+        with urllib.request.urlopen(f"http://{http.host}:{http.port}/cdc/api/v1/changefeeds",
+                                    timeout=FRONT_TIMEOUT) as resp:
+            feeds = {f["name"]: f for f in json.loads(resp.read())}
+    finally:
+        http.close()
+    logs = s.execute("SHOW BACKUP LOGS").values()
+    if len(logs) != 1 or logs[0][1] not in feeds or logs[0][2] != "normal" or logs[0][4] < cuts["before"]:
+        raise SystemExit(f"phase 16: SHOW BACKUP LOGS {logs}, /cdc/api/v1/changefeeds {sorted(feeds)}")
+    models = {"before": {k: v.copy() for k, v in model().items()}}
+    log(f"phase 16 backup: BACKUP DATABASE * of {keys} keys at snapshot {snap} in {backup_s:.2f} s"
+        f" ({len(manifest['segments'])} segments, {full_files} files, {full_bytes} bytes); BACKUP LOG TO"
+        f" 'file://{BR_DIR}' and its first PD tick (the raw feed's scan from ts 0) {first_tick_s:.2f} s;"
+        f" SHOW BACKUP LOGS {logs[0]}; the feed {logs[0][1]} in /cdc/api/v1/changefeeds")
+
+    # the transaction, shaped like phase 14's, then the second cut
+    touched = np.nonzero(full["okey"][:CDC_ROWS] < CDC_UPDATE_KEYS)[0]
+    old = live[live < CDC_ROWS]
+    deleted = old[full["okey"][old] >= CDC_UPDATE_KEYS][-CDC_DELETED_ROWS:]
+    new = np.arange(CDC_ROWS + CDC_NEW_ROWS, CDC_ROWS + 2 * CDC_NEW_ROWS)
+    qty[touched] += 100
+    cur = dict(full, qty=qty)
+    muts = dict(W.store_items(codec, [next(W.store_rows(T, cur, h, h + 1)) for h in touched.tolist()], table_id=tid))
+    muts.update(W.store_items(codec, W.store_rows(T, full, int(new[0]), int(new[-1]) + 1), table_id=tid))
+    muts.update({codec.encode_row_key(tid, int(h)): None for h in deleted})
+    commit_ts = store.txn.commit_txn(muts, store.next_ts(), store.next_ts)
+    live = np.concatenate([np.setdiff1d(live, deleted), new])
+    store.pd.tick()
+    cuts["after"] = store.next_ts()
+    store.pd.tick()
+    models["after"] = model()
+    log_files, log_bytes = dir_bytes(os.path.join(root, "log"))
+    lm = json.load(open(os.path.join(root, "log", "manifest.json")))
+    if lm["checkpoint_ts"] < cuts["after"]:
+        raise SystemExit(f"phase 16: the log's checkpoint {lm['checkpoint_ts']} is behind the cut {cuts['after']}")
+    log(f"phase 16 transaction: UPDATE of {len(touched)} rows, INSERT of {len(new)}, DELETE of {len(deleted)}"
+        f" committed at {commit_ts}; cuts {cuts}; the log {len(lm['segments'])} segments"
+        f" ({sum(x['events'] for x in lm['segments'])} events, {log_files} files, {log_bytes} bytes), checkpoint"
+        f" {lm['checkpoint_ts']}")
+
+    oracle_calls = [0]
+    real_oracle = (EX.run_dag_reference, EXP.run_dag_reference)
+
+    def counted_oracle(*a, **k):
+        oracle_calls[0] += 1
+        return real_oracle[0](*a, **k)
+
+    need = {"q1": "dense_agg", "q3": "postsort_segscan"}
+    EX.run_dag_reference = EXP.run_dag_reference = counted_oracle
+    full_restore = Calls(BRT, "restore")
+    try:
+        for cut_name, cut in cuts.items():
+            want = numpy_lineitem_sql(models[cut_name], (okey, odate), T)
+            rs = Session(device=DEVICE)
+            t1 = time.perf_counter()
+            f_s0 = full_restore.seconds
+            res = rs.execute(f"RESTORE DATABASE * FROM '{root}' UNTIL TS = {cut}")
+            restore_s = time.perf_counter() - t1
+            base_s = full_restore.seconds - f_s0
+            _src, until, segs, events = res.values()[0]
+            rs.execute(f"LOAD STATS '{stats_json}'")
+            hint = plan_select(parse_one(cdc_sql("q1")), rs.catalog).small_groups
+            if until != cut or hint != G:
+                raise SystemExit(f"phase 16 {cut_name}: restored until {until}, Q1's small-groups hint {hint}")
+            st0 = rs.store.stats()
+            answers = []
+            for name in BR_STATEMENTS:
+                sql = cdc_sql(name)
+
+                def once(sql=sql):
+                    rs.store.clear_result_cache()
+                    out = rs.execute(sql)
+                    torch.cuda.synchronize()
+                    return out
+
+                got = counters.path(f"{name} (restored, {cut_name} the transaction)", once, need=(need[name],),
+                                    phase=16)
+                what = session_answer(name, got, want[name], where=f"phase 16 ({cut_name})")
+                s.execute("SET tidb_isolation_read_engines = 'tpu'")
+                s.execute(f"SET tidb_snapshot = '{cut}'")
+                try:
+                    at = s.execute(sql)
+                finally:
+                    s.execute("SET tidb_snapshot = ''")
+                    s.execute("SET tidb_isolation_read_engines = 'tpu,columnar'")
+                if sorted(map(str, at.values())) != sorted(map(str, got.values())):
+                    raise SystemExit(f"phase 16 {name} ({cut_name}): the restored answer differs from the source's"
+                                     f" at {cut}")
+                answers.append(f"{name} {what}")
+            st = rs.store.stats()
+            if oracle_calls[0] or any(st[k] != st0[k] for k in ("oracle_fallbacks", "other_errors")):
+                raise SystemExit(f"phase 16 {cut_name}: an oracle answer or an other_error ({st}, root oracle"
+                                 f" {oracle_calls[0]})")
+            log(f"phase 16 restore {cut_name} the transaction: RESTORE ... UNTIL TS = {cut} into a fresh"
+                f" Session(device={DEVICE!r}) in {restore_s:.2f} s (the full backup's restore {base_s:.2f} s, the"
+                f" replay of {segs} segments / {events} events {restore_s - base_s:.2f} s); {', '.join(answers)} =="
+                f" numpy == the source at {cut} (tidb_snapshot); no oracle answer, no other_error [{card}]")
+    finally:
+        EX.run_dag_reference, EXP.run_dag_reference = real_oracle
+        full_restore.close()
+        s.execute(f"STOP BACKUP LOG TO 'file://{root}'")
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -4559,9 +5055,13 @@ def main() -> int:
     # phase 14 reads phase 11's tables as they stand before phase 13 writes
     snap_ts = sess.store.next_ts()
     # phase 13: the control plane on phase 11's session and store
-    control_phase(sess, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    want = control_phase(sess, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
     # phase 14: change data capture and the columnar replica
-    cdc_phase(sess, snap_ts, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    replicated = cdc_phase(sess, snap_ts, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    # phase 15: the front door over phase 11's store and catalog
+    front_phase(sess, want, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    # phase 16: BR and point-in-time recovery over phase 14's session
+    br_phase(*replicated, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

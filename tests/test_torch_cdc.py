@@ -3,7 +3,7 @@
 The first part is tests/test_cdc.py on a port `Session(device="cpu")`: its
 cases but four, which wait on subsystems the port does not have yet —
 test_resume_after_stall_redelivers_exactly_once_in_order (BR's log backup
-and tools/chaos.py), test_http_api_routes (the HTTP status server),
+and tools/chaos.py), test_http_api_routes (in tests/test_torch_http_api.py),
 test_cdc_lockwatch_storm (analysis/lockwatch.py and tools/chaos.py) and
 test_cdc_chaos_mirror_equality_acceptance (tools/chaos.py run_cdc_storm).
 

@@ -4,6 +4,7 @@ unloaded, and its entry points refuse a CUDA device that is not there
 rather than quietly running on the CPU."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -60,7 +61,10 @@ def test_import_leaves_jax_unloaded():
         "import tidb_tpu_torch.parallel, tidb_tpu_torch.parallel.sql, tidb_tpu_torch.parallel.joinmesh\n"
         "import tidb_tpu_torch.mpp.exchange_op, tidb_tpu_torch.mpp.dispatch, tidb_tpu_torch.mpp.fragment\n"
         "import tidb_tpu_torch.replication, tidb_tpu_torch.pd, tidb_tpu_torch.pd.schedulers\n"
-        "import tidb_tpu_torch.background, tidb_tpu_torch.interop, tidb_tpu_torch.sql.seams\n"
+        "import tidb_tpu_torch.background, tidb_tpu_torch.interop\n"
+        "import tidb_tpu_torch.server.server, tidb_tpu_torch.server.client, tidb_tpu_torch.server.http_api\n"
+        "import tidb_tpu_torch.server.coalesce, tidb_tpu_torch.server.protocol\n"
+        "import tidb_tpu_torch.br, tidb_tpu_torch.br.pitr, tidb_tpu_torch.tools.br\n"
         "import tidb_tpu_torch.cdc, tidb_tpu_torch.columnar\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
@@ -264,56 +268,99 @@ def test_session_defaults_to_cuda_and_raises_without_it(how, monkeypatch):
     assert s.store.device.type == "cpu"
 
 
-NOT_PORTED = {
-    "BACKUP DATABASE * TO 'file:///nowhere'": "BACKUP",
-    "RESTORE DATABASE * FROM 'file:///nowhere'": "RESTORE",
-    "BACKUP LOG TO 'file:///nowhere'": "BACKUP LOG",
-}
+def test_brie_statements_run_through_sql(tmp_path):
+    """BACKUP, RESTORE, BACKUP LOG, STOP BACKUP LOG and RESTORE ... UNTIL
+    TS succeed through the port's SQL, with the statement tiers and the
+    columnar engine switched on, and an error of a statement itself still
+    reaches the caller."""
+    from tidb_tpu_torch.sql import CatalogError, PlanError, Session
 
-
-@pytest.mark.parametrize("sql", list(NOT_PORTED))
-def test_seams_raise_not_ported(sql):
-    """A statement of a subsystem the port does not have fails with
-    SQLError 1105; it neither succeeds silently nor leaks a Python error,
-    and the session goes on working."""
-    from tidb_tpu_torch.sql import Session, SQLError
-
-    s = Session(device="cpu")
-    s.execute("CREATE TABLE t (a BIGINT PRIMARY KEY)")
-    with pytest.raises(SQLError, match=f"{NOT_PORTED[sql]} is not ported") as ei:
-        s.execute(sql)
-    assert ei.value.code == 1105
-    s.execute("INSERT INTO t VALUES (1)")
-    assert s.execute("SELECT count(*) FROM t").scalar() == 1
-
-
-def test_seams_decline_and_swallow_no_error():
-    """The seams that remain (BR and log backup) do nothing and show no
-    rows, with the statement tiers and the columnar engine switched on, and
-    an error of the statement itself still reaches the caller."""
-    from tidb_tpu_torch.sql import CatalogError, PlanError, Session, seams
-
-    assert seams.pitr_tick(None) is None
-    assert seams.log_backup_views(None) == []
-    # the mesh select (parallel/sql.py), the MPP tier (mpp/dispatch.py),
-    # changefeeds (cdc/) and the columnar replica (columnar/) are the real
-    # ones, not seams
-    for gone in ("try_mesh_select", "try_mpp_select", "columnar_would_serve", "columnar_views",
-                 "changefeed_views"):
-        assert not hasattr(seams, gone), gone
     s = Session(device="cpu")
     for q in ("SET tidb_enable_tpu_mesh = 1", "SET tidb_allow_mpp = 1",
               "SET tidb_isolation_read_engines = 'tpu,columnar'"):
         s.execute(q)
     s.execute("CREATE TABLE t (a BIGINT PRIMARY KEY, g INT)")
     s.execute("INSERT INTO t VALUES (1, 1), (2, 1), (3, 2)")
-    assert s.execute("SELECT g, count(*) FROM t GROUP BY g ORDER BY g").values() == [[1, 2], [2, 1]]
-    for kind in ("CHANGEFEEDS", "COLUMNAR TABLES", "BACKUP LOGS"):
-        assert s.execute(f"SHOW {kind}").rows == []
+    root = str(tmp_path / "bk")
+    full = str(tmp_path / "bk" / "full" / "b0")
+    r = s.execute(f"BACKUP DATABASE * TO '{full}'")
+    assert r.columns == ["Destination", "Keys", "SnapshotTS"] and r.values()[0][1] > 0
+    r = s.execute(f"BACKUP LOG TO 'file://{root}'")
+    assert r.columns == ["Destination", "Changefeed", "StartTS"]
+    assert [row[0] for row in s.execute("SHOW BACKUP LOGS").values()] == [f"file://{root}"]
+    s.execute("INSERT INTO t VALUES (4, 2)")
+    s.store.pd.tick()
+    cut = s.store.next_ts()
+    s.store.pd.tick()
+    s.execute(f"STOP BACKUP LOG TO 'file://{root}'")
+    assert s.execute("SHOW BACKUP LOGS").rows == []
+    r1 = Session(device="cpu")
+    assert r1.execute(f"RESTORE DATABASE * FROM '{full}'").values()[0][2] == 1
+    assert r1.execute("SELECT g, count(*) FROM t GROUP BY g ORDER BY g").values() == [[1, 2], [2, 1]]
+    r2 = Session(device="cpu")
+    r = r2.execute(f"RESTORE DATABASE * FROM '{root}' UNTIL TS = {cut}")
+    assert r.columns == ["Source", "UntilTS", "Segments", "Events"] and r.values()[0][1] == cut
+    assert r2.execute("SELECT g, count(*) FROM t GROUP BY g ORDER BY g").values() == [[1, 2], [2, 2]]
     with pytest.raises(CatalogError):
         s.execute("SELECT * FROM missing")
     with pytest.raises(PlanError):
         s.execute("SELECT nope FROM t")
+
+
+@pytest.mark.parametrize("sql", [
+    "BACKUP DATABASE * TO '{d}/x'", "RESTORE DATABASE * FROM '{d}/x'", "BACKUP LOG TO 'file://{d}/l'",
+])
+def test_brie_needs_super_as_in_the_jax_package(tmp_path, sql):
+    """A user without SUPER gets the JAX package's access error, word for
+    word, and the statement does nothing."""
+    import tidb_tpu.sql as j_sql
+
+    from tidb_tpu_torch.sql import Session, SQLError
+
+    errs = []
+    for s in (j_sql.Session(), Session(device="cpu")):
+        s.execute("CREATE USER 'u'")
+        u = type(s)(s.store, s.catalog)
+        u.user = "u"
+        with pytest.raises(Exception) as ei:
+            u.execute(sql.format(d=tmp_path))
+        errs.append((type(ei.value).__name__, getattr(ei.value, "code", None), str(ei.value)))
+    assert errs[1] == errs[0]
+    assert errs[1][0] == SQLError.__name__ and "SUPER" in errs[1][2]
+    assert not os.path.exists(tmp_path / "x") and not os.path.exists(tmp_path / "l")
+
+
+def test_mysql_server_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """MySQLServer() builds its store on "cuda": without CUDA it raises
+    rather than serving from the CPU, and opens no socket."""
+    from tidb_tpu_torch.server import MySQLServer
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MySQLServer()
+    srv = MySQLServer(device="cpu")
+    try:
+        assert srv.store.device.type == "cpu"
+    finally:
+        srv.close()
+
+
+def test_mysql_server_device_must_name_its_store_device():
+    """Given a store, MySQLServer serves on that store's device: a `device`
+    that names another raises before a socket opens, and one that names
+    the same device (or none) is accepted."""
+    from tidb_tpu_torch.server import MySQLServer
+    from tidb_tpu_torch.store import TPUStore
+
+    store = TPUStore(device="cpu")
+    with pytest.raises(ValueError, match="store's device"):
+        MySQLServer(store=store, device="cuda")
+    for device in (None, "cpu"):
+        srv = MySQLServer(store=store, device=device)
+        try:
+            assert srv.store is store
+        finally:
+            srv.close()
 
 
 def test_mesh_devices_resolve_to_cuda_and_raise_without_it(monkeypatch):

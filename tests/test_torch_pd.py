@@ -2,8 +2,9 @@
 hot-peer caches, the operator queue, checkers and schedulers, the tick and
 its failpoints) against the JAX package's, on the CPU: the cases of
 tests/test_pd.py but `test_pd_http_api_endpoints` and
-`test_config_server_boots_and_stops_pd_loop`, which need the HTTP status
-server and the MySQL server (server/, not ported).
+`test_config_server_boots_and_stops_pd_loop`, which are in
+tests/test_torch_http_api.py and tests/test_torch_server.py beside the
+port's HTTP status server and MySQL server.
 
 A JAX TPUStore is filled as the reference's fill_store fills it, its
 state read out as plain values (interop.store_state) and both packages'
@@ -356,7 +357,15 @@ def test_show_placement_statement():
 
 
 def test_pd_tick_emits_trace_span():
+    import tidb_tpu.topsql as j_topsql
+
+    import tidb_tpu_torch.topsql as p_topsql
+
     def case(P, store):
+        # each package's Top SQL window starts afresh, so the tick's
+        # topsql.report phase seals none in either: a window left by an
+        # earlier test could have aged past its 1 s span in one package only
+        (j_topsql if P is JAX else p_topsql).COLLECTOR.rotate(force=True)
         store.pd.tick()
         root = store.pd.last_tick_root
         assert root is not None and root.name == "pd.tick"

@@ -27,8 +27,13 @@ module's counterpart is easy to find:
                    region, root merge on the device)
   parser/, sql/, store/txn.py
                    the SQL session (sql.Session): parser, planner, plan
-                   cache and Percolator transactions over execute_root;
-                   sql/seams.py answers for what is not ported yet
+                   cache and Percolator transactions over execute_root
+  server/          the MySQL wire server, the HTTP status API, the
+                   store's admission gate and the cross-session coalescer
+                   (point gets of many sessions as lanes of one batched
+                   launch; autocommit writes as one group commit)
+  br/, tools/br.py full backup / restore and log backup with
+                   point-in-time RESTORE ... UNTIL TS over the store
   cdc/, columnar/  changefeeds over the replication log, and the columnar
                    replica they feed: delta + stable layers whose stable
                    batches stay on the store's device, served to

@@ -82,8 +82,8 @@ def snapshot_from_meta(meta) -> SchemaSnapshot:
 
 
 # The field-type / datum dict codecs of the full-backup manifest (copies of
-# tidb_tpu/tools/br.py's: BR is not ported, and the log-backup segments
-# persist these dicts verbatim).
+# tidb_tpu/tools/br.py's): the log-backup segments persist these dicts
+# verbatim, and the port's tools/br.py imports them from here.
 
 def _ft_to_dict(ft) -> dict:
     return {

@@ -22,9 +22,7 @@ Placement is authoritative here: `Cluster.store_of()` misses route through
 guess.
 
 Copy of `tidb_tpu/pd/` for the PyTorch port (imports rewritten; it imports
-nothing of tidb_tpu). The tick's pd.pitr phase goes through
-`sql/seams.py pitr_tick`: the port has no log backup to upkeep, so the
-phase only trims the schema journal.
+nothing of tidb_tpu). The tick's pd.pitr phase runs `br.pitr_tick`.
 """
 
 from .core import Operator, OperatorQueue, PDConfig, PlacementDriver

@@ -425,11 +425,10 @@ class PlacementDriver:
                     osp.set("rows_folded", folded)
             with tracing.span("pd.pitr") as pitr_sp:
                 # point-in-time recovery upkeep: refresh each log backup's
-                # durable-checkpoint gauges and trim the schema journal —
-                # AFTER pd.cdc so this tick's checkpoint slide is visible
-                # (br/ is not ported: the seam does what the reference does
-                # on a store with no log backup, the journal trim alone)
-                from ..sql.seams import pitr_tick
+                # durable-checkpoint gauges and trim the schema journal
+                # below the floor every feed has passed — AFTER pd.cdc so
+                # this tick's checkpoint slide is visible
+                from ..br import pitr_tick
 
                 pitr_tick(self.store)
                 if pitr_sp is not None:

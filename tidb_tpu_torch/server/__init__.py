@@ -1,7 +1,29 @@
-"""The server tier of the port: the store's admission gate
-(admission.py, a copy of tidb_tpu/server/admission.py). The MySQL wire
-server and the cross-session coalescer are not ported."""
+"""MySQL wire protocol server (ref: pkg/server), the store's admission gate
+and the cross-session coalescer.
 
-from .admission import AdmissionGate, AdmissionShed
+Lazily re-exported (PEP 562): the store tier imports `server.admission`
+for its AdmissionGate and `server.coalesce` for its SessionCoalescer, and
+eagerly importing the wire server here would cycle back through sql ->
+store.
 
-__all__ = ["AdmissionGate", "AdmissionShed"]
+Copy of `tidb_tpu/server/__init__.py` for the PyTorch port (it imports
+nothing of tidb_tpu)."""
+
+__all__ = ["MySQLServer", "MiniClient", "split_statements",
+           "AdmissionGate", "AdmissionShed", "SessionCoalescer"]
+
+
+def __getattr__(name):
+    if name == "MiniClient":
+        from .client import MiniClient
+        return MiniClient
+    if name in ("MySQLServer", "split_statements"):
+        from . import server as _server
+        return getattr(_server, name)
+    if name in ("AdmissionGate", "AdmissionShed"):
+        from . import admission as _admission
+        return getattr(_admission, name)
+    if name == "SessionCoalescer":
+        from .coalesce import SessionCoalescer
+        return SessionCoalescer
+    raise AttributeError(name)

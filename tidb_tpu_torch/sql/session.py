@@ -15,12 +15,12 @@ EXPLAIN. Everything else raises loudly rather than silently no-op.
 Port of `tidb_tpu/sql/session.py` (imports rewritten; it imports nothing of
 tidb_tpu). The session runs over the port's store on `device` (default
 "cuda"), its mesh tier and mesh select over `mesh_devices` (the store's
-device list, runtime.mesh_devices). What differs from the reference: the
-subsystem the port does not have answers through `seams.py` (BACKUP,
-RESTORE and log backup raise "not ported"; SHOW BACKUP LOGS is empty), and
+device list, runtime.mesh_devices). What differs from the reference:
 LOAD STATS resolves a relative path against the working directory.
-Changefeeds (cdc/) and the columnar replica (columnar/, routed to by
-tidb_isolation_read_engines) are the port's own, as in the reference.
+Changefeeds (cdc/), the columnar replica (columnar/, routed to by
+tidb_isolation_read_engines), BACKUP / RESTORE / BACKUP LOG (tools/br.py,
+br/) and the store's cross-session coalescer (server/coalesce.py) are the
+port's own, as in the reference.
 The MPP tier (mpp/dispatch.py try_mpp_select), follower reads, SHOW
 PLACEMENT and the PD knobs of Config reach the store's control plane (its
 `pd` and `replication`), as in the reference.
@@ -1151,10 +1151,43 @@ class Session:
             except TxnError as exc:
                 raise SQLError(str(exc)) from exc
         if isinstance(stmt, A.BRIEStmt):
-            from .seams import not_ported
+            from ..br import LogGapError, restore_until, start_log_backup, stop_log_backup
+            from ..cdc import ChangefeedError
+            from ..store.txn import TxnError
+            from ..tools import backup, restore
 
             self._implicit_commit()
-            raise not_ported(stmt.kind.replace("_", " ").upper())
+            try:
+                if stmt.kind == "backup_log":
+                    lb = start_log_backup(self.store, self.catalog, stmt.storage)
+                    row = [Datum.string(stmt.storage), Datum.string(lb.feed_name),
+                           Datum.i64(lb.start_ts)]
+                    return Result(columns=["Destination", "Changefeed", "StartTS"],
+                                  rows=[row])
+                if stmt.kind == "stop_backup_log":
+                    stop_log_backup(self.store, stmt.storage)
+                    return Result()
+                if stmt.kind == "backup":
+                    m = backup(self.store, self.catalog, stmt.storage)
+                    row = [Datum.string(stmt.storage), Datum.i64(m["total_keys"]), Datum.i64(m["snapshot_ts"])]
+                    return Result(columns=["Destination", "Keys", "SnapshotTS"], rows=[row])
+                if stmt.until_ts is not None:
+                    info = restore_until(self.store, self.catalog, stmt.storage,
+                                         stmt.until_ts)
+                    row = [Datum.string(stmt.storage), Datum.i64(info["until_ts"]),
+                           Datum.i64(info["segments_replayed"]),
+                           Datum.i64(info["events_applied"])]
+                    return Result(columns=["Source", "UntilTS", "Segments", "Events"],
+                                  rows=[row])
+                info = restore(self.store, self.catalog, stmt.storage)
+                row = [Datum.string(stmt.storage), Datum.i64(info["keys"]), Datum.i64(info["tables"])]
+                return Result(columns=["Source", "Keys", "Tables"], rows=[row])
+            except (TxnError, LogGapError, ChangefeedError, ValueError) as exc:
+                # RESTORE's bulk_ingest hits a held lock, a PITR coverage
+                # gap, a duplicate/unknown log backup, a table collision:
+                # every failure is a typed SQL error, never a raw Python
+                # stack
+                raise SQLError(str(exc)) from exc
         if isinstance(stmt, A.AlterTableStmt):
             from .ddl import DDLError, alter_table
 
@@ -3571,7 +3604,7 @@ class Session:
         if kind == "backup_logs":
             # SHOW BACKUP LOGS (ref: `br log status`): one row
             # per attached log backup with its durable checkpoint chain
-            from .seams import log_backup_views
+            from ..br import log_backup_views
 
             rows = [
                 [

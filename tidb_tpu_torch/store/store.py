@@ -319,6 +319,17 @@ class TPUStore:
         # admission control: one gate per store, fully open until a
         # session's Config configures it
         self.admission = AdmissionGate()
+        # cross-session fused execution: one coalescer per store —
+        # concurrent plan-cache-hit point gets park in a micro-batch window
+        # and ship as ONE batch-cop launch; concurrent autocommit
+        # single-row writes fold into group commit (runtime import: the
+        # server package re-exports lazily, so no cycle)
+        from ..server.coalesce import SessionCoalescer
+
+        self.coalescer = SessionCoalescer(self)
+        # the attached log backups (dest uri -> br.pitr.LogBackup; GIL-atomic
+        # dict ops, written by BACKUP LOG / stop, read by the pd.pitr tick)
+        self.log_backups: dict = {}
         self._stats = dict.fromkeys(STAT_KEYS, 0)  # guarded_by: _stats_lock
         self._stats_lock = threading.Lock()
 

@@ -5,11 +5,12 @@ tidb_tpu/tools/):
                 SHOW CREATE TABLE uses its `_type_sql`
   lightning.py  bulk import (LOAD DATA) writing KV directly with a
                 resumable checkpoint file
-
-BACKUP / RESTORE (tidb_tpu/tools/br.py) is not ported.
+  br.py         physical backup/restore of the KV snapshot + schema with
+                per-segment checksums and resume
 """
 
+from .br import backup, restore
 from .dump import dump_all, dump_table
 from .lightning import load_data
 
-__all__ = ["dump_all", "dump_table", "load_data"]
+__all__ = ["backup", "restore", "dump_all", "dump_table", "load_data"]

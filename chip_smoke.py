@@ -284,10 +284,33 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      to the source session read at the cut (tidb_snapshot), no oracle
      answer and no other_error; the backup's, the restores' and the
      replays' seconds, the bytes written and the segment counts printed;
-     /cdc/api/v1/changefeeds over the source shows the log backup's feed.
+     /cdc/api/v1/changefeeds over the source shows the log backup's feed;
+ 17. the seeded chaos storms of tidb_tpu_torch/tools/chaos.py on the card:
+     (a) run_chaos(seed=11, statements=40, device="cuda") (the reference's
+     short run: its own tables, a single-region oracle session, the
+     default schedule of an apply-lag wedge, two store outages with
+     leader reads, a server-busy storm, a PD heartbeat blackout, not-leader
+     flaps and an operator-timeout window) inside
+     tidb_tpu_torch.analysis.lockwatch.watching(): no wrong result, no
+     untyped error, every breaker closed, failovers >= 1 and all of them
+     leader transfers, follower reads > 0, ok + typed == 40, no lock-order
+     cycle and no unguarded annotated access, the edge count and the
+     statements' p50 / p99 ms printed; (b) the same storm loop
+     (chaos.storm) and default_schedule(30) over phase 11's store and
+     catalog as phases 13-15 leave them, set to four stores and scattered,
+     with the storm cluster's settings (batch cop, backoff weight 1,
+     follower reads), after one run of each statement (the cold decode
+     that phase 15's writes force, timed apart): TPC-H Q1 without ORDER
+     BY (K1), Q6 and the Q3-shaped join (K2) in turn, each answer equal
+     to numpy over the
+     tables as phase 13 left them or a typed SQLError, no untyped error,
+     every breaker closed after the convergence tail, failovers, breaker
+     trips and leader transfers >= 1 with no placement move, follower
+     reads > 0, K1 and K2 launched; each statement's median and p99 ms
+     printed beside phase 15's in-process median.
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6-16); the last line is {"ok": true,
+the main paths of phases 4 and 6-17); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
@@ -3938,10 +3961,11 @@ def fallbacks(metrics) -> int:
     return sum(metrics.COALESCE_FALLBACKS.labels(r).value for r in FALLBACK_REASONS)
 
 
-def front_phase(sess, want: dict, E, X, T, W, counters, profile: bool, card: str) -> None:
+def front_phase(sess, want: dict, E, X, T, W, counters, profile: bool, card: str) -> dict:
     """Phase 15: the front door over phase 11's store and catalog (see the
     module docstring). `want` holds numpy's answers over the tables as
-    phase 13 left them."""
+    phase 13 left them. Returns each FRONT_STATEMENTS statement's median
+    host ms in process (phase 17 prints its storm beside them)."""
     import urllib.request
 
     import numpy as np
@@ -3955,6 +3979,7 @@ def front_phase(sess, want: dict, E, X, T, W, counters, profile: bool, card: str
     t0 = time.perf_counter()
     store = sess.store
     need = {"q1": "dense_agg", "q3": "postsort_segscan"}
+    in_process_ms = {}
     srv = MySQLServer(store=store, catalog=sess.catalog, device=DEVICE)
     srv.start_background()
     http, conns = None, []
@@ -4000,6 +4025,7 @@ def front_phase(sess, want: dict, E, X, T, W, counters, profile: bool, card: str
                     fn()
                     runs.append((time.perf_counter() - t1) * 1e3)
                 ms[how] = statistics.median(runs)
+            in_process_ms[name] = ms["in process"]
             log(f"phase 15 {name}: over the wire -> {len(rows)} rows, each cell equal to the in-process result's"
                 f" text, {what} == numpy; launches {n_local} either way; median of {FRONT_REPS} runs, result cache"
                 f" cleared: wire {ms['wire']:.3f} ms, in process {ms['in process']:.3f} ms (the protocol and"
@@ -4153,6 +4179,7 @@ def front_phase(sess, want: dict, E, X, T, W, counters, profile: bool, card: str
             http.close()
         srv.close()
     log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return in_process_ms
 
 
 # ---------------------------------------------------------------------------
@@ -4318,6 +4345,141 @@ def br_phase(src, full, qty, live, E, X, T, W, counters, profile: bool, card: st
         full_restore.close()
         s.execute(f"STOP BACKUP LOG TO 'file://{root}'")
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the seeded chaos storms
+# ---------------------------------------------------------------------------
+
+STORM_SEED = 11                  # (a): tests/test_chaos.py test_chaos_short_run_smoke's seed
+STORM_STATEMENTS = 40            # and its statement count
+STORM_DATA_STATEMENTS = 30       # (b): FRONT_STATEMENTS in turn under default_schedule(30)
+
+
+def storm_phase(sess, want: dict, counters, card: str, front_ms: dict) -> None:
+    """Phase 17: the seeded chaos storms on the card (see the module
+    docstring). `want` holds numpy's answers over phase 11's tables as
+    phase 13 left them; `front_ms` phase 15's in-process medians."""
+    from tidb_tpu_torch.analysis import lockwatch
+    from tidb_tpu_torch.sql import Session
+    from tidb_tpu_torch.tools import chaos
+
+    t0 = time.perf_counter()
+
+    def storm_ok(what, rep, n, fired: bool):
+        """The reference's storm invariants; with `fired`, also that the
+        storm's outage really tripped a breaker and failed over."""
+        bad = []
+        if rep["wrong_results"] or rep["untyped_errors"]:
+            bad.append(f"wrong {rep['wrong_results'][:3]}, untyped {rep['untyped_errors'][:3]}")
+        if not rep["breakers_all_closed"]:
+            bad.append(f"breakers {rep['breakers']}")
+        if rep["failovers"] < 1 or rep["failover_moves"] != 0 or rep["replica_reads"]["follower"] < 1:
+            bad.append(f"failovers {rep['failovers']}, failover moves {rep['failover_moves']}, replica reads"
+                       f" {rep['replica_reads']}")
+        if fired and (rep["breaker_trips"] < 1 or rep["transfer_leaders"] < 1):
+            bad.append(f"breaker trips {rep['breaker_trips']}, leader transfers {rep['transfer_leaders']}")
+        if rep["ok"] + rep["typed_errors"] != n:
+            bad.append(f"ok {rep['ok']} + typed {rep['typed_errors']} != {n}")
+        if bad:
+            raise SystemExit(f"phase 17 {what}: " + "; ".join(bad))
+
+    # (a) the reference's short run on the card, under the port's lock watcher
+    t1 = time.perf_counter()
+
+    def short_run():
+        with lockwatch.watching() as w:
+            rep = chaos.run_chaos(seed=STORM_SEED, statements=STORM_STATEMENTS, device=DEVICE)
+        return rep, w
+
+    rep, w = counters.path(f"run_chaos(seed={STORM_SEED}, statements={STORM_STATEMENTS}) under lockwatch",
+                           short_run, phase=17)
+    storm_ok("(a) run_chaos", rep, STORM_STATEMENTS, fired=False)
+    watch = w.report()
+    if watch["cycles"] or watch["violations"]:
+        raise SystemExit(f"phase 17 (a) lockwatch: cycles {watch['cycles']}, violations {watch['violations'][:5]}")
+    port_edges = w.edges_under()
+    if not port_edges:
+        raise SystemExit("phase 17 (a) lockwatch: no lock nesting of the port was seen")
+    log(f"phase 17 (a) run_chaos(seed={STORM_SEED}, statements={STORM_STATEMENTS}, device={DEVICE!r}) under"
+        f" tidb_tpu_torch.analysis.lockwatch.watching(): ok {rep['ok']}, typed {rep['typed_errors']}"
+        f" {rep['errors_by_code']}, no wrong result, no untyped error, breakers all closed; failovers"
+        f" {rep['failovers']} (moves 0), leader transfers {rep['transfer_leaders']}, breaker trips"
+        f" {rep['breaker_trips']}, replica reads {rep['replica_reads']}; statement p50 {rep['p50_ms']} ms, p99"
+        f" {rep['p99_ms']} ms; lockwatch: {len(watch['edges'])} lock-order edges ({len(port_edges)} between the"
+        f" port's own locks), 0 cycles, 0 violations [{card}] ({time.perf_counter() - t1:.1f} s)")
+
+    # (b) the storm's schedule over phase 11's tables: four stores again
+    # (phase 13 left three; default_schedule downs stores 1 and 2 and lags
+    # store 3), the sharded storm cluster's settings, FRONT_STATEMENTS in turn
+    t1 = time.perf_counter()
+    store = sess.store
+    s = Session(store=store, catalog=sess.catalog)
+    store.cluster.set_stores(chaos.N_STORES)
+    store.cluster.scatter()
+    chaos.storm_settings(s)
+    names = [FRONT_STATEMENTS[i % len(FRONT_STATEMENTS)] for i in range(STORM_DATA_STATEMENTS)]
+    workload = [SESSION_STATEMENTS[name][0].format(d=SESSION_STATEMENTS[name][1]) for name in names]
+    # one run of each statement before the storm: phase 15's INSERTs bumped
+    # the store's write version, which drops every decoded region, and the
+    # storm's first statements would time the cold decode, not the faults
+    warm = {}
+    for name, sql in zip(FRONT_STATEMENTS, workload):
+        t2 = time.perf_counter()
+        session_answer(name, s.execute(sql), want[name], where="phase 17 (b) before the storm")
+        warm[name] = (time.perf_counter() - t2) * 1e3
+    lat = collections.defaultdict(list)
+    in_order = []  # each workload statement's ms, in the storm's order
+    execute = s.execute
+
+    def timed(sql, *a, **k):
+        t2 = time.perf_counter()
+        try:
+            return execute(sql, *a, **k)
+        finally:
+            if sql in workload:
+                in_order.append((time.perf_counter() - t2) * 1e3)
+                lat[names[workload.index(sql)]].append(in_order[-1])
+
+    def check(i, res):
+        """Statement i's answer against numpy, exact; then the result cache
+        is cleared, so the next statement computes on the card."""
+        try:
+            session_answer(names[i], res, want[names[i]], where="phase 17 (b)")
+        except SystemExit as exc:
+            return {"got": str(exc)[:200], "want": "numpy"}
+        finally:
+            store.clear_result_cache()
+        return None
+
+    s.execute = timed
+    store.clear_result_cache()
+    rep = counters.path(f"the default schedule over {STORM_DATA_STATEMENTS} statements of phase 11's tables",
+                        lambda: chaos.storm(s, workload, check, chaos.default_schedule(STORM_DATA_STATEMENTS),
+                                            seed=STORM_SEED),
+                        need=("dense_agg", "postsort_segscan"), phase=17)
+    storm_ok("(b) the storm over phase 11's tables", rep, STORM_DATA_STATEMENTS, fired=True)
+
+    def pct(ms, q):
+        ms = sorted(ms)
+        return ms[min(int(q * len(ms)), len(ms) - 1)]
+
+    slow = max(range(len(in_order)), key=in_order.__getitem__)
+    sched = chaos.default_schedule(STORM_DATA_STATEMENTS)
+    before = [a for i in sorted(sched) if i <= slow for a in sched[i]]
+    per = "; ".join(f"{name} median {statistics.median(lat[name]):.3f} ms, p99 {pct(lat[name], 0.99):.3f} ms over"
+                    f" {len(lat[name])} (phase 15 in process {front_ms[name]:.3f} ms)" for name in FRONT_STATEMENTS)
+    log(f"phase 17 (b) default_schedule({STORM_DATA_STATEMENTS}) over {', '.join(FRONT_STATEMENTS)} in turn on"
+        f" phase 11's tables ({len(store.cluster.regions())} regions, {chaos.N_STORES} stores, follower reads, batch"
+        f" cop): ok {rep['ok']} == numpy, typed {rep['typed_errors']} {rep['errors_by_code']}, no wrong result, no"
+        f" untyped error, breakers all closed; failovers {rep['failovers']} (moves 0), leader transfers"
+        f" {rep['transfer_leaders']}, breaker trips {rep['breaker_trips']}, replica reads {rep['replica_reads']};"
+        f" K1 / K2 launches {counters.last['dense_agg']} / {counters.last['postsort_segscan']}; {per}; all"
+        f" statements p50 {rep['p50_ms']} ms, p99 {rep['p99_ms']} ms [{card}] ({time.perf_counter() - t1:.1f} s)")
+    log(f"phase 17 (b) the slowest statement: #{slow} ({names[slow]}) {in_order[slow]:.3f} ms, after the schedule's"
+        f" actions {before}; before the storm, one run of each (the cold decode after phase 15's writes):"
+        f" {', '.join(f'{k} {v:.3f} ms' for k, v in warm.items())}")
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -5059,9 +5221,11 @@ def main() -> int:
     # phase 14: change data capture and the columnar replica
     replicated = cdc_phase(sess, snap_ts, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
     # phase 15: the front door over phase 11's store and catalog
-    front_phase(sess, want, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    front_ms = front_phase(sess, want, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
     # phase 16: BR and point-in-time recovery over phase 14's session
     br_phase(*replicated, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    # phase 17: the seeded chaos storms, the second over phase 11's tables
+    storm_phase(sess, want, counters, smi, front_ms)
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

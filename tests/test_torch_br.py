@@ -4,7 +4,9 @@ tidb_tpu_torch/br/) on the CPU.
 - The six BR cases of tests/test_tools.py (test_backup_restore_roundtrip
   through test_backup_restore_views) over a port `Session(device="cpu")`.
 - The cases of tests/test_pitr.py but test_pitr_chaos_storm_acceptance,
-  which is the chaos storm of a later slice: log backup as a raw
+  which runs over the port's tidb_tpu_torch/tools/chaos.py in
+  tests/test_torch_storms.py (as does tests/test_cdc.py's
+  test_resume_after_stall_redelivers_exactly_once_in_order): log backup as a raw
   changefeed with atomic segments, RESTORE ... UNTIL TS with typed gaps
   and a resumable replay checkpoint, the GC safepoint, the pd.pitr phase.
 - Parity: the same statements on one thread through both packages give

@@ -1,11 +1,13 @@
 """The port's change data capture (tidb_tpu_torch/cdc/) on the CPU.
 
 The first part is tests/test_cdc.py on a port `Session(device="cpu")`: its
-cases but four, which wait on subsystems the port does not have yet —
-test_resume_after_stall_redelivers_exactly_once_in_order (BR's log backup
-and tools/chaos.py), test_http_api_routes (in tests/test_torch_http_api.py),
-test_cdc_lockwatch_storm (analysis/lockwatch.py and tools/chaos.py) and
-test_cdc_chaos_mirror_equality_acceptance (tools/chaos.py run_cdc_storm).
+cases but four, which live beside the harness they need —
+test_resume_after_stall_redelivers_exactly_once_in_order and
+test_cdc_chaos_mirror_equality_acceptance (the port's
+tidb_tpu_torch/tools/chaos.py) in tests/test_torch_storms.py,
+test_cdc_lockwatch_storm (tidb_tpu_torch/analysis/lockwatch.py) in
+tests/test_torch_lockwatch.py, and test_http_api_routes in
+tests/test_torch_http_api.py.
 
 The second part holds the port's event streams against the JAX package's:
 the same statements go through a JAX `Session` and a port `Session`,

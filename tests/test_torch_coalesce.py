@@ -1,8 +1,9 @@
 """The port's cross-session coalescer (tidb_tpu_torch/server/coalesce.py,
 built by every port TPUStore) on the CPU: the cases of
 tests/test_coalesce.py over port `Session(device="cpu")`s but
-test_coalesce_lockwatch_storm, which waits for a port of
-analysis/lockwatch.py — concurrent plan-cache-hit point gets batched into
+test_coalesce_lockwatch_storm, which runs under the port's
+tidb_tpu_torch/analysis/lockwatch.py in tests/test_torch_lockwatch.py —
+concurrent plan-cache-hit point gets batched into
 one `batch_coprocessor` call (one region-batched launch), autocommit
 writes folded into group commits, the DML point-write plan-cache tier and
 the shared cross-catalog tier. Every coalesced result must equal its
@@ -14,7 +15,6 @@ the JAX package's uncoalesced session gives over the same data.
 Tolerance: exact.
 """
 
-import os
 import sys
 import threading
 import time
@@ -24,8 +24,6 @@ import pytest
 from tidb_tpu_torch.sql.session import Session, SQLError
 from tidb_tpu_torch.store.txn import TxnError
 from tidb_tpu_torch.util import failpoint, metrics
-
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
 
 def make_store(rows=16):
@@ -371,9 +369,8 @@ def test_group_commit_cdc_per_key_order():
     changefeed's ordering oracle (per-key strictly increasing commit ts,
     monotone resolved marks) stays clean under concurrent coalesced
     writers."""
-    from chaos import CheckingSink
-
     from tidb_tpu_torch.cdc import MemorySink
+    from tidb_tpu_torch.tools.chaos import CheckingSink
 
     s = Session(device="cpu")
     s.execute("CREATE TABLE gc (id BIGINT PRIMARY KEY, v BIGINT)")

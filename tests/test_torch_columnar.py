@@ -1,10 +1,11 @@
 """The port's columnar replica (tidb_tpu_torch/columnar/) on the CPU.
 
 The first part is tests/test_columnar.py on a port `Session(device="cpu")`:
-its cases but three, which wait on subsystems the port does not have yet —
-test_http_columnar_routes (the HTTP status server),
-test_columnar_lockwatch_storm (analysis/lockwatch.py) and
-test_htap_chaos_storm_acceptance (tools/chaos.py run_htap_storm) — and
+its cases but three, which live beside what they need —
+test_http_columnar_routes in tests/test_torch_http_api.py,
+test_columnar_lockwatch_storm (tidb_tpu_torch/analysis/lockwatch.py) in
+tests/test_torch_lockwatch.py and test_htap_chaos_storm_acceptance
+(tidb_tpu_torch/tools/chaos.py run_htap_storm) in tests/test_torch_storms.py — and
 tests/test_mpp.py's test_replica_served_probe_matches_row_store on a port
 session with `mesh_devices=["cpu"] * 4`.
 

@@ -1,7 +1,8 @@
 """The production front door of the port's session on the CPU: the cases
 of tests/test_front_door.py over port `Session(device="cpu")`s but
-test_shared_plan_cache_lockwatch_storm, which waits for a port of
-analysis/lockwatch.py — the digest-keyed plan cache across its three tiers
+test_shared_plan_cache_lockwatch_storm, which runs under the port's
+tidb_tpu_torch/analysis/lockwatch.py in tests/test_torch_lockwatch.py —
+the digest-keyed plan cache across its three tiers
 (pointget / dag / ast), typed decline reasons, invalidation on schema,
 sysvar and binding drift, PREPARE / EXECUTE digest sharing, the probe that
 never leaks into nested selects, admission control with typed

@@ -15,11 +15,15 @@ storm of topology churn under SQL with the mesh on. Chunks are compared
 row by row in order, with `mesh_merged`, the batch stats and the mesh
 counters' deltas. Tolerance: exact (integer data).
 
-The reference's quick chaos storm (tools/chaos.py) drives its PD, replica
-reads and store faults, which the port's store does not have; the storm
-here churns the topology the mesh tier sees (splits, merges, a split in
-the middle of a statement) and holds every answer to a single-region
-session's and to the JAX package's.
+The storm here churns the topology the mesh tier sees (splits, merges, a
+split in the middle of a statement) and holds every answer to a
+single-region session's and to the JAX package's. Beside it stands the
+reference's form of the storm: the port's own seeded chaos harness
+(tidb_tpu_torch/tools/chaos.py run_chaos) with its PD, replica reads and
+store faults over a store whose mesh tier has eight CPU devices, held to
+the reference's invariants (a storm's interleaving is its backoffs', so
+not to the JAX package's run); the 80-statement form is marked slow, as
+the reference marks it.
 """
 
 import threading
@@ -486,3 +490,33 @@ def test_chaos_small_storm_mesh_quick():
 
     j, p = both(case)
     assert p == j
+
+
+def test_run_chaos_small_storm_mesh_quick():
+    """The reference's tier-1 storm (tests/test_mesh_dispatch.py
+    test_chaos_small_storm_mesh_quick) over the port: run_chaos at seed 23,
+    30 statements, the storm's store sharding its mesh tier over eight CPU
+    devices: zero wrong results, every error typed, and the mesh tier
+    merged region lanes. Invariants only."""
+    from tidb_tpu_torch.tools.chaos import run_chaos
+
+    l0 = TM.MESH_COP_LANES.value
+    report = run_chaos(seed=23, statements=30, device="cpu", mesh_devices=CPU8)
+    assert report["wrong_results"] == []
+    assert report["untyped_errors"] == []
+    assert TM.MESH_COP_LANES.value > l0
+
+
+@pytest.mark.slow
+def test_chaos_storm_with_mesh_tier():
+    """The chaos acceptance bar with the mesh tier on (the reference's
+    slow case): seeded splits, outages and transfers at seed 17, 80
+    statements, zero wrong results, and on-device merges really happened.
+    Invariants only."""
+    from tidb_tpu_torch.tools.chaos import run_chaos
+
+    l0 = TM.MESH_COP_LANES.value
+    report = run_chaos(seed=17, statements=80, device="cpu", mesh_devices=CPU8)
+    assert report["wrong_results"] == []
+    assert report["untyped_errors"] == []
+    assert TM.MESH_COP_LANES.value > l0  # the storm rode the mesh

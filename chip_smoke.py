@@ -74,9 +74,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      each path end to end (host clock around a synchronised run); with
      --profile, also one torch.profiler run of each path: device time by
      kernel and the device's busy share;
-  6. the store's coprocessor endpoint (tidb_tpu_torch/store): load 2^21
+  6. the store's coprocessor endpoint (tidb_tpu_torch/store): load 2^20
      rows of a 7-column lineitem table into a TPUStore on `cuda` (the
-     Python row encoder in 8 processes), split two 2^20-row regions,
+     Python row encoder in 8 processes), split two 2^19-row regions,
      require the native row decoder, and per region send Q6, Q1 (small-G
      hint 16, K1 must launch), TopN, Q3 (orders and customer as aux
      chunks; K2 and K3 must launch) and the join bench (orders as an aux
@@ -92,8 +92,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   5b. (with phase 5) each kernel's region-batched launch over 4 different
      lanes, bit-equal to its plain version lane by lane, one launch, its
      device time beside the same lanes as single calls;
-  7. the batch endpoint: phase 6's table split into seven regions of 2^18
-     rows and two of 2^17, each DAG as ONE batch_coprocessor_bytes frame
+  7. the batch endpoint: phase 6's table split into seven regions of 2^17
+     rows and two of 2^16, each DAG as ONE batch_coprocessor_bytes frame
      over the nine regions plus a stale epoch, every region against numpy,
      K1 / K2 / K3 once per capacity bucket, no oracle fallback,
      other_error, bucket fallback or lane-by-lane vmap op; the warm batch
@@ -101,7 +101,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
   8. the statement's root half on phase 7's regions: each statement of
      workloads.store_statements (Q1, Q6, BIT_AND/OR/XOR, DISTINCT grouped
      and scalar, GROUP BY l_orderkey, and that merge forced to spill at
-     group capacity 2^18 with no retry) split by distsql/root.py
+     group capacity 2^17 with no retry) split by distsql/root.py
      split_dag, its push half as one batch frame over the nine regions,
      the answers concatenated in region order, the root DAG through
      run_dag_on_chunks(device="cuda", oracle_fallback=False); every answer
@@ -131,11 +131,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      stale task answers epoch_not_match, is re-split and retried,
      REGION_ERRORS{kind="epoch_not_match"} rises by one, and Q1 still
      equals numpy;
- 10. the expression families: a TPC-H customer table of 2^20 rows in four
+ 10. the expression families: a TPC-H customer table of 2^19 rows in four
      regions loaded into the same store (the Python row encoder in 8
      processes, the native decoder required); every op of the math, bit,
      string and date families, string -> number and string truthiness in
-     WHERE over 2^20 rows on the card and on the CPU through
+     WHERE over 2^19 rows on the card and on the CPU through
      decode_outputs (equal; exp, ln, log and pow within 2 ulp; the card's
      sqrt bit-equal to np.sqrt); then workloads.store_expr_statements
      (q22_cntry and year with the small-groups hint 7, text, numeric)
@@ -149,9 +149,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
  11. the SQL session: a tidb_tpu_torch.sql.Session on `cuda` over its own
      store; CREATE TABLE lineitem (phase 6's seven columns under their
      TPC-H names and types), orders and customer (phase 10's columns)
-     through SQL; lineitem's 2^21 rows and customer's 2^20 copied from
+     through SQL; lineitem's 2^20 rows and customer's 2^19 copied from
      phase 10's store under the catalog's table ids (a row's value bytes
-     depend only on its column ids and types), orders' 2^19 rows encoded
+     depend only on its column ids and types), orders' 2^18 rows encoded
      in 8 processes, each table split into its own regions (lineitem as
      phase 9 left it); a CSV through LOAD DATA and ANALYZE of that table;
      lineitem's column stats through LOAD STATS of a JSON of numpy NDVs;
@@ -182,7 +182,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      shard) and the TopN, each equal to numpy and to the batch tier, the
      push half's batch_stats one mesh batch over every region, no mesh
      fallback; then a Session over that store: TPC-H Q1's GROUP BY, GROUP
-     BY l_orderkey (514,729 groups), a grouped COUNT(DISTINCT) (the raw-row
+     BY l_orderkey (about 2^18 groups), a grouped COUNT(DISTINCT) (the raw-row
      exchange) and lineitem JOIN orders grouped by o_orderdate (the shuffle
      join) on its MPP tier (mpp/dispatch.py try_mpp_select: the fragment
      plan through the wire frames, the probe scan through select, the
@@ -194,7 +194,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      Q1's GROUP BY once with each of mpp/dispatch-lost and
      mpp/exchange-stall armed (one MPP_FALLBACKS each, the mesh select
      answers) and cop-region-error armed for one hit (DISTSQL_RETRIES +1,
-     MPP still serves); and the join 1:32 (a 2^16-row build, 700 groups)
+     MPP still serves); and the join 1:32 (a 2^15-row build, 700 groups)
      through parallel.sql.try_mesh_select with its radix plan and K4's
      launches; median host ms of 3 runs a path (GROUP BY l_orderkey: one)
      (with --profile, the device busy share of the mesh Q1 and the
@@ -216,19 +216,19 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      DataIsNotReady on that store's peers, retries and equals numpy on the
      updated rows, then disarm, a tick, no safe_ts lag and that store
      serving follower reads again; and a split storm: the PD timer every
-     0.05 s at a 2^17-key limit while Q1 and Q6 run in the pool tier, until
-     no region holds more than 2^17 keys, every answer equal to numpy, the
+     0.05 s at a 2^16-key limit while Q1 and Q6 run in the pool tier, until
+     no region holds more than 2^16 keys, every answer equal to numpy, the
      regions and operators printed. Phases 6, 10, 11 and 12 print the time
      their loads spent in the store's write hooks (the quorum gate, the
      flow record and the replication proposals);
  14. change data capture and the columnar replica: a Session(mesh_devices=
      ["cuda:0"] * 4) over its own store holding lineitem_r (the first
-     2^18 rows of phase 11's lineitem, as they stood before phase 13's
+     2^17 rows of phase 11's lineitem, as they stood before phase 13's
      UPDATE, in four regions) and orders, LOAD STATS of lineitem_r's
      NDVs; ALTER TABLE lineitem_r SET COLUMNAR REPLICA 1 and one PD tick
      (the changefeed's birth scan, mount and apply in pd.cdc, the
      compaction and the upload of the stable batch to the card in
-     pd.columnar, each timed), SHOW COLUMNAR TABLES 2^18 stable rows, the
+     pd.columnar, each timed), SHOW COLUMNAR TABLES 2^17 stable rows, the
      batch on `cuda`; with tidb_isolation_read_engines = 'tpu,columnar'
      (the MPP tier and the mesh off) TPC-H Q1 without ORDER BY (K1 once),
      Q6, the Q3-shaped join (K2 once a program run) and the TopN served
@@ -296,7 +296,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      leader transfers, follower reads > 0, ok + typed == 40, no lock-order
      cycle and no unguarded annotated access, the edge count and the
      statements' p50 / p99 ms printed; (b) the same storm loop
-     (chaos.storm) and default_schedule(30) over phase 11's store and
+     (chaos.storm) and default_schedule(20) over phase 11's store and
      catalog as phases 13-15 leave them, set to four stores and scattered,
      with the storm cluster's settings (batch cop, backoff weight 1,
      follower reads), after one run of each statement (the cold decode
@@ -308,9 +308,20 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      trips and leader transfers >= 1 with no placement move, follower
      reads > 0, K1 and K2 launched; each statement's median and p99 ms
      printed beside phase 15's in-process median.
+ 18. the program auditor (tidb_tpu_torch/analysis/progaudit.py
+     audit_live(device="cuda")): the exec builder's catalog — the nine
+     builder shapes single, region-batched and (where the planner routes
+     them) as mesh programs over two shards of the card, the MPP exchange
+     join, TPC-H Q1 with the small-G hint (K1), Q3's packed chain (K2, K3)
+     and the 1:32 join bench at 4096 probe rows (K4) — run on the card
+     under an op recorder, each program's checks (float64 leaks, host
+     syncs, also under torch.cuda.set_sync_debug_mode("error"), device
+     leaks, lane-by-lane vmap ops, region-axis drift, build stability) and
+     op counts printed; no finding outside the auditor's KNOWN table, and
+     K1-K4 each launched at least once.
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6-17); the last line is {"ok": true,
+the main paths of phases 4 and 6-18); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
@@ -325,6 +336,8 @@ import sys
 import threading
 import time
 
+from tidb_tpu_torch.analysis.progaudit import vmap_fallbacks
+
 N_ROWS = 1 << 22
 TOPN_BIG_ROWS = 1 << 26        # BASELINE's "100M rows", the power of two below it
 TOPN_K = 100
@@ -338,31 +351,35 @@ SIMT_OPS_PER_S = 67e12         # H100 SXM non-tensor 32-bit rate (data sheet)
 I64_MAX = (1 << 63) - 1
 HAND_KERNELS = ("k1_kernel", "k2_scan", "k3_kernel", "probe_kernel")  # CUDA names of K1-K4
 # phase 6, the store: one lineitem table of STORE_ROWS rows in two regions
-# split at handle STORE_SPLIT (2^20 rows a region, TiKV's split size for
-# this schema); Q3's orders / customers and the join's orders as aux chunks
-STORE_ROWS = 1 << 21
-STORE_SPLIT = 1 << 20
-STORE_ORDERS = 1 << 19
-STORE_CUSTOMERS = 1 << 17
-STORE_JOIN_ORDERS = 1 << 17
+# split at handle STORE_SPLIT; Q3's orders / customers and the join's orders
+# as aux chunks. Every size of phases 6-17 is half what it was through
+# PR 19 (2^21 lineitem rows, 2^20 a region, TiKV's split size for this
+# schema), with every ratio between them kept: the whole script outgrew its
+# 1,200 s limit on the card, and these phases' time is host work that grows
+# with the rows (the Python row encoder, the key scan and decode)
+STORE_ROWS = 1 << 20
+STORE_SPLIT = 1 << 19
+STORE_ORDERS = 1 << 18
+STORE_CUSTOMERS = 1 << 16
+STORE_JOIN_ORDERS = 1 << 16
 STORE_PAGE = 8192
 STORE_PAGED_ROWS = 1 << 16     # the paged request covers each region's first 2^16 rows
-STORE_LOAD_CHUNK = 1 << 18     # rows a load worker encodes at a time
+STORE_LOAD_CHUNK = 1 << 17     # rows a load worker encodes at a time
 LOAD_WORKERS = 8
-COLD_REPS = 3                  # 5 before phase 11 joined the run
+COLD_REPS = 1                  # 5 before phase 11 joined the run, 3 before phase 18
 # K3's operations a row for its bound, whatever the design: the key-run
 # test, inner, real, the duplicate test, the bad byte, the head and ok
 K3_OPS_PER_ROW = 8
 # phase 5b: the kernels' region-batched launches over this many lanes
 BATCH_LANES = 4
 # phase 7, the batch endpoint: phase 6's table split further into seven
-# regions of 2^18 rows and two of 2^17 (two capacity buckets, the first
+# regions of 2^17 rows and two of 2^16 (two capacity buckets, the first
 # padded from 7 to 8 lanes)
-BATCH_REGION = 1 << 18
+BATCH_REGION = 1 << 17
 BATCH_SPLITS = tuple(k * BATCH_REGION for k in (1, 2, 3, 5, 6, 7)) + (7 * BATCH_REGION + BATCH_REGION // 2,)
 # phase 8, the statement's root half: the GROUP BY l_orderkey merge forced
 # to spill at this group capacity with no capacity retry
-ROOT_SPILL_CAPACITY = 1 << 18
+ROOT_SPILL_CAPACITY = 1 << 17
 # phase 9, the dispatch loop: execute_root's keyword arguments for each tier
 # (the pool tier is the session's default: tidb_distsql_scan_concurrency 4,
 # tidb_allow_batch_cop off), the timed runs a statement (DISTINCT grouped
@@ -373,12 +390,12 @@ DISPATCH_TIERS = {"pool": {"concurrency": 4, "batch_cop": False}, "batch": {"bat
 DISPATCH_REPS = 5
 DISPATCH_DISTINCT_REPS = 3
 DISPATCH_SPLITS = (5 * BATCH_REGION // 2, 11 * BATCH_REGION // 2)
-# phase 10, the expression families: the customer table (TPC-H SF ~7) in
+# phase 10, the expression families: the customer table (TPC-H SF ~3.5) in
 # four regions, the op check's rows, the small-groups hint of q22_cntry and
 # year (seven groups each), the timed runs per statement and tier, and the
 # ulp bound of exp, ln, log and pow between the card and the CPU
-EXPR_ROWS = 1 << 20
-EXPR_REGION = 1 << 18
+EXPR_ROWS = 1 << 19
+EXPR_REGION = 1 << 17
 EXPR_HINT = 7
 EXPR_REPS = 3
 ULP_TOL = 2
@@ -386,6 +403,20 @@ ULP_TOL = 2
 
 def log(*a):
     print(*a, flush=True)
+
+
+class Laps:
+    """The seconds each phase took: logged as it ends, all of them at the end."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.secs = {}
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.secs[phase] = round(now - self.t, 1)
+        self.t = now
+        log(f"phase {phase} took {self.secs[phase]:.1f} s")
 
 
 def median_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
@@ -476,24 +507,6 @@ def require_launches(what: str, got: int, want: int) -> None:
     """A kernel's launch count on a path, held to what the path must give."""
     if got != want:
         raise SystemExit(f"{what}: {got} launches, not {want}")
-
-
-def vmap_fallbacks(fn):
-    """(fn(), the ops that torch.func.vmap ran lane by lane inside it):
-    torch warns "There is a performance drop because we have not yet
-    implemented the batching rule for <op>" for each such op."""
-    import re
-    import warnings
-
-    with warnings.catch_warnings(record=True) as ws:
-        warnings.simplefilter("always")
-        out = fn()
-    names = set()
-    for w in ws:
-        m = re.search(r"batching rule for (\S+)\.", str(w.message))
-        if m:
-            names.add(m.group(1))
-    return out, sorted(names)
 
 
 def bound(in_bytes: int, out_bytes: int, ops: int):
@@ -1265,7 +1278,7 @@ def store_phase(E, X, T, W, counters, dev, profile: bool) -> None:
 
 def batch_store_phase(store, W, names, request, check, counters, profile: bool) -> None:
     """Phase 7: the batch endpoint on phase 6's store. Split the table into
-    seven regions of 2^18 rows and two of 2^17, send each DAG as one
+    seven regions of 2^17 rows and two of 2^16, send each DAG as one
     batch_coprocessor_bytes frame over all nine regions plus a stale
     epoch, hold every region's answer against numpy (no oracle fallback, no
     other_error), require K1 / K2 / K3 to launch once per capacity bucket,
@@ -2252,7 +2265,7 @@ def check_expr_statement(name, chunk, want) -> str:
 # ---------------------------------------------------------------------------
 
 SESSION_REPS = 3
-SESSION_ORDERS = STORE_ORDERS   # o_orderkey 0..2^19-1, the keys l_orderkey draws from
+SESSION_ORDERS = STORE_ORDERS   # o_orderkey 0..2^18-1, the keys l_orderkey draws from
 SESSION_CUSTOMERS = EXPR_ROWS   # o_custkey draws from phase 10's customers
 SESSION_ACCT_ROWS = 2048        # the transaction table
 SESSION_CSV_ROWS = 1000         # LOAD DATA's file
@@ -2727,11 +2740,11 @@ def session_phase(old, E, X, T, W, counters, profile: bool, card: str, line_size
 
 MESH_SHARDS = 4                 # shards of one card: mesh_devices = ["cuda:0"] * 4
 MESH_REPS = 3
-MESH_Q3_GROUPS = 1 << 17        # Q3's 70,670 groups at 2^21 rows: the store's group capacity for its frame
-MESH_OKEY_GROUPS = 1 << 19      # GROUP BY l_orderkey's 514,729 groups (and a shard's Partial1 table)
-MESH_JOIN_BUILD = 1 << 16       # the join 1:32's build: the first 2^16 order keys
+MESH_Q3_GROUPS = 1 << 17        # above Q3's groups (70,670 at 2^21 rows): the store's group capacity for its frame
+MESH_OKEY_GROUPS = 1 << 19      # above GROUP BY l_orderkey's groups (514,729 at 2^21 rows; a shard's Partial1 table)
+MESH_JOIN_BUILD = 1 << 15       # the join 1:32's build: the first 2^15 order keys
 MESH_JOIN_GROUPS = JOIN_GROUPS  # its payload's groups (bench.py's ladder section)
-MESH_OKEY_REPS = 1              # GROUP BY l_orderkey: one run a path (its 514,729-row Result takes 10-14 s)
+MESH_OKEY_REPS = 1              # GROUP BY l_orderkey: one run a path (a 514,729-row Result took 10-14 s)
 MPP_COUNTERS = ("MPP_SELECTS", "MPP_FALLBACKS", "MESH_SELECTS", "MPP_FRAGMENTS", "MPP_TASKS", "MPP_EXCHANGED_BYTES",
                 "DISTSQL_RETRIES")
 MESH_SESSION = {
@@ -2847,7 +2860,7 @@ def mesh_phase(src, E, X, T, W, counters, profile: bool, card: str, line_sizes: 
                ("q3", rebind(q3_top), {"aux_chunks": q3_aux, "group_capacity": MESH_Q3_GROUPS}),
                ("topn", rebind(dags["topn"][0]), {})]
     # execute_root's push requests run at the store's default group
-    # capacity (4096, as in the JAX package); Q3's 70,670 groups overflow
+    # capacity (4096, as in the JAX package); Q3's groups overflow
     # the mesh merge there and the store would degrade the group to the
     # batch tier. Its push half goes as one frame at MESH_Q3_GROUPS.
     framed = {"q3"}
@@ -3035,7 +3048,7 @@ def mesh_phase(src, E, X, T, W, counters, profile: bool, card: str, line_sizes: 
             for tier in ("mpp", "mesh"):
                 s.execute(f"SET tidb_allow_mpp = {'ON' if tier == 'mpp' else 'OFF'}")
                 # the first run of each tier is checked against numpy, and
-                # every run is timed (a 514,729-row Result takes seconds)
+                # every run is timed (a Result of 2^18 rows takes seconds)
                 ms[tier], res = timed(lambda tier=tier: on_tier(tier)[0], first=lambda tier=tier: first_on(tier),
                                       reps=reps)
                 what = session_mesh_answer(name, res, want[name], T)
@@ -3176,7 +3189,7 @@ CONTROL_STORES = 3               # logical placement stores: three peers a regio
 CONTROL_REPS = 3
 CONTROL_SPLIT_SIZE = 96 << 20    # TiKV's documented region-split-size (bytes)
 CONTROL_SPLIT_KEYS = 960_000     # TiKV's documented region-split-keys (the setup's; no region is near it)
-CONTROL_STORM_KEYS = 1 << 17     # the storm's key limit: every 2^18-row region splits in two
+CONTROL_STORM_KEYS = 1 << 16     # the storm's key limit: every 2^17-row region splits in two
 CONTROL_STORM_TICK = 0.05        # seconds between the PD timer's ticks during the storm
 CONTROL_STORM_SECONDS = 60.0     # the storm's deadline
 CONTROL_UPDATE_KEYS = 64         # the gated UPDATE touches the lineitem rows with l_orderkey below this
@@ -3368,7 +3381,7 @@ def control_phase(sess, E, X, T, W, counters, profile: bool, card: str) -> dict:
             # engine (the session's COMMIT path: the quorum gate, the flow
             # record, one replication proposal a region). SQL's UPDATE of a
             # table without a primary key scans every row to the host as
-            # Datums first, about two minutes at 2^21 rows.
+            # Datums first, about two minutes at 2^21 rows (PR 16).
             touched = t["okey"] < CONTROL_UPDATE_KEYS
             t["qty"] = t["qty"] + np.where(touched, 100, 0)
             rows = [next(W.store_rows(T, t, h, h + 1)) for h in np.nonzero(touched)[0].tolist()]
@@ -3460,8 +3473,8 @@ def control_phase(sess, E, X, T, W, counters, profile: bool, card: str) -> dict:
 # phase 14: change data capture and the columnar replica
 # ---------------------------------------------------------------------------
 
-CDC_ROWS = 1 << 18               # lineitem_r: the first 2^18 rows of phase 11's lineitem (2^19 until the
-                                 # whole script outgrew its time limit)
+CDC_ROWS = 1 << 17               # lineitem_r: the first 2^17 rows of phase 11's lineitem (2^19, then 2^18,
+                                 # until the whole script outgrew its time limit)
 CDC_REGIONS = 4
 CDC_REPS = 3
 CDC_DIR = os.path.join("build", "cdc_phase")  # the file changefeed's segments (ignored by git)
@@ -4353,7 +4366,8 @@ def br_phase(src, full, qty, live, E, X, T, W, counters, profile: bool, card: st
 
 STORM_SEED = 11                  # (a): tests/test_chaos.py test_chaos_short_run_smoke's seed
 STORM_STATEMENTS = 40            # and its statement count
-STORM_DATA_STATEMENTS = 30       # (b): FRONT_STATEMENTS in turn under default_schedule(30)
+STORM_DATA_STATEMENTS = 20       # (b): FRONT_STATEMENTS in turn under default_schedule(20); 30 before
+                                 # phase 18 joined the run (cut for the 1,200 s limit)
 
 
 def storm_phase(sess, want: dict, counters, card: str, front_ms: dict) -> None:
@@ -4482,6 +4496,33 @@ def storm_phase(sess, want: dict, counters, card: str, front_ms: dict) -> None:
     log(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the program auditor
+# ---------------------------------------------------------------------------
+
+def audit_phase(counters, card: str) -> None:
+    """Phase 18: progaudit.audit_live on the card (see the module
+    docstring). Every kernel must launch; any finding outside the
+    auditor's KNOWN table fails the phase."""
+    from tidb_tpu_torch.analysis import progaudit
+
+    t0 = time.perf_counter()
+    rep = counters.path("program auditor", lambda: progaudit.audit_live(device=DEVICE), need=tuple(counters.fns),
+                        phase=18)
+    for p in rep.programs:
+        log(f"phase 18 {p.line()}")
+    excused = [f for f in rep.raw if f not in rep.findings]
+    for f in excused:
+        log(f"phase 18 KNOWN: {f.message}")
+    if rep.findings:
+        raise SystemExit("phase 18: prog-audit findings outside KNOWN:\n" + "\n".join(f.render() for f in rep.findings))
+    if rep.stale:
+        raise SystemExit("phase 18: stale KNOWN entries:\n" + "\n".join(f.render() for f in rep.stale))
+    log(f"phase 18: {len(rep.programs)} programs audited on {rep.device} in {rep.seconds:.1f} s, "
+        f"{sum(p.ops for p in rep.programs)} ops recorded, {len(excused)} KNOWN findings, 0 others; "
+        f"launches {counters.last}; {card}; phase 18 {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4507,12 +4548,14 @@ def main() -> int:
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
+    lap = Laps()
     # phase 1: the card
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"phase 1 device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, count {torch.cuda.device_count()}")
 
+    lap("1")
     # phase 2: build every kernel from the checkout's sources
     secs = kernels.build()
     for name, s in secs.items():
@@ -4529,6 +4572,7 @@ def main() -> int:
         return [device_batch_from_numpy(c, np.ones(len(c[0][0]), bool), len(c[0][0]), f, device=dev)
                 for c, f in zip(cols_list, fts_list)]
 
+    lap("2")
     # phase 3, K1: against its plain version at Q1's shape
     t = W.make_tables(n, seed=0)
     q1_dag, q1_fts = W.q1_dag(E, X, T)
@@ -4853,6 +4897,7 @@ def main() -> int:
         k4_err = max(k4_err, check_k4("on a second stream", k4_in, False))
         check_k4("on a second stream, a dup", dup_in, True)
 
+    lap("3")
     # phase 4: the main paths, end to end
     q6_dag, q6_fts = W.q6_dag(E, X, T)
     q6_batch = device_batch_from_numpy(W.q6_columns(t), np.ones(n, bool), n, q6_fts, device=dev)
@@ -4995,6 +5040,7 @@ def main() -> int:
             raise SystemExit(f"Window {nm} differs from numpy at rows {bad.tolist()}")
     log(f"phase 4 Window at {n} lineitem rows: the 8 window columns == numpy (exact; none is real-valued)")
 
+    lap("4")
     # phase 5: times (the timing launches are not the main paths')
     timing = {}
 
@@ -5202,33 +5248,48 @@ def main() -> int:
             profile_path(name, fn, wall[name])
     counters.zero()
 
+    lap("5")
     # phases 6 and 7: the store's coprocessor endpoints
     store = store_phase(E, X, T, W, counters, dev, "--profile" in sys.argv[1:])
+    lap("6-7")
     # phase 8: the statement's root half on phase 7's regions
     wholes = root_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    lap("8")
     # phase 9: the dispatch loop, execute_root in every tier
     sizes = dispatch_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, wholes)
+    lap("9")
     # phase 10: the expression families, the customer table beside lineitem
     expr_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
+    lap("10")
     # phase 11: the SQL session over its own store, the tables copied in
     sess = session_phase(store, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
+    lap("11")
     # phase 12: the device mesh, four shards of the card
     mesh_phase(sess, E, X, T, W, counters, "--profile" in sys.argv[1:], smi, sizes)
+    lap("12")
     # phase 14 reads phase 11's tables as they stand before phase 13 writes
     snap_ts = sess.store.next_ts()
     # phase 13: the control plane on phase 11's session and store
     want = control_phase(sess, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    lap("13")
     # phase 14: change data capture and the columnar replica
     replicated = cdc_phase(sess, snap_ts, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    lap("14")
     # phase 15: the front door over phase 11's store and catalog
     front_ms = front_phase(sess, want, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    lap("15")
     # phase 16: BR and point-in-time recovery over phase 14's session
     br_phase(*replicated, E, X, T, W, counters, "--profile" in sys.argv[1:], smi)
+    lap("16")
     # phase 17: the seeded chaos storms, the second over phase 11's tables
     storm_phase(sess, want, counters, smi, front_ms)
+    lap("17")
+    # phase 18: the program auditor's catalog on the card
+    audit_phase(counters, smi)
+    lap("18")
     main_launches = dict(counters.main)
     counters.zero()
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; by phase {lap.secs}")
 
     sources = {
         "dense_agg": ("tidb_tpu_torch/csrc/dense_agg.cu", "tidb_tpu/ops/dense_pallas.py:223", k1_err),

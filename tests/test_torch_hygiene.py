@@ -68,6 +68,8 @@ def test_import_leaves_jax_unloaded():
         "import tidb_tpu_torch.cdc, tidb_tpu_torch.columnar\n"
         "import tidb_tpu_torch.analysis, tidb_tpu_torch.analysis.common, tidb_tpu_torch.analysis.guards\n"
         "import tidb_tpu_torch.analysis.lockwatch, tidb_tpu_torch.tools.chaos\n"
+        "import tidb_tpu_torch.analysis.dataflow, tidb_tpu_torch.analysis.progaudit, tidb_tpu_torch.tools.vet\n"
+        "from tidb_tpu_torch import analysis; analysis.PASSES\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tidb_tpu')]\n"
         "assert not bad, bad\n"
     )

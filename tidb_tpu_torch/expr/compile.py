@@ -81,11 +81,27 @@ def _flip(v):
     return v ^ I64_MIN
 
 
+def device_bytes(b: bytes, dev) -> torch.Tensor:
+    """uint8 [len(b)] holding `b`, made on `dev` without a host-to-device
+    copy (a blocking copy from pageable memory waits for the stream): the
+    bytes ride as fill values, eight to a big-endian int64 word, and are
+    split by shifts on the device."""
+    n_words = max(1, -(-len(b) // 8))
+    padded = b.ljust(8 * n_words, b"\0")
+    words = torch.stack([torch.full((), int.from_bytes(padded[8 * i: 8 * i + 8], "big", signed=True),
+                                    dtype=torch.int64, device=dev) for i in range(n_words)])
+    shifts = torch.arange(56, -8, -8, dtype=torch.int64, device=dev)
+    return ((words[:, None] >> shifts[None, :]) & 0xFF).reshape(-1)[: len(b)].to(torch.uint8)
+
+
 def _round_div(num: torch.Tensor, den) -> torch.Tensor:
     """Integer divide rounding half away from zero (MySQL decimal/int rules).
     Operands are made non-negative first, so torch's flooring `//` equals
     truncation here; the sign is applied afterwards."""
-    den = torch.as_tensor(den, dtype=torch.int64, device=num.device)
+    if isinstance(den, torch.Tensor):
+        den = den.to(device=num.device, dtype=torch.int64)
+    else:  # a fill, not a host-to-device copy
+        den = torch.full((), den, dtype=torch.int64, device=num.device)
     neg = (num < 0) ^ (den < 0)
     n, d = torch.abs(num), torch.abs(den)
     q = (2 * n + d) // (2 * d)
@@ -100,7 +116,7 @@ def string_bytes(c: CompVal):
         return c.raw
     words = c.value[:, :-1] ^ I64_MIN  # unflip the sign bit
     length = c.value[:, -1].to(torch.int32)
-    shifts = torch.tensor([56, 48, 40, 32, 24, 16, 8, 0], dtype=torch.int64, device=words.device)
+    shifts = torch.arange(56, -8, -8, dtype=torch.int64, device=words.device)  # 56, 48, ..., 0
     b = (words[:, :, None] >> shifts[None, None, :]) & 0xFF
     return b.reshape(words.shape[0], words.shape[1] * 8).to(torch.uint8), length
 
@@ -163,7 +179,10 @@ def _pow10_f64(ae: torch.Tensor) -> torch.Tensor:
     """Exact-where-possible 10**ae for non-negative int lanes: a table
     lookup (10^k is exactly representable for k <= 22) times the remainder
     by squaring (ae <= 400)."""
-    table = torch.tensor([10.0 ** k for k in range(23)], dtype=torch.float64, device=ae.device)
+    # 10^0 .. 10^22 by a product scan on the device: every partial product
+    # is a power of ten that float64 holds exactly, so the scan is exact
+    table = torch.cumprod(torch.cat([torch.ones(1, dtype=torch.float64, device=ae.device),
+                                     torch.full((22,), 10.0, dtype=torch.float64, device=ae.device)]), 0)
     small = torch.clamp(ae, max=22)
     out = table[small.to(torch.int64)]
     r = ae - small
@@ -321,8 +340,8 @@ class ExprCompiler:
             w = max(1, len(b))
             data = torch.zeros((1, w), dtype=torch.uint8, device=self._dev)
             if b:
-                data[0, : len(b)] = torch.tensor(list(b), dtype=torch.uint8, device=self._dev)
-            ln = torch.tensor([len(b)], dtype=torch.int32, device=self._dev)
+                data[0, : len(b)] = device_bytes(b, self._dev)
+            ln = torch.full((1,), len(b), dtype=torch.int32, device=self._dev)
             words = pack_string_words(data, ln)
             v = words.expand(self._n, words.shape[1])
             return CompVal(v, self._bools(False), e.ft,
@@ -889,7 +908,7 @@ class ExprCompiler:
             return torch.ones_like(length, dtype=torch.bool)
         if k > data.shape[1]:
             return torch.zeros_like(length, dtype=torch.bool)
-        pref = torch.tensor(list(prefix), dtype=torch.uint8, device=data.device)
+        pref = device_bytes(prefix, data.device)
         eq = (data[:, :k] == pref[None, :]).all(dim=1)
         return eq & (length >= k)
 

@@ -37,6 +37,11 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build or to launch (typed, so that
+    no bare RuntimeError leaves a request path)."""
+
+
 def _nvcc() -> str:
     found = os.environ.get("NVCC") or shutil.which("nvcc")
     if found:
@@ -77,7 +82,7 @@ def build(names=None) -> dict[str, float]:
             continue
         os.replace(tmp, out)
     if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+        raise KernelError("kernel build failed:\n" + "\n".join(failures))
     return secs
 
 

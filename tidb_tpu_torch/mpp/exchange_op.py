@@ -78,7 +78,9 @@ def scatter_to_buckets(cols: list, valid, part, n_parts: int, bucket_cap: int):
     dev = valid.device
     part = torch.where(valid, part.to(torch.int64), n_parts)  # invalid rows -> ghost bucket
     order = torch.sort(part, stable=True).indices
-    counts_all = torch.bincount(part, minlength=n_parts + 1)
+    # a fixed-size count (bincount sizes its output from the data's max,
+    # which the host reads back)
+    counts_all = torch.zeros(n_parts + 1, dtype=torch.int64, device=dev).index_add_(0, part, torch.ones_like(part))
     start = torch.cumsum(counts_all, 0) - counts_all
     pos_in_bucket = torch.empty(n, dtype=torch.int64, device=dev)
     pos_in_bucket[order] = torch.arange(n, dtype=torch.int64, device=dev) - start[part[order]]

@@ -377,9 +377,12 @@ def _group_aggregate_stream(group_bys, aggs, row_valid, group_capacity: int, mer
         keys.extend(sort_key_arrays(g))
     diff = torch.ones(n, dtype=torch.bool, device=dev)
     if keys:
-        diff[1:] = False
+        # out of place: under torch.func.vmap the keys carry the region
+        # axis and `diff` does not, so an in-place update cannot batch
+        change = torch.zeros(n - 1, dtype=torch.bool, device=dev)
         for k in keys:
-            diff[1:] |= k[1:] != k[:-1]
+            change = change | (k[1:] != k[:-1])
+        diff = torch.cat([diff[:1], change])
     seg = torch.cumsum(diff.to(torch.int32), 0, dtype=torch.int32) - 1
     # overflow only when a SURVIVING row lands past the capacity: key runs
     # whose rows are all filtered do not affect any output

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from ..kernels import StreamScratch, count_launch
+from ..kernels import KernelError, StreamScratch, count_launch
 from .keys import sort_key_arrays
 from .seg import _lsr, group_hash, hash_words
 
@@ -235,7 +235,7 @@ def _dense_agg_cuda_batched(hp, hv, row_valid, vals, nulls, g_cap: int):
     if err != 0:
         # a launch that failed may leave the table dirty: never reuse it
         _k1_scratch.drop(dev, st)
-        raise RuntimeError(f"dense_agg kernel launch failed (CUDA error {err})")
+        raise KernelError(f"dense_agg kernel launch failed (CUDA error {err})")
     count_launch(dense_agg)
     return group_rep, n_groups, overflow, counts, sums, nns
 

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from ..kernels import StreamScratch, count_launch
+from ..kernels import KernelError, StreamScratch, count_launch
 
 MAX_PART_CAP = 256     # build slots per partition (a 512-entry shared hash table)
 MAX_ROWS = 1 << 26     # probe-slot bound of the TPU kernel's gate
@@ -134,7 +134,7 @@ def _probe_tables_cuda_batched(b_key_tbl, b_slot_ok, p_key_tbl, p_slot_ok, batch
     if err != 0:
         # a launch that failed may leave the scratch dirty: never reuse it
         _k4_scratch.drop(dev, st)
-        raise RuntimeError(f"probe_tables kernel launch failed (CUDA error {err})")
+        raise KernelError(f"probe_tables kernel launch failed (CUDA error {err})")
     count_launch(probe_tables)
     return bpos, dup
 

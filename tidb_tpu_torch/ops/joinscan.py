@@ -38,7 +38,7 @@ import threading
 
 import torch
 
-from ..kernels import StreamScratch, count_launch
+from ..kernels import KernelError, StreamScratch, count_launch
 
 PIN = (1 << 31) - 4    # joinagg._PIN_HAY: pk >= PIN is an unusable row
 _PREV0 = -(1 << 31)    # "previous pk" of element 0: below every real pk
@@ -186,7 +186,7 @@ def _postsort_segscan_cuda_batched(spk, lanes_s, bad_lane, nw_s, bits):
             ptr(gv), ptr(cnt), ptr(key32), ptr(sums_p[0]), ptr(sums_p[1]), ptr(nns_p[0]), ptr(nns_p[1]),
             ptr(overflow), ptr(join_rows), ptr(scratch), ptr(acc), stream(dev))
     if err != 0:
-        raise RuntimeError(f"postsort_segscan kernel launch failed (CUDA error {err})")
+        raise KernelError(f"postsort_segscan kernel launch failed (CUDA error {err})")
     count_launch(postsort_segscan)
     return gv, cnt, key32, sums, [nn for nn in nn_out if nn is not None], overflow, join_rows
 
@@ -311,7 +311,7 @@ def _membership_segscan_cuda_batched(spk, bad_lane):
     if err != 0:
         # a launch that failed may leave the scratch dirty: never reuse it
         _k3_scratch.drop(dev, st)
-        raise RuntimeError(f"membership_segscan kernel launch failed (CUDA error {err})")
+        raise KernelError(f"membership_segscan kernel launch failed (CUDA error {err})")
     count_launch(membership_segscan)
     return ok_out, overflow
 

@@ -77,7 +77,7 @@ def topn(by: list, row_valid: torch.Tensor, k: int, full_sort: bool = False):
     s0 = torch.where(row_valid, keys[0], I64_MAX)
     w1 = keys[1]
     w1_top = float("inf") if w1.is_floating_point() else I64_MAX
-    w1m = torch.where(row_valid, w1, torch.tensor(w1_top, dtype=w1.dtype, device=dev))
+    w1m = torch.where(row_valid, w1, w1_top)  # a scalar operand: no host-to-device copy
 
     s0_smp, w1_smp = s0[::stride][:s_count], w1m[::stride][:s_count]
     pick = lexsort([s0_smp, w1_smp])[j : j + 1]

@@ -5,12 +5,18 @@ from __future__ import annotations
 import torch
 
 
+class DeviceUnavailableError(RuntimeError):
+    """A CUDA device was asked for on a host without one (typed, so that
+    no bare RuntimeError leaves a request path)."""
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for `device`; a CUDA device without a card raises
-    (the port never quietly drops to the CPU — callers ask for it)."""
+    DeviceUnavailableError (the port never quietly drops to the CPU —
+    callers ask for it)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceUnavailableError(
             f"device {device!r} requested but CUDA is not available; "
             "pass device='cpu' to run the plain versions on the host"
         )

@@ -319,9 +319,29 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      leaks, lane-by-lane vmap ops, region-axis drift, build stability) and
      op counts printed; no finding outside the auditor's KNOWN table, and
      K1-K4 each launched at least once.
+ 19. the port's observability and its row evaluator's extension ops, over
+     phase 11's store and catalog as phase 17 leaves them: (a) TRACE
+     FORMAT='json' of TPC-H Q1 without ORDER BY and of the Q3-shaped join,
+     the result cache cleared first, each span tree printed and required
+     to hold cop.decode (or cop.batch_decode), cop.execute (or
+     cop.batch_execute) and exec.program and no cop.oracle_fallback, K1
+     launched for Q1 and K2 for Q3; then each statement run plainly,
+     equal to numpy; (b) Top SQL: each traced digest's device_ns > 0 and
+     their sum equal to the collector's launch total, printed in ms beside
+     the statements' wall ms; (c) Q1 again: COP_CACHE_HITS or
+     PROGRAM_CACHE_HITS moved, and the PROGRAM_LAUNCHES delta of (a)-(c)
+     equals the programs fetched from the program caches; the 13 families'
+     deltas printed; no oracle answer in the store or the root, no
+     other_error; (d) a seeded 4096-row table on the card and the same
+     rows in a Session(device="cpu"): INSTR, LPAD, CONCAT_WS, MD5, SHA1
+     and TRUNCATE in the select list and in WHERE, a correlated scalar
+     subquery, EXISTS and NOT EXISTS over an outer column and a
+     registered user function, every answer equal between the two
+     sessions, MD5 / SHA1 equal to hashlib, each kind of extension op
+     (host builtin, __apply_*, user function) called.
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6-18); the last line is {"ok": true,
+the main paths of phases 4 and 6-19); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
@@ -4523,6 +4543,248 @@ def audit_phase(counters, card: str) -> None:
         f"launches {counters.last}; {card}; phase 18 {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the store's and program cache's spans, counters and Top SQL
+# device time; the row evaluator's extension ops
+# ---------------------------------------------------------------------------
+
+OBSERVE_STATEMENTS = {"q1": ("dense_agg",), "q3": ("postsort_segscan",)}  # SESSION_STATEMENTS, their kernels
+# the families the store, the program cache, the executor and the native
+# decoder move (tidb_tpu_torch/util/metrics.py)
+OBSERVE_FAMILIES = ("COP_FALLBACKS", "COP_CACHE_HITS", "BATCH_COP_BATCHES", "BATCH_COP_REGIONS",
+                    "BATCH_COP_LAUNCHES_SAVED", "COP_EXECUTOR_ROWS", "PROGRAM_COMPILES", "PROGRAM_LAUNCHES",
+                    "PROGRAM_CACHE_HITS", "PROGRAM_CACHE_ENTRIES", "PROGRAM_COMPILE_DURATION", "NATIVE_DECODES",
+                    "NATIVE_DECODE_FALLBACKS")
+EXT_ROWS = 4096                  # the extension-op table's seeded rows (evaluated row by row on the host)
+EXT_KEYS = 16                    # its correlation key's values, the rows of the subqueries' outer table
+EXT_STATEMENTS = (
+    "SELECT id, instr(s, 'b'), lpad(s, 8, '*'), concat_ws('-', s, k), md5(s), sha1(s), truncate(v / 7, 2)"
+    " FROM ext ORDER BY id",
+    "SELECT count(*), sum(v) FROM ext WHERE instr(s, 'b') = 2",
+    "SELECT id FROM ext WHERE lpad(s, 6, '*') = '****ab' ORDER BY id",
+    "SELECT id FROM ext WHERE concat_ws(',', s, k) = 'ab,3' ORDER BY id",
+    "SELECT id, s FROM ext WHERE md5(s) < '1' ORDER BY id",
+    "SELECT id, s FROM ext WHERE sha1(s) > 'f8' ORDER BY id",
+    "SELECT id FROM ext WHERE truncate(v / 7, 1) > 700.5 ORDER BY id",
+    "SELECT k, (SELECT max(v) FROM ext WHERE ext.v < ext_keys.k * 300) FROM ext_keys ORDER BY k",
+    "SELECT k FROM ext_keys WHERE EXISTS (SELECT 1 FROM ext WHERE ext.v > ext_keys.k * 400) ORDER BY k",
+    "SELECT k FROM ext_keys WHERE NOT EXISTS (SELECT 1 FROM ext WHERE ext.v > ext_keys.k * 400) ORDER BY k",
+    "SELECT id, ext_tri(v) FROM ext WHERE ext_tri(k) = 9 ORDER BY id",
+)
+
+
+def family_values(metrics) -> dict:
+    """The OBSERVE_FAMILIES as plain values: a counter's or gauge's value,
+    a histogram's observation count, a labelled family by label values."""
+    out = {}
+    for attr in OBSERVE_FAMILIES:
+        m = getattr(metrics, attr)
+        if hasattr(m, "_children"):
+            with m._lock:
+                kids = dict(m._children)
+            out[attr] = {",".join(k): c.value for k, c in kids.items()}
+        elif hasattr(m, "buckets"):
+            out[attr] = m.count
+        else:
+            out[attr] = m.value
+    return out
+
+
+def family_deltas(before: dict, after: dict) -> dict:
+    out = {}
+    for attr, v in after.items():
+        if isinstance(v, dict):
+            out[attr] = {k: n - before[attr].get(k, 0) for k, n in v.items() if n != before[attr].get(k, 0)}
+        elif attr == "PROGRAM_CACHE_ENTRIES":
+            # a gauge set by the cache that built last: its value when a
+            # build happened in the block
+            out[attr] = v if after["PROGRAM_COMPILES"] != before["PROGRAM_COMPILES"] else None
+        else:
+            out[attr] = v - before[attr]
+    return out
+
+
+def span_tree_lines(node, depth: int = 0) -> list:
+    attrs = json.dumps(node.get("attrs", {}), sort_keys=True, default=str)
+    out = [f"{'  ' * depth}{node['name']} {node['duration_ns'] / 1e6:.3f} ms {attrs}"]
+    for c in node.get("children", []):
+        out.extend(span_tree_lines(c, depth + 1))
+    return out
+
+
+def span_totals(node, out=None) -> dict:
+    """Span name -> [spans, their summed ms] over a JSON span tree."""
+    out = {} if out is None else out
+    acc = out.setdefault(node["name"], [0, 0.0])
+    acc[0] += 1
+    acc[1] += node["duration_ns"] / 1e6
+    for c in node.get("children", []):
+        span_totals(c, out)
+    return out
+
+
+def span_names(node) -> list:
+    out = [node["name"]]
+    for c in node.get("children", []):
+        out.extend(span_names(c))
+    return out
+
+
+def datum_rows(res) -> list:
+    return [[(d.kind.name, str(d.val)) for d in row] for row in res.rows]
+
+
+def ext_table_rows(seed: int = 19) -> list:
+    """EXT_ROWS seeded rows (id, k, v, s) of the extension-op table; s is
+    NULL in about one row of 16."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, EXT_KEYS, EXT_ROWS)
+    v = rng.integers(-5000, 5001, EXT_ROWS)
+    alphabet = np.array(list("abcxyz"))
+    lens = rng.integers(1, 13, EXT_ROWS)
+    null = rng.random(EXT_ROWS) < 1 / 16
+    words = ["".join(rng.choice(alphabet, n)) for n in lens]
+    return [(i, int(k[i]), int(v[i]), None if null[i] else words[i]) for i in range(EXT_ROWS)]
+
+
+def observe_phase(sess, want: dict, counters, card: str) -> None:
+    """Phase 19 (see the module docstring): `sess` is phase 11's session,
+    `want` numpy's answers over its tables as phase 13 left them."""
+    import hashlib
+
+    import tidb_tpu_torch.exec as EXP
+    import tidb_tpu_torch.exec.executor as EX
+    from tidb_tpu_torch.exec.builder import ProgramCache
+    from tidb_tpu_torch.sql import Session
+    from tidb_tpu_torch.sql.extension import EXTENSIONS
+    from tidb_tpu_torch.topsql import COLLECTOR
+    from tidb_tpu_torch.types import new_longlong
+    from tidb_tpu_torch.util import metrics
+    from tidb_tpu_torch.util.stmtlog import normalize_sql
+
+    t0 = time.perf_counter()
+    store = sess.store
+    s = Session(store=store, catalog=sess.catalog)
+    texts = {name: SESSION_STATEMENTS[name][0].format(d=SESSION_STATEMENTS[name][1]) for name in OBSERVE_STATEMENTS}
+    st0, fam0 = store.stats(), family_values(metrics)
+    oracle_calls = [0]
+    real_oracle = (EX.run_dag_reference, EXP.run_dag_reference)
+
+    def counted_oracle(*a, **k):
+        oracle_calls[0] += 1
+        return real_oracle[0](*a, **k)
+
+    EX.run_dag_reference = EXP.run_dag_reference = counted_oracle
+    fetches = Calls(ProgramCache, "get_info")  # one program fetched for each launch
+    COLLECTOR.reset()
+    try:
+        # (a) TRACE of each statement on the card
+        walls, digests = {}, {}
+        for name, need in OBSERVE_STATEMENTS.items():
+            traced = "TRACE FORMAT='json' " + texts[name]
+            store.clear_result_cache()
+            t1 = time.perf_counter()
+            res = counters.path(f"(a) TRACE {name}", lambda traced=traced: s.execute(traced), need=need, phase=19)
+            walls[name] = (time.perf_counter() - t1) * 1e3
+            tree = json.loads(res.values()[0][0])
+            for line in span_tree_lines(tree):
+                log(f"phase 19 (a) {name} | {line}")
+            log(f"phase 19 (a) {name} span totals (spans, summed ms): "
+                + ", ".join(f"{k} {n} {ms:.3f}" for k, (n, ms) in span_totals(tree).items()))
+            got = set(span_names(tree))
+            lacking = [alts for alts in (("cop.decode", "cop.batch_decode"), ("cop.execute", "cop.batch_execute"),
+                                         ("exec.program",)) if not got & set(alts)]
+            if lacking or "cop.oracle_fallback" in got:
+                raise SystemExit(f"phase 19 (a) TRACE {name}: spans lacking {lacking}, oracle fallback "
+                                 f"{'cop.oracle_fallback' in got}; spans {sorted(got)}")
+            digests[name] = normalize_sql(traced)[1]
+        # (b) Top SQL: the traced digests' device time is the launches'
+        COLLECTOR.rotate(force=True)
+        dev = {name: sum(w["device_ns"] for w in COLLECTOR.digest_view(dg)["windows"]) for name, dg in digests.items()}
+        launch_ns = COLLECTOR.launch_device_ns
+        if min(dev.values()) <= 0 or sum(dev.values()) != launch_ns:
+            raise SystemExit(f"phase 19 (b): device_ns {dev}, their sum {sum(dev.values())}, launch total {launch_ns}")
+        log(f"phase 19 (b) Top SQL device time: " + "; ".join(
+            f"TRACE {name} device_ns {dev[name]} ({dev[name] / 1e6:.3f} ms) of {walls[name]:.3f} ms wall"
+            for name in OBSERVE_STATEMENTS) + f"; sum == the collector's launch total {launch_ns} [{card}]")
+        # the answers, then (c): Q1 again, its regions from the result cache
+        for name, need in OBSERVE_STATEMENTS.items():
+            res = counters.path(f"(a) {name}", lambda name=name: s.execute(texts[name]), phase=19)
+            log(f"phase 19 (a) {name}: {session_answer(name, res, want[name], where='phase 19 (a)')} == numpy")
+        hits0 = (metrics.COP_CACHE_HITS.value, metrics.PROGRAM_CACHE_HITS.value)
+        res = counters.path("(c) q1 again", lambda: s.execute(texts["q1"]), phase=19)
+        session_answer("q1", res, want["q1"], where="phase 19 (c)")
+        moved = (metrics.COP_CACHE_HITS.value - hits0[0], metrics.PROGRAM_CACHE_HITS.value - hits0[1])
+        deltas = family_deltas(fam0, family_values(metrics))
+        st = store.stats()
+        if not any(moved) or deltas["PROGRAM_LAUNCHES"] != fetches.calls:
+            raise SystemExit(f"phase 19 (c): cache hits moved {moved}; PROGRAM_LAUNCHES moved "
+                             f"{deltas['PROGRAM_LAUNCHES']}, programs fetched {fetches.calls}")
+        if (oracle_calls[0] or deltas["COP_FALLBACKS"]
+                or any(st[k] != st0[k] for k in ("oracle_fallbacks", "other_errors", "batch_fallbacks"))):
+            raise SystemExit(f"phase 19 (e): an oracle answered (root {oracle_calls[0]}, store "
+                             f"{deltas['COP_FALLBACKS']}) or the store failed ({st})")
+        # conservation over the whole of (a)-(c)
+        COLLECTOR.rotate(force=True)
+        if COLLECTOR.totals["device_ns"] != COLLECTOR.launch_device_ns:
+            raise SystemExit(f"phase 19 (b): digests' device_ns {COLLECTOR.totals['device_ns']} != launch total "
+                             f"{COLLECTOR.launch_device_ns}")
+        log(f"phase 19 (c) q1 again: COP_CACHE_HITS +{moved[0]}, PROGRAM_CACHE_HITS +{moved[1]}; PROGRAM_LAUNCHES"
+            f" +{deltas['PROGRAM_LAUNCHES']} == {fetches.calls} programs fetched over (a)-(c); no oracle answer;"
+            f" the 13 families' deltas {json.dumps(deltas, sort_keys=True)}")
+    finally:
+        fetches.close()
+        EX.run_dag_reference, EXP.run_dag_reference = real_oracle
+
+    # (d) the row evaluator's extension ops: the card's session against a
+    # CPU session over the same rows
+    t1 = time.perf_counter()
+    rows = ext_table_rows()
+    cpu = Session(device="cpu")
+    for one in (s, cpu):
+        one.execute("CREATE TABLE ext (id BIGINT PRIMARY KEY, k BIGINT NOT NULL, v BIGINT, s VARCHAR(20))")
+        one.execute("CREATE TABLE ext_keys (k BIGINT PRIMARY KEY)")
+        one.execute("INSERT INTO ext VALUES " + ",".join(
+            f"({i},{k},{v},{'NULL' if w is None else repr(w)})" for i, k, v, w in rows))
+        one.execute("INSERT INTO ext_keys VALUES " + ",".join(f"({k})" for k in range(EXT_KEYS)))
+    calls = collections.Counter()
+    real_call = EXTENSIONS.call
+
+    def counted_call(name, datums):
+        calls["__apply_*" if name.startswith("__apply_") else name] += 1
+        return real_call(name, datums)
+
+    EXTENSIONS.register_function("ext_tri", lambda x: None if x is None else x * 3, new_longlong())
+    EXTENSIONS.call = counted_call
+    try:
+        for i, sql in enumerate(EXT_STATEMENTS):
+            t2 = time.perf_counter()
+            got = s.execute(sql)
+            t3 = time.perf_counter()
+            ref = cpu.execute(sql)
+            if got.columns != ref.columns or datum_rows(got) != datum_rows(ref):
+                raise SystemExit(f"phase 19 (d) {sql}: the card's {datum_rows(got)[:3]} != the CPU's "
+                                 f"{datum_rows(ref)[:3]}")
+            if i == 0:
+                want_hash = [[None if w is None else hashlib.md5(w.encode()).hexdigest(),
+                              None if w is None else hashlib.sha1(w.encode()).hexdigest()] for _i, _k, _v, w in rows]
+                if [r[4:6] for r in got.values()] != want_hash:
+                    raise SystemExit("phase 19 (d): MD5 / SHA1 differ from hashlib")
+            log(f"phase 19 (d) {len(got.rows)} rows == the CPU session ({(t3 - t2) * 1e3:.1f} ms on the card's"
+                f" session, {(time.perf_counter() - t3) * 1e3:.1f} ms on the CPU's): {sql}")
+    finally:
+        del EXTENSIONS.call
+        EXTENSIONS.unregister_function("ext_tri")
+    if not all(calls[op] for op in ("instr", "lpad", "concat_ws", "md5", "sha1", "truncate", "__apply_*", "ext_tri")):
+        raise SystemExit(f"phase 19 (d): extension calls {dict(calls)}")
+    log(f"phase 19 (d) {len(EXT_STATEMENTS)} statements over {EXT_ROWS} seeded rows on the card == a"
+        f" Session(device='cpu'), MD5 / SHA1 == hashlib; extension calls {dict(sorted(calls.items()))}"
+        f" ({time.perf_counter() - t1:.1f} s)")
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -5287,6 +5549,9 @@ def main() -> int:
     # phase 18: the program auditor's catalog on the card
     audit_phase(counters, smi)
     lap("18")
+    # phase 19: spans, counters and Top SQL device time; the extension ops
+    observe_phase(sess, want, counters, smi)
+    lap("19")
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; by phase {lap.secs}")

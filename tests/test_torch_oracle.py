@@ -90,13 +90,20 @@ def test_oracle_rows_match_the_jax_oracle(name):
 
 
 def test_an_extension_op_is_refused_by_name():
+    """An extension op with no registered function is refused by name; a
+    registered one (the host builtin md5) is evaluated."""
     from tidb_tpu_torch.expr import ir
     from tidb_tpu_torch.expr.eval_ref import RefEvaluator
 
-    ir.EXTENSION_OPS.add("md5")
+    arg = (ir.Const(TT.Datum.string("a"), TT.new_varchar(1)),)
+    ir.EXTENSION_OPS.add("x_unregistered")
     try:
-        e = ir.ScalarFunc("md5", (ir.Const(TT.Datum.string("a"), TT.new_varchar(1)),), TT.new_varchar(32))
-        with pytest.raises(NotImplementedError, match="'md5'"):
+        e = ir.ScalarFunc("x_unregistered", arg, TT.new_varchar(32))
+        with pytest.raises(NotImplementedError, match="'x_unregistered'"):
             RefEvaluator().eval(e, [])
     finally:
-        ir.EXTENSION_OPS.discard("md5")
+        ir.EXTENSION_OPS.discard("x_unregistered")
+    import tidb_tpu_torch.sql  # noqa: F401 — registers the host builtins
+
+    md5 = ir.ScalarFunc("md5", arg, TT.new_varchar(32))
+    assert RefEvaluator().eval(md5, []).val == "0cc175b9c0f1b6a831c399e269772661"

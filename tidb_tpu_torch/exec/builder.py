@@ -813,6 +813,8 @@ class ProgramCache:
         """(program, cache_hit, build_ns)."""
         import time as _t
 
+        from ..util import metrics, tracing
+
         if isinstance(capacities, int):
             capacities = (capacities,)
         capacities = tuple(capacities)
@@ -825,6 +827,9 @@ class ProgramCache:
             if prog is not None:
                 with self._stats_mu:
                     self.hits += 1
+                metrics.PROGRAM_CACHE_HITS.inc()
+                with tracing.span("exec.program", cache_hit=True):
+                    pass
                 return prog, True, 0
             with self._stats_mu:
                 ev = self._inflight.get(key)
@@ -835,13 +840,26 @@ class ProgramCache:
             # cache (if its build raised, the next waiter claims the key)
             ev.wait()
         try:
-            with self._stats_mu:
-                self.compiles += 1
-            t0 = _t.perf_counter_ns()
-            prog = build_program(dag, capacities, group_capacity, join_capacity, topn_full, small_groups,
-                                 unique_joins, radix_joins, vmap_batch, mesh_lanes, mesh_devices, mesh_kind)
-            build_ns = _t.perf_counter_ns() - t0
+            with tracing.span("exec.program", cache_hit=False) as sp:
+                with self._stats_mu:
+                    self.compiles += 1
+                metrics.PROGRAM_COMPILES.inc()
+                t0 = _t.perf_counter_ns()
+                prog = build_program(dag, capacities, group_capacity, join_capacity, topn_full, small_groups,
+                                     unique_joins, radix_joins, vmap_batch, mesh_lanes, mesh_devices, mesh_kind)
+                # the build of the program's closures; the kernels' nvcc
+                # build happens at their first launch (kernels.py) and is not
+                # counted here
+                build_ns = _t.perf_counter_ns() - t0
+                metrics.PROGRAM_COMPILE_DURATION.observe(build_ns / 1e9)
+                if sp is not None:
+                    sp.set("compile_ns", build_ns)
+                    if vmap_batch is not None:
+                        sp.set("batch_size", vmap_batch)
+                    if mesh_lanes is not None:
+                        sp.set("mesh_lanes", mesh_lanes)
             self._cache[key] = prog
+            metrics.PROGRAM_CACHE_ENTRIES.set(len(self._cache))
         finally:
             with self._stats_mu:
                 self._inflight.pop(key).set()

@@ -123,8 +123,14 @@ def _radix_attribution(prog, jc: int, radix_esc, info: dict):
     row count, which arrived in the same fetch as the overflow flags."""
     ri = prog.radix_info
     if ri:
+        from ..util import tracing
+
+        esc = int(radix_esc)
+        with tracing.span("exec.join_radix", partitions=ri.get("partitions"), rung=jc, escapes=esc,
+                          strategy=ri.get("strategy")):
+            pass
         info["radix"] = {"partitions": ri.get("partitions", 0), "rung": jc,
-                         "escapes": int(radix_esc), "strategy": ri.get("strategy")}
+                         "escapes": esc, "strategy": ri.get("strategy")}
 
 
 def drive_program_info(cache: ProgramCache, dag: DAGRequest, batches, group_capacity: int, max_retries: int = 3, join_capacity: int | None = None, small_groups: int | None = None):
@@ -156,6 +162,7 @@ def drive_program_info(cache: ProgramCache, dag: DAGRequest, batches, group_capa
         prog, hit, build_ns = cache.get_info(dag, caps, gc, jc, tf, smg, device=device, unique_joins=uj,
                                              radix_joins=rj)
         t0 = time.perf_counter_ns()
+        metrics.PROGRAM_LAUNCHES.inc()
         packed, valid, n, (g_ovf, j_ovf, t_ovf, g_need, j_need, radix_esc), ex_rows = prog.fn(*batches)
         g_ovf, j_ovf, t_ovf = bool(g_ovf), bool(j_ovf), bool(t_ovf)
         if not hit:
@@ -205,6 +212,7 @@ def drive_batched_program_info(cache: ProgramCache, dag: DAGRequest, stacked, au
     prog, hit, build_ns = cache.get_info(dag, caps, rung_for(group_capacity), jc, False, small_groups,
                                          device=stacked.device, vmap_batch=int(B))
     t0 = time.perf_counter_ns()
+    metrics.PROGRAM_LAUNCHES.inc()
     packed, valid, _n, (g_ovf, j_ovf, t_ovf, _g_need, _j_need, radix_esc), ex_rows = prog.fn(stacked, *aux_batches)
     # one fetch: the three flags, the escapes and ex_rows side by side
     head = torch.stack([g_ovf.to(torch.int64), j_ovf.to(torch.int64), t_ovf.to(torch.int64),
@@ -259,6 +267,7 @@ def drive_mesh_program_info(cache: ProgramCache, dag: DAGRequest, stacked, aux_b
                                          device=stacked.device, mesh_lanes=int(R), mesh_devices=mesh,
                                          mesh_kind=kind)
     t0 = time.perf_counter_ns()
+    metrics.PROGRAM_LAUNCHES.inc()
     merged, mvalid, ex_rows, ovf, radix_esc = prog.fn(stacked, *aux_batches)
     head = torch.stack([ovf.to(torch.int64).reshape(()), radix_esc.to(torch.int64).reshape(())])
     fetched = _np(torch.cat([head, ex_rows.to(torch.int64).reshape(-1)]))

@@ -23,6 +23,22 @@ from .ir import ColumnRef, Const, Expr, ScalarFunc
 _NUM_PREFIX = re.compile(r"^\s*[+-]?(\d+(\.\d*)?|\.\d+)([eE][+-]?\d+)?")
 
 
+# host builtins that consume their string arguments as BYTES (encoded in
+# the argument's column charset); everything else gets character semantics
+_BYTE_SEMANTICS_OPS = frozenset({
+    "md5", "sha", "sha1", "sha2", "password", "crc32", "compress",
+    "uncompress", "uncompressed_length", "to_base64", "aes_encrypt",
+    "aes_decrypt", "bit_length",
+})
+
+# character-unit builtins where a BINARY operand first converts into the
+# string operand's charset (then character semantics apply; ref:
+# builtin_string.go convertString on mixed binary/str args)
+_BIN_TO_CHAR_OPS = frozenset({
+    "instr", "position", "locate", "insert", "lpad", "rpad", "elt",
+    "find_in_set", "field", "concat_ws",
+})
+
 _CHARSET_CODEC = {"gbk": "gbk", "gb2312": "gb2312", "gb18030": "gb18030",
                   "latin1": "latin-1", "ascii": "ascii", "utf8": "utf-8",
                   "utf8mb4": "utf-8", "big5": "big5"}
@@ -179,11 +195,41 @@ class RefEvaluator:
         method = getattr(self, f"_op_{e.op}", None)
         if method is None:
             from ..expr.ir import EXTENSION_OPS
+            from ..sql.extension import EXTENSIONS
 
-            if e.op in EXTENSION_OPS:
-                # the extension registry lives in the SQL layer, which the
-                # port does not have
-                raise NotImplementedError(f"extension op {e.op!r}: the port has no SQL layer")
+            # an op name can outlive its registration (an expression built
+            # before unregister_function): it is refused like any unknown op
+            if e.op in EXTENSION_OPS and e.op in EXTENSIONS.functions:
+                ds = self._args(e, row)
+                if e.op in _BIN_TO_CHAR_OPS:
+                    csl = [(getattr(ae.ft, "charset", "") or "").lower()
+                           for ae in e.args]
+                    target = next((c for c in csl if c not in ("", "binary")),
+                                  "utf8mb4")
+                    codec = _CHARSET_CODEC.get(target, "utf-8")
+                    ds = [
+                        Datum.string(bytes(d.val).decode(codec, "replace"))
+                        if (not d.is_null()
+                            and isinstance(d.val, (bytes, bytearray)))
+                        else d
+                        for d in ds
+                    ]
+                if e.op in _BYTE_SEMANTICS_OPS:
+                    # byte-semantics parity: a gbk/latin1/binary argument
+                    # reaches these host builtins as its COLUMN CHARSET
+                    # bytes, not re-encoded utf-8 (ref:
+                    # builtin_encryption.go: args convert via arg charset).
+                    # Character-unit builtins (INSTR, ELT, LPAD...) keep
+                    # their str arguments — byte offsets would be wrong.
+                    ds = [
+                        Datum.bytes_(charset_bytes(d.val, ae.ft))
+                        if (not d.is_null() and isinstance(d.val, str)
+                            and (getattr(ae.ft, "charset", "") or "").lower()
+                            not in ("", "utf8", "utf8mb4"))
+                        else d
+                        for d, ae in zip(ds, e.args)
+                    ]
+                return EXTENSIONS.call(e.op, ds)
             raise NotImplementedError(f"no reference evaluator for {e.op!r}")
         return method(e, row)
 

@@ -8,8 +8,9 @@ pkg/planner/core/fragment.go + unistore/cophandler/mpp_exec.go).
                   shuffle-join program.
   dispatch.py     try_mpp_select, the MPP statement tier: the fragment
                   plan through the wire codec's fragment frames, the probe
-                  scan through the row store's select (the columnar
-                  replica is not ported), the exchange program; and
+                  scan from the columnar replica where it covers the
+                  snapshot, else through the row store's select, the
+                  exchange program; and
                   execute_exchange_plan, which stacks the scanned chunks,
                   slices the build tables over the shards and runs the
                   exchange program on the capacity ladder.

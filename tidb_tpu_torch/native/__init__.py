@@ -162,6 +162,9 @@ def decode_rows_columnar(values: list, handles: list, columns) -> "list | None":
         p(pool), pool_stride if n_str else 1,
     )
     if rc != 0:
+        from ..util import metrics
+
+        metrics.NATIVE_DECODE_FALLBACKS.inc()
         return None
     cols = []
     for ci, c in enumerate(columns):

@@ -55,11 +55,6 @@ the engine's commits and bulk ingests) so a resolved-ts candidate can prove
 quiescence; `columnar` (columnar/ ColumnarReplica) holds the changefeed-fed
 replicas, whose stable batches live on `device`; `schema_journal` and
 `propose_schema_change` carry a row-shape DDL through the feed.
-
-Left out, beside the reference: Top SQL's device attribution, and some
-metrics (the batched and mesh tiers' counts are in stats(), the mesh
-counters also in util/metrics.py; COP_REQUESTS, COP_ERRORS, COP_DURATION
-and REPLICA_READS are counted as in the reference).
 """
 
 from __future__ import annotations
@@ -204,28 +199,6 @@ def _apply_radix_attribution(summaries: list, walk, info) -> None:
             summaries[i].radix_rung = int(ri.get("rung") or 0)
             summaries[i].radix_escapes = int(ri.get("escapes") or 0)
             return
-
-
-def split_by_rows(total_ns: int, rows: list) -> list:
-    """Split one launch's elapsed time across its lanes in proportion to
-    each lane's decoded rows, exactly: the shares sum to `total_ns`
-    (largest-remainder rounding, deterministic); all-zero row counts split
-    equally. (A copy of tidb_tpu/topsql/reporter.py split_by_rows.)"""
-    n = len(rows)
-    if n == 0:
-        return []
-    w = [max(int(r), 0) for r in rows]
-    s = sum(w)
-    if s == 0:
-        w = [1] * n
-        s = n
-    shares = [total_ns * wi // s for wi in w]
-    rem = total_ns - sum(shares)
-    if rem:
-        order = sorted(range(n), key=lambda i: (-(total_ns * w[i] % s), i))
-        for j in range(rem):  # rem < n by floor arithmetic
-            shares[order[j]] += 1
-    return shares
 
 
 # the counts stats() returns: what served each request, how often the
@@ -663,6 +636,9 @@ class TPUStore:
         cols = native.decode_rows_columnar(values, handles, scan.columns)
         if cols is None:
             return None
+        from ..util import metrics
+
+        metrics.NATIVE_DECODES.inc()
         self._count("native_decodes")
         return Chunk(cols)
 
@@ -823,6 +799,11 @@ class TPUStore:
                 return None
             self._cop_cache.pop(key)  # refresh LRU position
             self._cop_cache[key] = ent
+        from ..topsql import record_cop_cache_hit
+        from ..util import metrics
+
+        metrics.COP_CACHE_HITS.inc()
+        record_cop_cache_hit()  # no device time: no launch ran
         self.pd.flow.record_read(req.region_id, flow[0], flow[1])
         summaries = [replace(s, cache_hit=True, time_compile_ns=0) for s in resp.exec_summaries]
         return CopResponse(chunk=resp.chunk, exec_summaries=summaries)
@@ -940,7 +921,8 @@ class TPUStore:
 
     def _coprocessor(self, req: CopRequest, group_capacity: int) -> CopResponse:
         from ..exec.dag import executor_walk
-        from ..util import failpoint
+        from ..topsql import record_device
+        from ..util import failpoint, metrics, tracing
 
         if failpoint.eval("cop-region-error"):
             # fault injection at the RPC seam (ref: unistore/rpc.go:265-271)
@@ -965,42 +947,55 @@ class TPUStore:
         last_range = None
         page = None
         in_bytes, in_rows = 0, 0
+        launch_ns = 0
         try:
-            if req.paging_size is not None:
-                from ..exec.dag import Aggregation as _Agg, Limit as _Limit, Sort as _Sort, TopN as _TopN
+            with tracing.span("cop.decode", region_id=req.region_id) as dsp:
+                if req.paging_size is not None:
+                    from ..exec.dag import Aggregation as _Agg, Limit as _Limit, Sort as _Sort, TopN as _TopN
 
-                if req.paging_size <= 0:
-                    return CopResponse(other_error=f"invalid paging_size {req.paging_size}")
-                if any(isinstance(e, (_Agg, _TopN, _Limit, _Sort)) for e in executor_walk(req.dag.executors)):
-                    # per-page agg/top-k/limit results are not mergeable by
-                    # concatenation — row-local DAGs only (scan/sel/proj/join)
-                    return CopResponse(other_error="paging requires a row-local DAG (no aggregation/TopN/Limit)")
-                page, last_range = self._paged_region_chunk(
-                    region, req.ranges, req.dag, req.start_ts, req.paging_size
-                )
-                in_bytes, in_rows = page.nbytes(), page.num_rows()
-                batch = to_device_batch(page, capacity=_pow2(max(page.num_rows(), 1)), device=self.device)
-                self._count("device_uploads")
-            else:
-                rc = self.region_chunk(region, req.ranges, req.dag, req.start_ts)
-                in_bytes, in_rows = rc.nbytes(), rc.num_rows()
-                batch = self.region_device_batch(region, req.ranges, req.dag, req.start_ts)
-            # read flow into the PD heartbeat (ref: TiKV flow observer ->
-            # pdpb.RegionHeartbeat bytes/keys_read)
-            self.pd.flow.record_read(region.region_id, in_bytes, in_rows)
+                    if req.paging_size <= 0:
+                        return CopResponse(other_error=f"invalid paging_size {req.paging_size}")
+                    if any(isinstance(e, (_Agg, _TopN, _Limit, _Sort)) for e in executor_walk(req.dag.executors)):
+                        # per-page agg/top-k/limit results are not mergeable by
+                        # concatenation — row-local DAGs only (scan/sel/proj/join)
+                        return CopResponse(other_error="paging requires a row-local DAG (no aggregation/TopN/Limit)")
+                    page, last_range = self._paged_region_chunk(
+                        region, req.ranges, req.dag, req.start_ts, req.paging_size
+                    )
+                    in_bytes, in_rows = page.nbytes(), page.num_rows()
+                    batch = to_device_batch(page, capacity=_pow2(max(page.num_rows(), 1)), device=self.device)
+                    self._count("device_uploads")
+                else:
+                    rc = self.region_chunk(region, req.ranges, req.dag, req.start_ts)
+                    in_bytes, in_rows = rc.nbytes(), rc.num_rows()
+                    batch = self.region_device_batch(region, req.ranges, req.dag, req.start_ts)
+                # read flow into the PD heartbeat (ref: TiKV flow observer ->
+                # pdpb.RegionHeartbeat bytes/keys_read)
+                self.pd.flow.record_read(region.region_id, in_bytes, in_rows)
+                if dsp is not None:
+                    dsp.set("bytes_to_device", in_bytes)
             batches = [batch] + [self._aux_batch(c) for c in req.aux_chunks]
-            chunk, ex_rows, info = drive_program_info(self.programs, req.dag, batches, group_capacity,
-                                                      small_groups=req.small_groups)
+            with tracing.span("cop.execute", region_id=req.region_id) as xsp:
+                t_launch = time.monotonic_ns()
+                chunk, ex_rows, info = drive_program_info(self.programs, req.dag, batches, group_capacity,
+                                                          small_groups=req.small_groups)
+                launch_ns = time.monotonic_ns() - t_launch
+                if xsp is not None:
+                    xsp.set("rows", chunk.num_rows())
+                    xsp.set("cache_hit", info["cache_hit"])
             self._count("device_served")
         except (OverflowRetryError, NotImplementedError):
             # degenerate fan-out OR an op the device program cannot express
             # (JSON, host-only funcs, ops not ported yet): fall back to the
             # row-at-a-time oracle (tidb_tpu/store/store.py:914)
+            metrics.COP_FALLBACKS.inc()
             self._count("oracle_fallbacks")
             try:
-                region_chunk = page if page is not None else self.region_chunk(region, req.ranges, req.dag, req.start_ts)
-                rows = run_dag_reference(req.dag, [region_chunk] + list(req.aux_chunks))
-                chunk = Chunk.from_rows(req.dag.output_fts(), rows)
+                with tracing.span("cop.oracle_fallback", region_id=req.region_id):
+                    region_chunk = page if page is not None else self.region_chunk(region, req.ranges, req.dag,
+                                                                                   req.start_ts)
+                    rows = run_dag_reference(req.dag, [region_chunk] + list(req.aux_chunks))
+                    chunk = Chunk.from_rows(req.dag.output_fts(), rows)
                 # fallback summaries: aligned with the device path's
                 # per-executor walk (build pipelines included); counts are
                 # the final row count
@@ -1015,6 +1010,9 @@ class TPUStore:
                 raise  # surface kernel bugs with a stack when armed
             return CopResponse(other_error=str(exc))
         elapsed = time.monotonic_ns() - t0
+        # Top SQL's device time is the program's run and the fetch of its
+        # outputs (the region decode is host work); an oracle answer adds 0
+        record_device(launch_ns, compile_ns=info["compile_ns"], bytes_to_device=in_bytes)
         # per-executor produced-row counts are real (counted inside the
         # program); the time is the whole program's, so every summary of
         # the task carries it, as it carries the compile/cache attribution;
@@ -1032,6 +1030,8 @@ class TPUStore:
             for i, r in enumerate(ex_rows)
         ]
         _apply_radix_attribution(summaries, walk, info)
+        for ex, r in zip(walk, ex_rows):
+            metrics.COP_EXECUTOR_ROWS.labels(type(ex).__name__.lower()).inc(r)
         resp = CopResponse(chunk=chunk, exec_summaries=summaries, last_range=last_range)
         self._cop_cache_put(req, resp, write_ver=ver, flow=(in_bytes, in_rows))
         return resp
@@ -1132,6 +1132,7 @@ class TPUStore:
         from ..exec.dag import executor_walk
         from ..exec.executor import drive_mesh_program_info
         from ..parallel.mesh import region_mesh
+        from ..topsql import record_device, split_by_rows
         from ..util import metrics, tracing
 
         req0 = entries[0][1]
@@ -1166,10 +1167,12 @@ class TPUStore:
         lanes = list(chunks) + [Chunk.empty(chunks[0].field_types()) for _ in range(R_pad - len(chunks))]
         try:
             with tracing.span("cop.mesh_execute", regions=len(entries), devices=D, kind=kind) as xsp:
+                t_launch = time.monotonic_ns()
                 stacked = to_stacked_device_batch(lanes, cap, device=mesh.lead)
                 merged, lane_counts, info = drive_mesh_program_info(self.programs, dag, stacked, aux_batches,
                                                                     group_capacity, kind, mesh,
                                                                     small_groups=req0.small_groups)
+                launch_ns = time.monotonic_ns() - t_launch
                 if xsp is not None:
                     xsp.set("cache_hit", info["cache_hit"])
         except Exception:  # noqa: BLE001 — degrade, never lose the group
@@ -1182,6 +1185,7 @@ class TPUStore:
         # one run served every lane: its time splits by each lane's decoded
         # rows, and the shares sum exactly to the run's
         shares = split_by_rows(elapsed, [ch.num_rows() for ch in chunks])
+        record_device(launch_ns, compile_ns=info["compile_ns"], bytes_to_device=sum(ch.nbytes() for ch in chunks))
         walk = executor_walk(dag.executors)
         out_fts = merged.field_types()
         metrics.MESH_COP_BATCHES.inc()
@@ -1225,6 +1229,8 @@ class TPUStore:
         ]
         if radix_info:
             _apply_radix_attribution(summaries, walk, radix_info)
+        for ex, r in zip(walk, counts):
+            metrics.COP_EXECUTOR_ROWS.labels(type(ex).__name__.lower()).inc(r)
         return summaries
 
     def _run_cop_batch(self, entries, responses, group_capacity: int) -> None:
@@ -1234,11 +1240,17 @@ class TPUStore:
         to its size. A bucket of one takes the plain path; a decode failure
         sends the whole group through the single-request path, which owns
         the capacity ladder and the oracle fallback."""
+        from ..util import tracing
+
         req0 = entries[0][1]
         ver = self._snapshot_write_ver()  # pre-read snapshot: gates the cache inserts
         try:
-            chunks = [self.region_chunk(region, req.ranges, req.dag, req.start_ts) for (_i, req, region) in entries]
-            aux_batches = [self._aux_batch(c) for c in req0.aux_chunks]
+            with tracing.span("cop.batch_decode", regions=len(entries)) as dsp:
+                chunks = [self.region_chunk(region, req.ranges, req.dag, req.start_ts)
+                          for (_i, req, region) in entries]
+                if dsp is not None:
+                    dsp.set("bytes_to_device", sum(ch.nbytes() for ch in chunks))
+                aux_batches = [self._aux_batch(c) for c in req0.aux_chunks]
         except Exception:  # noqa: BLE001 — degrade, never lose the batch
             self._count("batch_fallbacks")
             for i, req, _region in entries:
@@ -1262,18 +1274,24 @@ class TPUStore:
         """ONE execution of the region-batched program for a capacity
         bucket of decoded regions."""
         from ..exec.dag import executor_walk
+        from ..topsql import record_device, split_by_rows
+        from ..util import metrics, tracing
 
         req0 = entries[0][1]
         dag = req0.dag
         t0 = time.monotonic_ns()  # the bucket's own clock
         try:
-            # a power-of-two lane axis: vmap_batch is in the program key, so
-            # batches of every size share a few programs; empty lanes pad it
-            lanes = list(chunks)
-            lanes += [Chunk.empty(chunks[0].field_types()) for _ in range(_pow2(len(chunks)) - len(chunks))]
-            stacked = to_stacked_device_batch(lanes, cap, device=self.device)
-            per_region, info = drive_batched_program_info(self.programs, dag, stacked, aux_batches,
-                                                          group_capacity, small_groups=req0.small_groups)
+            with tracing.span("cop.batch_execute", regions=len(entries), capacity=cap) as xsp:
+                # a power-of-two lane axis: vmap_batch is in the program key,
+                # so batches of every size share a few programs; empty lanes
+                # pad it
+                lanes = list(chunks)
+                lanes += [Chunk.empty(chunks[0].field_types()) for _ in range(_pow2(len(chunks)) - len(chunks))]
+                stacked = to_stacked_device_batch(lanes, cap, device=self.device)
+                per_region, info = drive_batched_program_info(self.programs, dag, stacked, aux_batches,
+                                                              group_capacity, small_groups=req0.small_groups)
+                if xsp is not None:
+                    xsp.set("cache_hit", info["cache_hit"])
         except Exception:  # noqa: BLE001 — degrade, never lose the bucket
             # an op the device program does not express, non-ASCII CI data,
             # any failure of the batched program: the single path answers
@@ -1287,7 +1305,9 @@ class TPUStore:
         # time); a lane that falls out keeps its share, its retry is billed
         # on its own
         shares = split_by_rows(elapsed, [ch.num_rows() for ch in chunks])
+        record_device(elapsed, compile_ns=info["compile_ns"], bytes_to_device=sum(ch.nbytes() for ch in chunks))
         walk = executor_walk(dag.executors)
+        metrics.BATCH_COP_BATCHES.inc()
         self._count("batch_batches")
         served = 0
         for lane, ((i, req, region), ch, res) in enumerate(zip(entries, chunks, per_region)):
@@ -1297,6 +1317,7 @@ class TPUStore:
                 responses[i] = self.coprocessor(req, group_capacity)
                 continue
             chunk, ex_rows = res
+            metrics.BATCH_COP_REGIONS.inc()
             self._count("batch_regions")
             self._count("device_served")
             lane_info = info
@@ -1314,6 +1335,7 @@ class TPUStore:
             self._cop_cache_put(req, resp, write_ver=write_ver, flow=(ch.nbytes(), ch.num_rows()))
             responses[i] = resp
         if served > 1:
+            metrics.BATCH_COP_LAUNCHES_SAVED.inc(served - 1)
             self._count("batch_launches_saved", served - 1)
 
     def batch_coprocessor_bytes(self, req_bytes: bytes) -> bytes:

@@ -339,9 +339,27 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      registered user function, every answer equal between the two
      sessions, MD5 / SHA1 equal to hashlib, each kind of extension op
      (host builtin, __apply_*, user function) called.
+ 20. the session's memory-quota chain, over phase 11's store and catalog
+     as phase 19 leaves them: (a) TPC-H Q1 without ORDER BY and Q6, each
+     first run with no quota (the query tracker's peak: the pool tier's
+     peak) and through the low-memory fold called directly (the fold's
+     peak), then run under a tidb_mem_quota_query half way between the two
+     peaks: the store's caches are evicted, the statement degrades to the
+     low-memory fold, MEM_EVICTIONS and MEM_DEGRADED_QUERIES move by 1,
+     PROGRAM_LAUNCHES by at least the lineitem region count, the answer
+     equals numpy and the unconstrained run, and K1 launches 0 times in
+     the degraded Q1 (the fold's request drops the small-groups hint);
+     (b) tidb_mem_quota_query = 1: Q1 raises SQLError 1105 "memory quota
+     exceeded..."; with the quota reset Q1 equals numpy; (c) on a fresh
+     session, tidb_mem_quota_session one byte below Q1's fold peak: the
+     session tracker's spill action evicts, the statement degrades, the
+     fold breaches too and it raises the session's quota error, as the
+     JAX package does (tests/test_torch_memquota.py); with the quota reset
+     Q1 decodes every region anew (NATIVE_DECODES > 0), equals numpy and
+     launches K1; both quotas are put back to their defaults.
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6-19); the last line is {"ok": true,
+the main paths of phases 4 and 6-20); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
@@ -4785,6 +4803,147 @@ def observe_phase(sess, want: dict, counters, card: str) -> None:
     log(f"phase 19: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the session's memory-quota chain
+# ---------------------------------------------------------------------------
+
+MEMQ_STATEMENTS = ("q1", "q6")  # SESSION_STATEMENTS degraded in (a): Q1 (6 groups a region) and a scalar
+
+
+class RootCalls:
+    """Records the session's execute_root calls (the plan's DAG, ranges
+    and keyword arguments, the query tracker among them) while it is
+    open; `real` is the unwrapped execute_root."""
+
+    def __init__(self):
+        import tidb_tpu_torch.sql.session as SM
+
+        self.module, self.real, self.calls = SM, SM.execute_root, []
+
+        def recording(store, dag, ranges, **kw):
+            self.calls.append((dag, ranges, kw))
+            return self.real(store, dag, ranges, **kw)
+
+        SM.execute_root = recording
+
+    def close(self):
+        self.module.execute_root = self.real
+
+
+def memquota_phase(sess, want: dict, counters, card: str) -> None:
+    """Phase 20 (see the module docstring): `sess` is phase 11's session,
+    `want` numpy's answers over its tables as phase 13 left them."""
+    from tidb_tpu_torch.distsql import full_table_ranges
+    from tidb_tpu_torch.sql import Session, SQLError
+    from tidb_tpu_torch.sql.sysvar import SysVarStore
+    from tidb_tpu_torch.util import MemTracker, metrics
+
+    t0 = time.perf_counter()
+    store = sess.store
+    texts = {name: SESSION_STATEMENTS[name][0].format(d=SESSION_STATEMENTS[name][1]) for name in SESSION_STATEMENTS}
+    rng = full_table_ranges(sess.catalog.table("lineitem").table_id)[0]
+    regions = len(store.cluster.regions_in_range(rng.start, rng.end))
+    defaults = SysVarStore()
+    q_default, s_default = (defaults.get_int(v) for v in ("tidb_mem_quota_query", "tidb_mem_quota_session"))
+
+    def moved(fn):
+        """fn()'s outcome and the deltas of the chain's families."""
+        fams = (metrics.MEM_EVICTIONS, metrics.MEM_DEGRADED_QUERIES, metrics.PROGRAM_LAUNCHES, metrics.NATIVE_DECODES)
+        before = [f.value for f in fams]
+        out = fn()
+        return out, [int(f.value - b) for f, b in zip(fams, before)]
+
+    def peaks(s, name, stage="(a)"):
+        """The query tracker's peak with no quota (the pool tier) and the
+        low-memory fold's peak over the same plan, the fold's result
+        consumed as the session consumes it; and the unconstrained rows."""
+        calls = RootCalls()
+        try:
+            res = counters.path(f"{stage} {name}, no quota", lambda: s.execute(texts[name]), phase=20)
+        finally:
+            calls.close()
+        session_answer(name, res, want[name], where=f"phase 20 {stage} {name}, no quota")
+        dag, ranges, kw = calls.calls[-1]
+        pool = kw["tracker"].peak
+        fold = MemTracker("fold")
+        out = calls.real(store, dag, ranges, **{**kw, "tracker": fold, "low_memory": True})
+        fold.consume(out.nbytes())
+        return pool, fold.peak, datum_rows(res)
+
+    # s for (a) and (b); s2, a fresh session (its session tracker at 0), for (c)
+    s, s2 = (Session(store=store, catalog=sess.catalog) for _ in range(2))
+    try:
+        # (a) the degrade: a query quota between the fold's peak and the pool tier's
+        for name in MEMQ_STATEMENTS:
+            pool, fold, rows = peaks(s, name)
+            if fold >= pool:
+                if name == "q1":
+                    raise SystemExit(f"phase 20 (a) q1: the fold's peak {fold} B is not below the pool's {pool} B")
+                log(f"phase 20 (a) {name}: the fold's peak {fold} B is not below the pool tier's {pool} B; left out")
+                continue
+            quota = (fold + pool) // 2
+            s.execute(f"SET tidb_mem_quota_query = {quota}")
+            res, (ev, dg, pl, _nd) = moved(lambda name=name: counters.path(
+                f"(a) {name} degraded", lambda: s.execute(texts[name]), phase=20))
+            s.execute(f"SET tidb_mem_quota_query = {q_default}")
+            k1 = counters.last["dense_agg"]
+            session_answer(name, res, want[name], where=f"phase 20 (a) {name} degraded")
+            if datum_rows(res) != rows:
+                raise SystemExit(f"phase 20 (a) {name}: the degraded rows differ from the unconstrained run's")
+            if (ev, dg) != (1, 1) or pl < regions or (name == "q1" and k1 != 0):
+                raise SystemExit(f"phase 20 (a) {name} degraded: MEM_EVICTIONS +{ev}, MEM_DEGRADED_QUERIES +{dg}"
+                                 f" (1 each expected), PROGRAM_LAUNCHES +{pl} for {regions} regions, K1 {k1}")
+            log(f"phase 20 (a) {name}: the pool tier's peak {pool} B, the fold's {fold} B, quota {quota} B;"
+                f" degraded: MEM_EVICTIONS +{ev}, MEM_DEGRADED_QUERIES +{dg}, PROGRAM_LAUNCHES +{pl} over"
+                f" {regions} lineitem regions, K1 launches {k1}; == numpy and the unconstrained run")
+        # (b) the quota error, then the statement with the quota reset
+        s.execute("SET tidb_mem_quota_query = 1")
+        try:
+            got = s.execute(texts["q1"])
+            raise SystemExit(f"phase 20 (b): q1 under a 1-byte quota answered {len(got.rows)} rows")
+        except SQLError as exc:
+            err = exc
+        s.execute(f"SET tidb_mem_quota_query = {q_default}")
+        if err.code != 1105 or not str(err).startswith("memory quota exceeded"):
+            raise SystemExit(f"phase 20 (b): SQLError {err.code} {err}")
+        res = counters.path("(b) q1, the quota reset", lambda: s.execute(texts["q1"]), phase=20)
+        session_answer("q1", res, want["q1"], where="phase 20 (b)")
+        log(f"phase 20 (b) tidb_mem_quota_query = 1: SQLError {err.code} {err}; reset: q1 == numpy")
+        # (c) the session tracker's spill: the session quota one byte below
+        # the fold's peak, so the degraded statement breaches it too
+        pool, fold, _rows = peaks(s2, "q1", "(c)")
+        s2.execute(f"SET tidb_mem_quota_session = {fold - 1}")
+
+        def breach():
+            try:
+                s2.execute(texts["q1"])
+            except SQLError as exc:
+                return exc
+            return None
+
+        err, (ev, dg, _pl, _nd) = moved(breach)
+        s2.execute(f"SET tidb_mem_quota_session = {s_default}")
+        if (err is None or err.code != 1105 or not str(err).startswith("memory quota exceeded: tracker 'session'")
+                or ev < 1 or dg != 1):
+            raise SystemExit(f"phase 20 (c): {err!r}, MEM_EVICTIONS +{ev}, MEM_DEGRADED_QUERIES +{dg}")
+        st0 = store.stats()
+        res, (_ev, _dg, pl, nd) = moved(lambda: counters.path("(c) q1 after the spill", lambda: s2.execute(texts["q1"]),
+                                                              need=("dense_agg",), phase=20))
+        session_answer("q1", res, want["q1"], where="phase 20 (c)")
+        decodes = store.stats()["chunk_decodes"] - st0["chunk_decodes"]
+        if nd < 1:
+            raise SystemExit(f"phase 20 (c): q1 after the spill moved NATIVE_DECODES by {nd} ({decodes} decodes)")
+        log(f"phase 20 (c) tidb_mem_quota_session = {fold - 1} (q1's pool peak {pool} B, fold peak {fold} B): "
+            f"SQLError {err.code} {err}; MEM_EVICTIONS +{ev}, MEM_DEGRADED_QUERIES +{dg}; reset: q1 == numpy,"
+            f" NATIVE_DECODES +{nd} ({decodes} region decodes), PROGRAM_LAUNCHES +{pl}, K1 launches"
+            f" {counters.last['dense_agg']} over {regions} lineitem regions")
+    finally:
+        for one in (s, s2):
+            one.execute(f"SET tidb_mem_quota_query = {q_default}")
+            one.execute(f"SET tidb_mem_quota_session = {s_default}")
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -5552,6 +5711,9 @@ def main() -> int:
     # phase 19: spans, counters and Top SQL device time; the extension ops
     observe_phase(sess, want, counters, smi)
     lap("19")
+    # phase 20: the session's memory-quota chain
+    memquota_phase(sess, want, counters, smi)
+    lap("20")
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; by phase {lap.secs}")

@@ -150,11 +150,19 @@ def _result(r):
     return norm(r)
 
 
-def outcome(fn):
+def attempt(fn):
+    """fn()'s outcome (("ok", the value as plain values) or ("err", the
+    exception's class name, MySQL code and message)), its value and its
+    exception."""
     try:
-        return ("ok", _result(fn()))
+        val = fn()
+        return ("ok", _result(val)), val, None
     except Exception as exc:  # noqa: BLE001 — the outcome itself is compared
-        return ("err", type(exc).__name__, getattr(exc, "code", None), str(exc))
+        return ("err", type(exc).__name__, getattr(exc, "code", None), str(exc)), None, exc
+
+
+def outcome(fn):
+    return attempt(fn)[0]
 
 
 def _apply(pkg, sessions: dict, step):
@@ -294,3 +302,61 @@ def run_both(scenario, stores: dict | None = None, err: bool = False):
     assert (j_out[0] == "err") == err, f"the JAX package gave {j_out}"
     assert same(j_out, p_out), f"\n  jax  {j_out}\n  port {p_out}"
     return j_out
+
+
+# ------------------------------------------------------- sessions as one
+# The reference SQL test files ported as parity tests (test_torch_ddl.py,
+# test_torch_views.py, ...) drive a `Both`: each statement runs on the JAX
+# session and on the port's, the two outcomes are held equal as run_case
+# holds them, and the port's Result (or exception) comes back, so the
+# reference's own assertions then read the port's values.
+
+
+class Both:
+    def __init__(self, sessions: dict | None = None, on: str = "s"):
+        self.pair = sessions or session_pair()
+        self.on = on
+
+    @property
+    def jax(self):
+        return self.pair["jax"][self.on]
+
+    @property
+    def port(self):
+        return self.pair["port"][self.on]
+
+    def session(self, on: str) -> "Both":
+        """The pair's other named sessions (session_pair(names=...))."""
+        return Both(self.pair, on)
+
+    def execute(self, sql: str):
+        """Run `sql` on both sessions; equal outcomes and plan-cache
+        status; the port's Result, or the port's exception re-raised when
+        both failed alike."""
+        j_out = outcome(lambda: self.jax.execute(sql))
+        j_pc = norm(getattr(self.jax, "_last_plan_cache", None))
+        p_out, res, exc = attempt(lambda: self.port.execute(sql))
+        p_pc = norm(getattr(self.port, "_last_plan_cache", None))
+        assert same(j_out, p_out), f"{sql}:\n  jax  {j_out}\n  port {p_out}"
+        assert same(j_pc, p_pc), f"{sql}: plan cache jax {j_pc} port {p_pc}"
+        if exc is not None:
+            raise exc
+        return res
+
+    def call(self, fn):
+        """fn(session, pkg) on both packages; equal (plain) values; the
+        port's value."""
+        j, p = fn(self.jax, JAX), fn(self.port, PORT)
+        assert same(norm(j), norm(p)), f"\n  jax  {norm(j)}\n  port {norm(p)}"
+        return p
+
+
+def both_pkgs(fn):
+    """fn(pkg) on both packages (unit-level cases): equal plain values or
+    equal failures; the port's value, or the port's exception."""
+    j_out = outcome(lambda: fn(JAX))
+    p_out, p_val, exc = attempt(lambda: fn(PORT))
+    assert same(j_out, p_out), f"\n  jax  {j_out}\n  port {p_out}"
+    if exc is not None:
+        raise exc
+    return p_val

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import bisect
 import threading
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 KEY_MAX = b"\xff" * 32
 
@@ -295,6 +295,16 @@ class Cluster:
                 if r.region_id == rid:
                     return r
             return None
+
+    def region_snapshot(self, rid: int) -> Region | None:
+        """A copy of the region as it stands, taken under the lock. A
+        split or merge mutates its Region in place, so a request that
+        checked its epoch against the live object could then read the
+        bounds of a later epoch (half its range). The store checks and
+        reads one snapshot instead."""
+        with self._mu:
+            r = self.region_by_id(rid)
+            return None if r is None else replace(r)
 
     def split(self, key: bytes) -> Region:
         """Split the region containing `key` at `key`; bumps both epochs

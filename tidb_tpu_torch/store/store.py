@@ -346,15 +346,25 @@ class TPUStore:
             return False
         return not _fault_matches(failpoint.peek("store/unreachable"), store_id)
 
-    def evict_caches(self) -> None:
+    def evict_caches(self) -> int:
         """Drop the decoded-chunk, device-batch, build-side and result
-        caches (the next request of each region decodes and uploads anew)."""
+        caches (the next request of each region decodes and uploads anew)
+        — the first action of the memory-quota chain (ref: pkg/util/memory
+        ActionOnExceed: free reclaimable buffers before killing the query).
+        Returns an approximate count of the bytes freed, as the reference
+        does: the host bytes of the decoded chunks and of the cached
+        responses' chunks. The device batches and the build sides are
+        dropped but not counted (0 when every cache was already empty)."""
         with self._cop_lock:
+            freed = sum(ch.nbytes() for ch, _ts in list(self._chunk_cache.values()))
+            freed += sum(resp.chunk.nbytes() for resp, _ts, _flow in self._cop_cache.values()
+                         if resp.chunk is not None)
             self._cop_cache.clear()
-        self._chunk_cache.clear()
-        self._batch_cache.clear()
+            self._chunk_cache.clear()
+            self._batch_cache.clear()
         with self._aux_lock:
             self._aux_batch_cache.clear()
+        return freed
 
     def clear_result_cache(self) -> None:
         """Drop the cached responses only (decoded chunks and device batches
@@ -929,7 +939,7 @@ class TPUStore:
             return CopResponse(region_error="injected epoch_not_match")
         if failpoint.eval("cop-other-error"):
             return CopResponse(other_error="injected coprocessor error")
-        region = self.cluster.region_by_id(req.region_id)
+        region = self.cluster.region_snapshot(req.region_id)
         if region is None:
             return CopResponse(region_error=f"region {req.region_id} not found")
         err = self._region_fault(req.region_id, req.peer_store, req.replica_read, req.start_ts)
@@ -1061,7 +1071,7 @@ class TPUStore:
                     or failpoint.is_armed("cop-other-error")):
                 responses[i] = self.coprocessor(req, group_capacity)
                 continue
-            region = self.cluster.region_by_id(req.region_id)
+            region = self.cluster.region_snapshot(req.region_id)
             if region is None:
                 metrics.COP_REQUESTS.inc()
                 metrics.COP_ERRORS.inc()

@@ -357,9 +357,32 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      JAX package does (tests/test_torch_memquota.py); with the quota reset
      Q1 decodes every region anew (NATIVE_DECODES > 0), equals numpy and
      launches K1; both quotas are put back to their defaults.
+ 21. the sort-free small-G GROUP BY route (ops/aggregate.py
+     _group_aggregate_dense), the JAX package's route for every hinted
+     GROUP BY its one-pass kernel refuses: (a) phase 4's Q1 at 2^22 rows
+     with the hints 64 and 512, Q1 with MIN, MAX and VAR_POP added at
+     hint 16, and Q1's merge half over 2^22 seeded partial-state rows at
+     hint 16, each through drive_program_info once (the route run once,
+     K1 not launched), equal to numpy and, at DENSE_CPU_ROWS rows, to the
+     same program on CPU tensors (integers exact, DOUBLE within 1e-12);
+     each timed (median of 10 runs ending in a synchronize) beside the
+     sort route and K1, and max_memory_allocated for hint 512 beside the
+     sort route's; (b) 2^22 int64 values in +-2^45 in six groups with
+     torch.set_float32_matmul_precision("high"): the route's count and
+     sum equal numpy (the 8-bit limb product), the setting put back;
+     (c) phase 11's session in the batch tier, lineitem's NDVs loaded by
+     LOAD STATS: GROUP BY l_returnflag, l_linestatus with MIN / MAX / AVG
+     (hint 16), l_discount x the two flags (hint 128) and l_quantity x
+     the two flags (hint 512), each equal to numpy over the tables as
+     phase 13 left them, the planner's hint as stated, the route run at
+     least twice (the batch programs and the root merge), K1 not
+     launched; (c4) a 2,048-row table with 40 keys, ANALYZE (hint 64),
+     100 new keys: the GROUP BY equals numpy through the overflow and
+     the retry without the hint, and its PROGRAM_LAUNCHES exceed those
+     of the same statement after a new ANALYZE (hint 256).
 
 The line before the last is the kernels' JSON record (launches summed over
-the main paths of phases 4 and 6-20); the last line is {"ok": true,
+the main paths of phases 4 and 6-21); the last line is {"ok": true,
 "device": {...}}. Without CUDA the script exits 2 and prints no result.
 """
 
@@ -4944,6 +4967,350 @@ def memquota_phase(sess, want: dict, counters, card: str) -> None:
     log(f"phase 20: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the sort-free small-G GROUP BY route
+# ---------------------------------------------------------------------------
+
+DENSE_REPS = 10                  # timed runs of a case (median)
+DENSE_CPU_ROWS = 1 << 19         # rows of the CPU runs each case of (a) is held to (a card run at as many)
+DENSE_MERGE_ROWS = N_ROWS        # (a)'s merge half: partial-state rows
+DENSE_LIMB_ROWS = N_ROWS         # (b): int64 values in +-2^45
+DENSE_KEYS = 40                  # (c4): the analyzed table's keys, then as many again and 60 more
+DENSE_SQL = {
+    # name: (text over phase 11's lineitem, the planner's hint after ANALYZE)
+    "c1": ("SELECT l_returnflag, l_linestatus, min(l_quantity), max(l_extendedprice), avg(l_discount), count(*)"
+           " FROM lineitem GROUP BY l_returnflag, l_linestatus", 16),
+    "c2": ("SELECT l_discount, l_returnflag, l_linestatus, count(*), sum(l_extendedprice) FROM lineitem"
+           " GROUP BY l_discount, l_returnflag, l_linestatus", 128),
+    "c3": ("SELECT l_quantity, l_returnflag, l_linestatus, count(*), sum(l_discount) FROM lineitem"
+           " GROUP BY l_quantity, l_returnflag, l_linestatus", 512),
+}
+
+
+def dense_runs():
+    """The dense route's run counter (ops/aggregate.py)."""
+    from tidb_tpu_torch.ops import aggregate
+
+    return aggregate._group_aggregate_dense.launches
+
+
+def chunk_values(chunk) -> list:
+    """A decoded chunk's rows as Python values (strings decoded, decimals
+    as strings, DOUBLEs as floats)."""
+    return [[None if d.is_null() else (float(d.val) if isinstance(d.val, float) else str(d.val)) for d in row]
+            for row in chunk.rows()]
+
+
+def same_values(a: list, b: list, rtol: float = 1e-12) -> bool:
+    """Row lists equal: exact, except floats within `rtol` relative."""
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a, b):
+        for x, y in zip(ra, rb):
+            if isinstance(x, float) and isinstance(y, float):
+                if abs(x - y) > rtol * max(abs(x), abs(y)):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+def numpy_groups(keys: list, vals: dict) -> dict:
+    """{key tuple: {name: (reduction, exact int or float)}} of `vals`
+    ({name: (array, "sum" | "min" | "max" | "var")}) grouped by `keys`."""
+    import numpy as np
+
+    kk = np.stack([np.asarray(k, np.int64) for k in keys], 1)
+    uniq, inv = np.unique(kk, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    out = {}
+    for g, key in enumerate(map(tuple, uniq.tolist())):
+        m = inv == g
+        row = {"count": int(m.sum())}
+        for name, (arr, how) in vals.items():
+            x = arr[m]
+            row[name] = {"sum": lambda: int(x.astype(np.int64).sum()), "min": lambda: int(x.min()),
+                         "max": lambda: int(x.max()), "var": lambda: float(np.var(x / 100.0))}[how]()
+        out[key] = row
+    return out
+
+
+def decoded_q1m(chunk):
+    """Q1 with min(qty), max(disc) and var_pop(price) appended: decoded_q1's
+    six integers, then the min, the max and the variance."""
+    out = {}
+    for j in range(chunk.num_rows()):
+        key = (chunk.columns[9].get_bytes(j).decode(), chunk.columns[10].get_bytes(j).decode())
+        out[key] = [int(chunk.columns[i].data[j]) for i in range(8)] + [float(chunk.columns[8].data[j])]
+    return out
+
+
+def dense_phase(sess, t, q1_dag, q1_fts, q1_batch, E, X, T, W, counters, card: str) -> None:
+    """Phase 21 (see the module docstring): `sess` is phase 11's session as
+    phase 20 leaves it, `t` phase 4's tables, q1_* phase 4's Q1 at
+    N_ROWS rows on the card."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from tidb_tpu_torch.distsql.root import split_dag
+    from tidb_tpu_torch.exec.builder import ProgramCache
+    from tidb_tpu_torch.exec.executor import drive_program_info
+    from tidb_tpu_torch.expr.compile import CompVal
+    from tidb_tpu_torch.interop import device_batch_from_numpy
+    from tidb_tpu_torch.ops.aggregate import group_aggregate
+    from tidb_tpu_torch.parser import parse_one
+    from tidb_tpu_torch.sql import plan_select
+    from tidb_tpu_torch.util import metrics
+
+    t0 = time.perf_counter()
+    dev = q1_batch.row_valid.device
+    n = int(q1_batch.n_rows)
+    # (a) the program: Q1 with hints K1 refuses, Q1 with MIN, MAX and
+    # VAR_POP at a hint K1 takes for Q1 alone, and Q1's merge half
+    agg = next(e for e in q1_dag.executors if isinstance(e, E.Aggregation))
+    C = [X.col(i, ft) for i, ft in enumerate(q1_fts)]
+    extra = (X.AggDesc("min", (C[2],)), X.AggDesc("max", (C[4],)), X.AggDesc("var_pop", (C[3],)))
+    q1m_dag = E.DAGRequest(tuple(replace(e, aggs=e.aggs + extra) if e is agg else e for e in q1_dag.executors),
+                           output_offsets=tuple(range(len(agg.aggs) + len(extra) + 2)))
+    root_dag = split_dag(q1_dag).root_dag
+    root_fts = [c.ft for c in root_dag.executors[0].columns]
+    rng = np.random.default_rng(21)
+    m_rows = DENSE_MERGE_ROWS
+    m_rflag, m_lstat = rng.integers(0, 3, m_rows).astype(np.uint8), rng.integers(0, 2, m_rows).astype(np.uint8)
+    m_cnt = [rng.integers(1, 1000, m_rows).astype(np.int64) for _ in range(3)]     # avg qty, avg disc, count(*)
+    m_sum = [rng.integers(-(1 << 35), 1 << 35, m_rows).astype(np.int64) for _ in range(5)]  # qty price dp aq ad
+    m_cols = [W.fixed_col(m_sum[0]), W.fixed_col(m_sum[1]), W.fixed_col(m_sum[2]), W.fixed_col(m_cnt[0]),
+              W.fixed_col(m_sum[3]), W.fixed_col(m_cnt[1]), W.fixed_col(m_sum[4]), W.fixed_col(m_cnt[2]),
+              W.str_col(m_rflag, b"ANR"), W.str_col(m_lstat, b"OF")]
+    merge_batch = device_batch_from_numpy(m_cols, np.ones(m_rows, bool), m_rows, root_fts, device=dev)
+    q1_cols = W.q1_columns(t)
+    shift = agg.aggs[3].ft.decimal - agg.aggs[3].partial_fts()[1].decimal
+
+    def want_q1m():
+        m = t["shipdate"] <= T.MyTime.parse("1998-09-02", 0).packed
+        g = numpy_groups([t["rflag"][m], t["lstat"][m]], {"min_qty": (t["qty"][m], "min"),
+                                                           "max_disc": (t["disc"][m], "max"),
+                                                           "var_price": (t["price"][m], "var")})
+        return {("ANR"[k[0]], "OF"[k[1]]): v for k, v in g.items()}
+
+    def want_merge():
+        keys = m_rflag.astype(np.int64) * 2 + m_lstat
+        g = numpy_groups([keys], {f"s{i}": (x, "sum") for i, x in enumerate(m_sum)}
+                         | {f"c{i}": (x, "sum") for i, x in enumerate(m_cnt)})
+        return {("ANR"[k // 2], "OF"[k % 2]): [v["s0"], v["s1"], v["s2"], round_div(v["s3"] * 10 ** shift, v["c0"]),
+                                               round_div(v["s4"] * 10 ** shift, v["c1"]), v["c2"]]
+                for (k,), v in g.items()}
+
+    want = {"q1": numpy_q1(t, T, shift), "q1m": want_q1m(), "merge": want_merge()}
+
+    def check(case, chunk):
+        if case.startswith("Q1 +"):
+            got = decoded_q1m(chunk)
+            base = {k: v[:6] for k, v in got.items()}
+            if base != want["q1"]:
+                raise SystemExit(f"phase 21 (a) {case}: Q1's columns differ from numpy")
+            for k, v in got.items():
+                w = want["q1m"][k]
+                if v[6] != w["min_qty"] or v[7] != w["max_disc"] or abs(v[8] - w["var_price"]) > 1e-9 * w["var_price"]:
+                    raise SystemExit(f"phase 21 (a) {case} {k}: min / max / var_pop {v[6:]} != numpy {w}")
+            return
+        got = decoded_q1(chunk)
+        if got != want["merge" if "merge" in case else "q1"]:
+            raise SystemExit(f"phase 21 (a) {case}: {got} != numpy")
+
+    cases = {
+        "Q1, hint 64": (q1_dag, q1_batch, 64, q1_cols, q1_fts),
+        "Q1, hint 512": (q1_dag, q1_batch, 512, q1_cols, q1_fts),
+        "Q1 + MIN, MAX, VAR_POP, hint 16": (q1m_dag, q1_batch, 16, q1_cols, q1_fts),
+        "Q1's merge half, hint 16": (root_dag, merge_batch, 16, m_cols, root_fts),
+    }
+    cache = ProgramCache()
+    for case, (dag, batch, hint, cols, fts) in cases.items():
+        d0 = dense_runs()
+        chunk, _counts, _info = counters.path(f"(a) {case}", lambda: drive_program_info(cache, dag, batch, 64,
+                                                                                       small_groups=hint), phase=21)
+        if dense_runs() - d0 != 1 or counters.last["dense_agg"]:
+            raise SystemExit(f"phase 21 (a) {case}: dense route runs {dense_runs() - d0}, K1 {counters.last}")
+        check(case, chunk)
+        rows = min(DENSE_CPU_ROWS, int(batch.n_rows))
+        cut = [(d[:rows], nl[:rows], ln[:rows] if ln is not None else None) for d, nl, ln in cols]
+        on_card = chunk if rows == int(batch.n_rows) else drive_program_info(
+            cache, dag, device_batch_from_numpy(cut, np.ones(rows, bool), rows, fts, device=dev), 64,
+            small_groups=hint)[0]
+        t_cpu = time.perf_counter()
+        on_cpu = drive_program_info(ProgramCache(), dag, device_batch_from_numpy(cut, np.ones(rows, bool), rows, fts,
+                                                                                   device="cpu"), 64,
+                                    small_groups=hint)[0]
+        t_cpu = time.perf_counter() - t_cpu
+        if not same_values(chunk_values(on_card), chunk_values(on_cpu)):
+            raise SystemExit(f"phase 21 (a) {case}: the card's rows differ from the CPU's at {rows} rows")
+        log(f"phase 21 (a) {case} at {int(batch.n_rows)} rows: {chunk.num_rows()} groups == numpy; == the port on "
+            f"CPU tensors at {rows} rows (integers exact, DOUBLE within 1e-12; {t_cpu:.1f} s on the host)")
+    # times: the dense route beside the sort route (no hint) and K1
+    timed = {
+        "Q1": (q1_dag, q1_batch, (("sort route", None), ("K1, hint 16", 16), ("dense, hint 64", 64),
+                                  ("dense, hint 512", 512))),
+        "Q1 + MIN, MAX, VAR_POP": (q1m_dag, q1_batch, (("sort route", None), ("dense, hint 16", 16))),
+        "Q1's merge half": (root_dag, merge_batch, (("sort route", None), ("dense, hint 16", 16))),
+    }
+    for name, (dag, batch, routes) in timed.items():
+        parts = []
+        for route, hint in routes:
+            ms = host_median_ms(lambda: drive_program_info(cache, dag, batch, 64, small_groups=hint), reps=DENSE_REPS)
+            parts.append(f"{route} {ms:.3f} ms")
+        log(f"phase 21 (a) {name} at {int(batch.n_rows)} rows, median of {DENSE_REPS} runs ending in a "
+            f"synchronize: {', '.join(parts)} [{card}]")
+    for hint in (None, 512):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        drive_program_info(cache, q1_dag, q1_batch, 64, small_groups=hint)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"phase 21 (a) Q1 at {n} rows, {'hint 512' if hint else 'sort route'}: max_memory_allocated "
+            f"{peak} B above the {base} B held before the run")
+    counters.zero()
+
+    t_a = time.perf_counter() - t0
+
+    # (b) the limb product with TF32 allowed for float32 matmuls
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        lb = DENSE_LIMB_ROWS
+        g = rng.integers(0, 6, lb)
+        v = rng.integers(-(1 << 45), 1 << 45, lb)
+        LL = T.new_longlong()
+        z = torch.zeros(lb, dtype=torch.bool, device=dev)
+        gv = CompVal(torch.from_numpy(g).to(dev), z, LL)
+        vv = CompVal(torch.from_numpy(v).to(dev), z, LL)
+        d0 = dense_runs()
+        res = group_aggregate([gv], [(X.AggDesc("count", ()), []), (X.AggDesc("sum", (X.col(1, LL),)), [vv])],
+                              torch.ones(lb, dtype=torch.bool, device=dev), 64, small_groups=64)
+        ng = int(res.n_groups)
+        rep = res.group_rep[:ng].cpu().numpy()
+        got = {int(g[r]): (int(res.states[0][0][0][i]), int(res.states[1][0][0][i])) for i, r in enumerate(rep)}
+        exact = {k: (c, s) for k, (s, c) in _sum_by(g, v).items()}
+        if bool(res.overflow) or got != exact or dense_runs() - d0 != 1:
+            raise SystemExit(f"phase 21 (b): the limb sums {got} != numpy {exact} (overflow {bool(res.overflow)})")
+        # the trap the 8-bit limbs avoid: 16-bit limbs through the same
+        # float32 product under TF32
+        oh = (torch.from_numpy(g[:65536]).to(dev)[:, None] == torch.arange(6, device=dev)).to(torch.float32)
+        limb16 = ((torch.from_numpy(v[:65536]).to(dev) >> 16) & 0xFFFF).to(torch.float32)
+        off = (torch.mm(oh.T, limb16[:, None]).to(torch.int64)[:, 0].cpu().numpy()
+               - np.array([int(((v[:65536] >> 16) & 0xFFFF)[g[:65536] == k].sum()) for k in range(6)]))
+        log(f"phase 21 (b) {lb} int64 values in +-2^45, six groups, float32 matmul precision 'high': count and "
+            f"sum == numpy through the 8-bit limb product; a 16-bit limb product over 65536 rows under the same "
+            f"setting is off by up to {int(np.abs(off).max())} [{card}]")
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+    t_b = time.perf_counter() - t0 - t_a
+
+    # (c) SQL over lineitem, its column NDVs loaded: the batch tier and the
+    # root merge. ANALYZE decodes every row of the table in Python on the
+    # host, minutes at STORE_ROWS, so the NDVs come through LOAD STATS, as
+    # phase 11's do, and ANALYZE runs in (c4) over a small table
+    s = sess
+    lt = W.store_lineitem(STORE_ROWS, STORE_ORDERS)
+    lt["qty"] = lt["qty"] + np.where(lt["okey"] < CONTROL_UPDATE_KEYS, 100, 0)  # phase 13's UPDATE
+    rf, ls = lt["rflag"].astype(np.int64), lt["lstat"].astype(np.int64)
+    stats_json = os.path.abspath(os.path.join(SESSION_DIR, "lineitem_dense_stats.json"))
+    with open(stats_json, "w") as f:
+        json.dump({"table_name": "lineitem", "count": STORE_ROWS, "columns": {
+            col: {"null_count": 0, "histogram": {"ndv": int(len(np.unique(lt[k])))}}
+            for col, k in (("l_returnflag", "rflag"), ("l_linestatus", "lstat"), ("l_discount", "disc"),
+                           ("l_quantity", "qty"))}}, f)
+    s.execute(f"LOAD STATS '{stats_json}'")
+    want_sql = {
+        "c1": numpy_groups([rf, ls], {"min_qty": (lt["qty"], "min"), "max_price": (lt["price"], "max"),
+                                      "sum_disc": (lt["disc"], "sum")}),
+        "c2": numpy_groups([lt["disc"], rf, ls], {"sum_price": (lt["price"], "sum")}),
+        "c3": numpy_groups([lt["qty"], rf, ls], {"sum_disc": (lt["disc"], "sum")}),
+    }
+    flag, stat = {"A": 0, "N": 1, "R": 2}, {"O": 0, "F": 1}
+
+    def sql_rows(name, res):
+        out = {}
+        for r in res.rows:
+            if name == "c1":
+                key = (flag[r[0].val], stat[r[1].val])
+                out[key] = (_scaled(r[2], 2), _scaled(r[3], 2), _scaled(r[4], 6), int(r[5].val))
+            else:
+                key = (_scaled(r[0], 2), flag[r[1].val], stat[r[2].val])
+                out[key] = (int(r[3].val), _scaled(r[4], 2))
+        return out
+
+    def sql_want(name):
+        w = want_sql[name]
+        if name == "c1":
+            return {k: (v["min_qty"], v["max_price"], round_div(v["sum_disc"] * 10 ** 4, v["count"]), v["count"])
+                    for k, v in w.items()}
+        return {k: (v["count"], v["sum_price" if name == "c2" else "sum_disc"]) for k, v in w.items()}
+
+    batch_cop = s.sysvars.get("tidb_allow_batch_cop")
+    s.execute("SET tidb_allow_batch_cop = 1")
+    try:
+        for name, (text, hint) in DENSE_SQL.items():
+            got_hint = plan_select(parse_one(text), s.catalog).small_groups
+            if got_hint != hint:
+                raise SystemExit(f"phase 21 (c) {name}: the planner's hint {got_hint}, not {hint}")
+            b0, d0, p0 = metrics.BATCH_COP_BATCHES.value, dense_runs(), metrics.PROGRAM_LAUNCHES.value
+            r0 = metrics.BATCH_COP_REGIONS.value
+            res = counters.path(f"(c) {name}", lambda text=text: s.execute(text), phase=21)
+            batches, dense = metrics.BATCH_COP_BATCHES.value - b0, dense_runs() - d0
+            launches, lanes = metrics.PROGRAM_LAUNCHES.value - p0, metrics.BATCH_COP_REGIONS.value - r0
+            if sql_rows(name, res) != sql_want(name):
+                raise SystemExit(f"phase 21 (c) {name}: the rows differ from numpy")
+            if batches < 1 or dense < 2 or counters.last["dense_agg"]:
+                raise SystemExit(f"phase 21 (c) {name}: BATCH_COP_BATCHES +{batches}, dense route runs {dense}"
+                                 f" (the batch program and the root merge expected), K1 {counters.last['dense_agg']}")
+            log(f"phase 21 (c) {name}, hint {hint}: {len(res.rows)} groups == numpy; BATCH_COP_BATCHES +{batches},"
+                f" dense route runs {dense} (batch programs, lanes retried on the single path, the root merge),"
+                f" PROGRAM_LAUNCHES +{launches}, lanes served batched +{lanes} (a lane whose flag fired is"
+                f" retried alone), K1 launches 0")
+    finally:
+        s.execute(f"SET tidb_allow_batch_cop = '{batch_cop}'")
+    # (c4) stale statistics: keys added after ANALYZE overflow the hint
+    s.execute("CREATE TABLE dense_keys (k BIGINT NOT NULL, v BIGINT NOT NULL)")
+    s.execute("INSERT INTO dense_keys VALUES " + ", ".join(f"({i % DENSE_KEYS}, {i})" for i in range(2048)))
+    ta = time.perf_counter()
+    s.execute("ANALYZE TABLE dense_keys")
+    ta = time.perf_counter() - ta
+    text = "SELECT k, count(*), sum(v) FROM dense_keys GROUP BY k"
+    hint = plan_select(parse_one(text), s.catalog).small_groups
+    s.execute("INSERT INTO dense_keys VALUES " + ", ".join(f"({DENSE_KEYS + i}, {i})" for i in range(100)))
+    kv = [(i % DENSE_KEYS, i) for i in range(2048)] + [(DENSE_KEYS + i, i) for i in range(100)]
+    want_kv = {k: (c, s_) for k, (s_, c) in _sum_by(np.array([k for k, _ in kv]), np.array([v for _, v in kv])).items()}
+
+    def run_kv(stmt, cnt_at):
+        p0, d0 = metrics.PROGRAM_LAUNCHES.value, dense_runs()
+        res = counters.path(f"(c4) {stmt}", lambda: s.execute(stmt), phase=21)
+        got = {int(r[0].val): (int(r[cnt_at].val), int(str(r[3 - cnt_at].val))) for r in res.rows}  # sum: DECIMAL
+        if got != want_kv:
+            raise SystemExit(f"phase 21 (c4) {stmt}: {len(got)} groups differ from numpy's {len(want_kv)}")
+        return metrics.PROGRAM_LAUNCHES.value - p0, dense_runs() - d0
+
+    stale, stale_dense = run_kv(text, 1)
+    s.execute("ANALYZE TABLE dense_keys")
+    # another text, so that no cached plan keeps the stale hint
+    text2 = "SELECT k, sum(v), count(*) FROM dense_keys GROUP BY k"
+    fresh_hint = plan_select(parse_one(text2), s.catalog).small_groups
+    fresh, fresh_dense = run_kv(text2, 2)
+    if hint != 64 or fresh_hint != 256 or stale <= fresh or stale_dense < 1:
+        raise SystemExit(f"phase 21 (c4): hints {hint} then {fresh_hint}, PROGRAM_LAUNCHES +{stale} stale and "
+                         f"+{fresh} re-analyzed, dense route runs {stale_dense}")
+    log(f"phase 21 (c4) {DENSE_KEYS} keys analyzed (2048 rows, {ta:.2f} s), hint {hint}; then {len(want_kv)} keys:"
+        f" == numpy; PROGRAM_LAUNCHES "
+        f"+{stale} (the overflow and its retry, dense route runs {stale_dense}) against +{fresh} after a new ANALYZE "
+        f"(hint {fresh_hint}, dense route runs {fresh_dense})")
+    s.execute("DROP TABLE dense_keys")
+    t_all = time.perf_counter() - t0
+    log(f"phase 21: {t_all:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_all - t_a - t_b:.1f}) [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -5714,6 +6081,9 @@ def main() -> int:
     # phase 20: the session's memory-quota chain
     memquota_phase(sess, want, counters, smi)
     lap("20")
+    # phase 21: the sort-free small-G GROUP BY route
+    dense_phase(sess, t, q1_dag, q1_fts, q1_batch, E, X, T, W, counters, smi)
+    lap("21")
     main_launches = dict(counters.main)
     counters.zero()
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; by phase {lap.secs}")

@@ -355,7 +355,8 @@ class TestSurfaces:
         assert 'tidb_tpu_cdc_resolved_ts_lag{changefeed="f"}' in text
         from scrape_check import validate
 
-        assert validate(text) == []
+        errors = validate(text)
+        assert errors == [], errors
 
 
 # ----------------------------------------------------------- failpoints

@@ -176,15 +176,20 @@ def test_negative_values_exact():
 
 def test_ineligible_takes_the_sort_path():
     """min/max and DOUBLE args are not the kernel's: the port's hinted call
-    takes the sort path and equals JAX's sort path."""
+    takes the sort-free small-G route, as JAX's hinted call does, and
+    equals it (DOUBLE sums within 1e-12 relative). The name is the one the
+    test had while the port sent these calls to its sort path."""
+    from tidb_tpu_torch.ops import aggregate as TA
+
     fts, ch = make_data(n=120, k_card=4)
     spec = [("min", 1, 1), ("avg", 2, 2)]
-    before = K1.dense_agg.launches
-    engaged, _ref, got, sort_ref = _run(fts, ch, [0, 1, 2], [0], spec, 8, sort_path=True)
+    before, dense_before = K1.dense_agg.launches, TA._group_aggregate_dense.launches
+    engaged, ref, got, _ = _run(fts, ch, [0, 1, 2], [0], spec, 8)
     assert not engaged
-    assert not bool(sort_ref.overflow)
-    _assert_same(sort_ref, got, float_rtol=1e-12)
+    assert not bool(ref.overflow)
+    _assert_same(ref, got, float_rtol=1e-12)
     assert K1.dense_agg.launches == before
+    assert TA._group_aggregate_dense.launches == dense_before + 1
 
 
 def test_plain_version_contract_on_a_forced_collision():

@@ -259,6 +259,25 @@ class TestMetricsExposition:
         for family in FAMILY_NAMES:
             assert f"# TYPE {family} " in text, family
 
+    def test_an_unobserved_histogram_vec_passes_the_scrape_check(self):
+        """A histogram family with no label set yet (the distsql task
+        latency before a process's first select) has no samples: the
+        registry leaves it out until its first observation, so the
+        exposition passes whatever ran before in the process."""
+        from tidb_tpu_torch.util.metrics import Registry
+
+        reg = Registry()
+        reg.counter_vec("t_requests_total", "requests", labelnames=("kind",))
+        hist = reg.histogram_vec("t_task_seconds", "task latency", labelnames=("scan",))
+        text = reg.dump()
+        assert validate(text) == [], validate(text)
+        assert "t_task_seconds" not in text and "# TYPE t_requests_total counter" in text
+        hist.labels("table").observe(0.02)
+        text = reg.dump()
+        assert validate(text) == [], validate(text)
+        assert "# TYPE t_task_seconds histogram" in text
+        assert 't_task_seconds_bucket{scan="table",le="+Inf"} 1' in text
+
     def test_labeled_vec_exposition(self):
         from tidb_tpu_torch.util import metrics
 

@@ -491,8 +491,8 @@ class TestProgAudit:
         assert report.raw == [], "\n".join(f.message for f in report.raw)
         assert report.findings == [] and report.stale == []
         # single, vmap and mesh variants of the nine shapes, three kernel
-        # programs, the exchange join
-        assert len(report.programs) == 9 * 2 + 4 + 3 * 2 + 1
+        # programs and the dense route's, the exchange join
+        assert len(report.programs) == 9 * 2 + 4 + 4 * 2 + 1
         assert all(p.ops > 0 for p in report.programs)
 
     def test_kernel_programs_dispatch_the_custom_ops_as_themselves(self, report):

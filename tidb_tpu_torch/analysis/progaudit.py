@@ -11,9 +11,10 @@ hashagg, streamagg, topn, hashjoin, radix_join, partial_scalar_agg,
 partial_hashagg, columnar_scan), each single and region-batched
 (`vmap_batch=3`) and, where `distsql/planner.py mesh_merge_kind` gives a
 kind, as a mesh program over two shards of the device; the MPP exchange
-join; and three programs that reach the hand-written kernels (TPC-H Q1
-with the small-G hint: K1; Q3's packed chain: K2 and K3; the join bench at
-the smallest probe capacity the K4 gate takes) — goes through six checks:
+join; three programs that reach the hand-written kernels (TPC-H Q1 with
+the small-G hint: K1; Q3's packed chain: K2 and K3; the join bench at the
+smallest probe capacity the K4 gate takes); and Q1 with the hint 64, which
+K1 refuses, on the sort-free small-G route — goes through six checks:
 
   * **f64-leak** — an op's output is float64 or complex128 although no
     input of the program carries either: the integer program picked up a
@@ -76,9 +77,10 @@ _RADIX_CAPACITY = 512  # probe capacity satisfying the radix ratio gate
 _GROUP_CAPACITY = 16
 _MESH_SHARDS = 2
 _CONST_LIMIT_BYTES = 4096
-# the kernel entries: Q1 at 1024 rows with the small-G hint 16 (K1), Q3's
-# packed chain at 1024 lineitem rows (K2, K3), the 1:32 join bench at 4096
-# probe rows, the smallest whose radix plan passes the K4 gate
+# the kernel entries: Q1 at 1024 rows with the small-G hint 16 (K1) and 64
+# (the sort-free small-G route), Q3's packed chain at 1024 lineitem rows
+# (K2, K3), the 1:32 join bench at 4096 probe rows, the smallest whose
+# radix plan passes the K4 gate
 # (ops/join_probe.py probe_kernel_eligible: probe_cap % 1024 == 0)
 _K1_ROWS = 1024
 _K23_ROWS = 1024
@@ -508,7 +510,8 @@ def _catalog_entries(device) -> list:
 
 
 def kernel_entries(device) -> list:
-    """The programs that reach K1-K4, from tidb_tpu_torch/workloads.py."""
+    """The programs that reach K1-K4 and the sort-free small-G route (Q1
+    with a hint K1 refuses), from tidb_tpu_torch/workloads.py."""
     import numpy as np
 
     from .. import exec as E
@@ -527,6 +530,8 @@ def kernel_entries(device) -> list:
     return [
         Entry("q1_small_g", q1, batches([W.q1_columns(W.make_tables(_K1_ROWS))], [q1_fts]),
               {"small_groups": 16}, _K_GROUP_CAPACITY),
+        Entry("q1_dense_route", q1, batches([W.q1_columns(W.make_tables(_K1_ROWS))], [q1_fts]),
+              {"small_groups": 64}, _K_GROUP_CAPACITY),
         Entry("q3_chain", q3, batches(W.q3_columns(_K23_ROWS), q3_fts), {}, _K_GROUP_CAPACITY),
         Entry("radix_join_kernel", jb, batches(W.join_bench_columns(_K4_ROWS, 32, False), jb_fts), {},
               _K_GROUP_CAPACITY),

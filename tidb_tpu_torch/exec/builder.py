@@ -43,6 +43,7 @@ from ..expr.compile import CompVal, ExprCompiler, normalize_device_column
 from ..ops import apply_selection, group_aggregate, scalar_aggregate
 from ..ops.aggregate import GatherState, finalize_agg
 from ..ops.join import hash_join
+from ..ops.seg import dense_lanes
 from ..ops.topn import sort_all, topn
 from ..ops.window import window_cols
 from ..types import FieldType
@@ -606,11 +607,13 @@ def _region_batched(program):
     batch on its leading region axis; the build-side batches are closed
     over, so every region shares them (in_dims None, the broadcast
     operand every region task of a join carries). Every output gains the
-    region axis."""
+    region axis. The lanes share the dense GROUP BY route's block budget
+    (ops/seg.py dense_lanes)."""
 
     def fn(stacked, *aux):
         leaves, spec = _flatten_batch(stacked)
-        return torch.func.vmap(lambda *lv: program(_unflatten_batch(lv, spec), *aux))(*leaves)
+        with dense_lanes(stacked.row_valid.shape[0]):
+            return torch.func.vmap(lambda *lv: program(_unflatten_batch(lv, spec), *aux))(*leaves)
 
     return fn
 

@@ -1,6 +1,6 @@
 from .ir import Expr, ColumnRef, Const, ScalarFunc, col, const, func, lit
 from .agg import AggDesc, AggMode
-from .compile import ExprCompiler, CompVal
+from .compile import compile_exprs, CompiledExpr, ExprCompiler, CompVal
 
 __all__ = [
     "Expr",
@@ -13,6 +13,8 @@ __all__ = [
     "lit",
     "AggDesc",
     "AggMode",
+    "compile_exprs",
+    "CompiledExpr",
     "ExprCompiler",
     "CompVal",
 ]

@@ -40,10 +40,12 @@ closures run under torch.func.vmap for the batch tier.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
 from ..chunk.device import DeviceColumn, pack_string_words
+from ..runtime import resolve_device
 from ..types import FieldType, MyDecimal, MyTime, TypeCode
 from ..types.mytime import _UNIT_SECONDS, add_months, civil_from_days, days_from_civil
 from .eval_ref import _ascii_upper
@@ -1132,3 +1134,24 @@ class ExprCompiler:
         if not isinstance(unit, Const):
             raise NotImplementedError("EXTRACT with a non-constant unit")
         return self._eval(ScalarFunc(str(unit.datum.val).lower(), (e.args[1],), e.ft))
+
+
+@dataclass
+class CompiledExpr:
+    """A projection over an input schema: fn(cols) -> [(value, null)]."""
+
+    fn: Callable
+    out_fts: list[FieldType]
+
+
+def compile_exprs(input_fts: list[FieldType], exprs: list[Expr], device="cuda") -> CompiledExpr:
+    """`exprs` as one eager projection over device columns of `input_fts`
+    (the JAX package jit-compiles the same closure). `device` is where
+    constants are built when there are no input columns; "cuda" raises
+    without a card."""
+    comp = ExprCompiler(input_fts, device=resolve_device(device))
+
+    def run(cols):
+        return [(v.value, v.null) for v in comp.run(exprs, cols)]
+
+    return CompiledExpr(run, [e.ft for e in exprs])

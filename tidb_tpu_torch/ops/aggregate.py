@@ -8,12 +8,15 @@ Collisions (different keys, equal 62-bit hash) are caught by a neighbour
 compare on an independently salted second hash and surface as the
 overflow flag; the retry driver's larger capacity re-salts both hashes.
 
-With a small-G hint (<= 32) and an eligible aggregate mix, the one-pass
-CUDA kernel (ops/dense_agg.py) runs instead; its overflow flag sends
-drive_program_info back here. Input already sorted on the group keys
-takes the stream kernel. The JAX package's XLA dense kernel is not
-ported: its inputs take the sort path, which gives the same rows in the
-same first-encounter order.
+Routes, in the JAX package's order (tidb_tpu/ops/aggregate.py
+group_aggregate): input already sorted on the group keys takes the stream
+kernel; a small-G hint <= 32 with an eligible aggregate mix takes the
+one-pass CUDA kernel (ops/dense_agg.py); any other hinted GROUP BY whose
+aggregates allow it takes the sort-free small-G route
+(_group_aggregate_dense: a distinct-hash table from a row sample, each
+row's slot from it, every reduction in original row order); the rest
+takes the sort path. The two small-G routes raise the overflow flag when
+the hint was wrong, and drive_program_info retries without the hint.
 
 Two phases mirror the reference's partial/final split:
   raw phase    (Complete/Partial1)  raw rows in
@@ -38,11 +41,15 @@ import torch
 
 from ..expr.agg import AggDesc
 from ..expr.compile import CompVal, _round_div, _scale, div_exact
+from ..kernels import count_launch
 from .keys import segments_from_sorted, sort_key_arrays
 from .seg import (
     I64_MAX,
+    DenseCtx,
+    DenseSumBatch,
     SegCtx,
     SumBatch,
+    dense_first_match,
     group_hash,
     hash_words,
     make_segctx,
@@ -51,6 +58,7 @@ from .seg import (
     seg_max,
     seg_min,
     seg_sum,
+    sorted_positions,
 )
 
 I64_MIN_ = -0x8000000000000000
@@ -362,6 +370,122 @@ def _is_distinct_special(desc, arg_vals, merge) -> bool:
     return False
 
 
+def _dense_eligible(aggs, merge) -> bool:
+    """The sort-free small-G route handles everything except DISTINCT,
+    string-valued min / max (their word-matrix machinery assumes the
+    sorted layout) and group_concat."""
+    for desc, avs in aggs:
+        if desc.distinct:
+            return False
+        if desc.name in ("min", "max") and avs and avs[-1].value.dim() == 2:
+            return False
+        if desc.name == "group_concat":
+            return False
+    return True
+
+
+# rows of the strided sample the distinct-hash table is read from
+_DENSE_SAMPLE = 4096
+
+
+def _dense_table(hp: torch.Tensor, g_cap: int):
+    """The distinct-hash table of the JAX package's dense route: the
+    g_cap smallest distinct valid hashes of a strided sample of hp, in
+    ascending order, I64_MAX-padded; n_groups its valid entries; overflow
+    when the sample holds more than g_cap distinct hashes. The JAX package
+    extracts the minima with g_cap serial passes; one sort of the sample
+    gives the same table with no loop and no host sync."""
+    n = hp.shape[0]
+    stride = max(n // _DENSE_SAMPLE, 1)
+    s = torch.sort(hp[::stride]).values
+    first = torch.cat([torch.ones_like(s[:1], dtype=torch.bool), s[1:] != s[:-1]]) & (s != I64_MAX)
+    rank = torch.cumsum(first.to(torch.int64), 0) - 1
+    n_distinct = first.sum()
+    slot = torch.where(first & (rank < g_cap), rank, g_cap)
+    # slot g_cap collects every row not placed; it is cut off
+    tbl = s.new_full((g_cap + 1,), I64_MAX).scatter(0, slot, s)[:g_cap]
+    return tbl, torch.clamp(n_distinct, max=g_cap).to(torch.int32), n_distinct > g_cap
+
+
+def _group_aggregate_dense(group_bys, aggs, row_valid, g_cap: int, merge: bool):
+    """Sort-free small-G aggregation (seg.DenseCtx), the JAX package's
+    XLA route for hinted GROUP BYs that its one-pass kernel refuses.
+
+    The distinct-hash table comes from a strided SAMPLE (_dense_table);
+    two single-pass checks then make the result exact: every valid row's
+    hash must be IN the table (a group the sample missed) and the
+    secondary hash must be constant within a slot (a true hash
+    collision). Either failure, or more distinct hashes than g_cap, raises
+    the overflow flag and the driver retries without the hint — the
+    contract a wrong NDV hint always had. Invalid rows fall in slot
+    n_groups; the states' masks keep them out.
+    `_group_aggregate_dense.launches` counts its runs (one per program
+    run; a region-batched run counts once)."""
+    count_launch(_group_aggregate_dense)
+    n = row_valid.shape[0]
+    dev = row_valid.device
+    keys: list[torch.Tensor] = []
+    for g in group_bys:
+        keys.extend(sort_key_arrays(g))
+    hp = group_hash(keys, row_valid, salt=g_cap)
+    hv = hash_words(keys, g_cap + 0x9E3779B9)
+
+    tbl, n_groups, overflow = _dense_table(hp, g_cap)
+    # each row's slot: the table entries below its hash (invalid rows,
+    # hp == I64_MAX, count every valid entry)
+    gid = sorted_positions(tbl, hp).to(torch.int64)
+    nseg = g_cap + 1
+    ctx = DenseCtx(gid=gid, nseg=nseg)
+
+    # exactness check 1: every valid row's hash is a table entry (a group
+    # the sample missed would otherwise merge into a neighbour slot or
+    # vanish in the invalid slot)
+    padded = torch.cat([tbl, tbl.new_full((1,), I64_MAX)])
+    overflow = overflow | torch.any(row_valid & (padded[gid] != hp))
+    # exactness check 2: the secondary hash is constant within each slot
+    # (different keys, equal primary hash)
+    mx = seg_max(ctx, torch.where(row_valid, hv, I64_MIN_))
+    mn = seg_min(ctx, torch.where(row_valid, hv, I64_MAX))
+    overflow = overflow | torch.any((mx != mn) & (mx != I64_MIN_))
+
+    group_rep_full, _ = dense_first_match(ctx, row_valid)
+    group_rep = group_rep_full[:g_cap]
+    group_valid = torch.arange(g_cap, dtype=torch.int32, device=dev) < n_groups
+
+    # every integer per-group sum rides one matmul: record pass -> resolve
+    # -> replay (seg.DenseSumBatch)
+    fn = _agg_states_merge if merge else _agg_states_raw
+    ctx.sums = DenseSumBatch(ctx)
+    for desc, arg_vals in aggs:
+        if not _needs_gather_state(desc, arg_vals):
+            fn(desc, arg_vals, row_valid, ctx)
+    ctx.sums.resolve()
+
+    perm = torch.arange(n, dtype=torch.int32, device=dev)
+    states = []
+    for desc, arg_vals in aggs:
+        if _needs_gather_state(desc, arg_vals):
+            st = _gather_state_sorted(desc, arg_vals, row_valid, ctx, perm, n, merge)
+            states.append(GatherState(st.idx[:g_cap], st.has[:g_cap] & group_valid))
+            continue
+        st = fn(desc, arg_vals, row_valid, ctx)
+        states.append([(v[:g_cap], nl[:g_cap] | ~group_valid) for v, nl in st])
+    ctx.sums = None
+
+    order = torch.argsort(torch.where(group_valid, group_rep, n), stable=True)
+    group_rep = group_rep[order]
+    out_states: list = []
+    for st in states:
+        if isinstance(st, GatherState):
+            out_states.append(GatherState(st.idx[order], st.has[order]))
+        else:
+            out_states.append([(v[order], nl[order]) for v, nl in st])
+    return GroupAggResult(group_rep, group_valid, n_groups, overflow, out_states)
+
+
+_group_aggregate_dense.launches = 0
+
+
 def _group_aggregate_stream(group_bys, aggs, row_valid, group_capacity: int, merge: bool, compact: bool = True):
     """StreamAgg over input ALREADY sorted on the group keys: group
     boundaries are neighbour compares over the key words — no sort, no
@@ -441,8 +565,9 @@ def group_aggregate(
     aggs: list of (AggDesc, [arg CompVals]). Returns GroupAggResult; groups
     in first-encounter order.
     small_groups: statistics-driven hint (planner NDV product) — with a
-    hint <= 32 and an eligible agg mix the one-pass kernel runs; its
-    overflow flag routes the driver back here.
+    hint <= 32 and an eligible agg mix the one-pass kernel runs, else the
+    sort-free small-G route where the aggregates allow it; their overflow
+    flag routes the driver back here.
     stream: input pre-sorted on the group keys (planner-proven, e.g. below
     a Sort): the boundary-scan stream kernel runs, no sort and no hash."""
     if stream and group_bys and not any(d.distinct for d, _ in aggs):
@@ -452,6 +577,8 @@ def group_aggregate(
 
         if dense_agg_eligible(group_bys, aggs, merge):
             return group_aggregate_dense(group_bys, aggs, row_valid, small_groups)
+    if small_groups and group_bys and _dense_eligible(aggs, merge):
+        return _group_aggregate_dense(group_bys, aggs, row_valid, small_groups, merge)
     dev = row_valid.device
     n = row_valid.shape[0]
     keys: list[torch.Tensor] = []

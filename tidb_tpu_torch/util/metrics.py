@@ -239,11 +239,17 @@ class Registry:
             items = sorted(self._metrics.items())
         lines: list[str] = []
         for name, m in items:
+            samples = m._expose()
+            if not samples and isinstance(m, HistogramVec):
+                # a histogram family before its first label set has no
+                # `_count`, which the format refuses: leave it out until
+                # it has one, as client_golang leaves out an empty vec
+                continue
             typ = getattr(m, "typ", None) or _TYPE_OF[type(m)]
             if m.help:
                 lines.append(f"# HELP {name} {m.help}")
             lines.append(f"# TYPE {name} {typ}")
-            lines.extend(m._expose())
+            lines.extend(samples)
         return "\n".join(lines) + ("\n" if lines else "")
 
     def sample_lines(self) -> list[tuple[str, str]]:

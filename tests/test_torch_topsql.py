@@ -193,6 +193,49 @@ def test_surfaces_byte_consistent():
         s.execute("set tidb_enable_top_sql = ON")
 
 
+def test_pool_workers_cpu_lands_on_the_digest():
+    """The pool's tasks burn thread CPU that the session thread does not
+    (through the distsql.before_task failpoint, on the workers): the
+    digest's cpu_ns holds the workers' CPU besides the session's."""
+    import threading
+    import time
+
+    from tidb_tpu_torch.util import failpoint
+    from tidb_tpu_torch.util.stmtlog import normalize_sql
+
+    COLLECTOR.reset()
+    s = Session(device="cpu")
+    s.execute("create table t (a bigint primary key, b bigint)")
+    s.execute("insert into t values " + ",".join(f"({i},{i})" for i in range(60)))
+    tid = s.catalog.table("t").table_id
+    for h in (20, 40):  # 3 regions
+        s.store.cluster.split(tablecodec.encode_row_key(tid, h))
+    s.execute("set tidb_distsql_scan_concurrency = 4")
+    session_thread = threading.get_ident()
+    burned = []
+
+    def burn():
+        assert threading.get_ident() != session_thread  # a pool worker
+        c0 = time.thread_time_ns()
+        while time.thread_time_ns() - c0 < 100_000_000:
+            pass
+        burned.append(time.thread_time_ns() - c0)
+
+    sql = "select sum(b) from t where a > 3"
+    failpoint.enable("distsql.before_task", burn)
+    try:
+        c0 = time.thread_time_ns()
+        s.execute(sql)
+        session_cpu = time.thread_time_ns() - c0
+    finally:
+        failpoint.disable("distsql.before_task")
+    assert len(burned) == 3 and session_cpu < sum(burned)
+    digest = normalize_sql(sql)[1]
+    ((n, cpu),) = s.execute("select exec_count, cpu_ns from information_schema.tidb_top_sql "
+                            f"where digest = '{digest}'").values()
+    assert n == 1 and cpu >= sum(burned)
+
+
 # ------------------------------------------------------ every family is used
 
 _USES = {"inc", "dec", "set", "observe", "labels"}

@@ -309,11 +309,28 @@ class TestMetricsExposition:
 FAMILY_NAMES = tuple(getattr(PORT.metrics, a).name for a in FAMILIES)
 
 
+# The port's spans that the JAX package does not open: the program's
+# phases (exec.launch / exec.wait / exec.fetch) and the pool's queue wait.
+# shape() drops exactly these (their children, if any, take their place),
+# so the rest of each tree is held whole against the JAX package's. The
+# port's `cpu_ns` renders beside `duration_ns`, which shape() reads no
+# more than it reads durations.
+PORT_ONLY = frozenset({"exec.launch", "exec.wait", "exec.fetch", "distsql.cop_queue"})
+
+
+def _kept(node) -> list:
+    out = []
+    for c in node.get("children", []):
+        out.extend(_kept(c) if c["name"] in PORT_ONLY else [c])
+    return out
+
+
 def shape(node) -> tuple:
     """A span tree by names and attribute keys, children in a canonical
-    order (the pool tier's region tasks finish in any order)."""
+    order (the pool tier's region tasks finish in any order), the
+    PORT_ONLY spans projected out."""
     return (node["name"], tuple(sorted(node.get("attrs", {}))),
-            tuple(sorted(shape(c) for c in node.get("children", []))))
+            tuple(sorted(shape(c) for c in _kept(node))))
 
 
 @pytest.fixture()
@@ -432,6 +449,24 @@ class TestParityWithTheJaxPackage:
             assert native.decode_rows_columnar([b"\x80\x00\x05"], [1], cols) is None
             got[pkg.name] = family_deltas(before, family_values(pkg.metrics))
         assert got["port"] == got["jax"] and got["port"]["NATIVE_DECODE_FALLBACKS"] == 1
+
+    def test_the_projection_drops_only_port_only_spans(self):
+        """Each PORT_ONLY span appears in the port's raw tree of a pool-tier
+        statement and in none of the JAX package's, and nothing else of the
+        port's tree differs from the JAX package's."""
+        sessions = parity_pair()
+        raw = {}
+        for pkg in (JAX, PORT):
+            res = sessions[pkg.name]["s"].execute("TRACE FORMAT='json' SELECT v, count(*) FROM t GROUP BY v")
+            raw[pkg.name] = json.loads(res.values()[0][0])
+
+        def all_names(node):
+            return [node["name"]] + [n for c in node.get("children", []) for n in all_names(c)]
+
+        assert PORT_ONLY <= set(all_names(raw["port"]))
+        assert not PORT_ONLY & set(all_names(raw["jax"]))
+        assert shape(raw["port"]) == shape(raw["jax"])
+        assert names(shape(raw["port"])) == [n for n in names(shape(raw["port"])) if n not in PORT_ONLY]
 
     def test_family_names_are_the_jax_packages(self):
         for attr in FAMILIES:

@@ -737,7 +737,19 @@ def _select_admitted(store: TPUStore, req: KVRequest) -> SelectResult:
     scan_kind = _scan_kind(req)
     batch_stats: dict | None = None
 
-    def run_task(i: int, task: CopTask):
+    def submitted() -> int | None:
+        """A pool task's submit time, taken only while a trace is open."""
+        return time.perf_counter_ns() if dispatch_span is not None else None
+
+    def queued(queued_ns: int | None, **attrs) -> None:
+        """A pool task's wait, from its submit on this thread to its start
+        on a worker (now)."""
+        if queued_ns is not None:
+            with tracing.span("distsql.cop_queue", parent=dispatch_span, start_ns=queued_ns, **attrs):
+                pass
+
+    def run_task(i: int, task: CopTask, queued_ns: int | None = None):
+        queued(queued_ns, region_id=task.region_id)
         with topsql.adopt(stmt_tag):
             return _run_one_task(store, req, task, summaries_by_task[i],
                                  dispatch_span=dispatch_span, scan_kind=scan_kind)
@@ -763,14 +775,15 @@ def _select_admitted(store: TPUStore, req: KVRequest) -> SelectResult:
             by_store.setdefault(_route_task(store, req, t, ctx=ctx),
                                 []).append((i, t))
 
-        def run_batch(sid, entries):
+        def run_batch(sid, entries, queued_ns):
+            queued(queued_ns, store_id=sid)
             with topsql.adopt(stmt_tag):
                 return _run_store_batch(store, req, sid, entries, results,
                                         summaries_by_task, dispatch_span, scan_kind,
                                         mesh=decision.tier == "mesh")
 
         with ThreadPoolExecutor(max_workers=max(len(by_store), 1)) as pool:
-            futs = [pool.submit(run_batch, sid, entries)
+            futs = [pool.submit(run_batch, sid, entries, submitted())
                     for sid, entries in by_store.items()]
             per_store = [f.result() for f in futs]
         batch_stats = {
@@ -782,7 +795,7 @@ def _select_admitted(store: TPUStore, req: KVRequest) -> SelectResult:
         }
     elif req.concurrency > 1 and len(tasks) > 1:
         with ThreadPoolExecutor(max_workers=req.concurrency) as pool:
-            futs = [pool.submit(run_task, i, t) for i, t in enumerate(tasks)]
+            futs = [pool.submit(run_task, i, t, submitted()) for i, t in enumerate(tasks)]
             for i, f in enumerate(futs):
                 results[i] = f.result()
     else:

@@ -7,6 +7,14 @@ region's result out; a region whose flags fired answers None.
 drive_mesh_program_info runs the mesh program once over a stack of
 regions split over the mesh's shards and returns ONE merged chunk, or
 None when its global overflow flag fired.
+
+Each drive_*_info function opens three spans under the ambient one for
+every program run: `exec.launch` (the program's call, which enqueues its
+device work), `exec.wait` (the first blocking read, the overflow flags:
+the host waits for the device) and `exec.fetch` (the other
+device-to-host reads and the decode into a Chunk); info["fetches"]
+counts the device-to-host reads.
+
 drive_program_info handles the overflow contract: on overflow it retries
 on the capacity ladder (exec/ladder.py), drops a wrong small-G hint,
 drops the unique-build and radix join hints when no rung can clear a
@@ -39,7 +47,7 @@ from ..expr.agg import AggDesc
 from ..expr.eval_ref import RefEvaluator, compare, _truth
 from ..expr.ir import ColumnRef
 from ..types import Datum, DatumKind, FieldType, MyDecimal
-from ..util import metrics
+from ..util import metrics, tracing
 from .builder import DEFAULT_GROUP_CAPACITY, ProgramCache
 from .dag import Aggregation, DAGRequest, Join, Limit, Projection, Selection, Sort, TableScan, TopN, Window, current_schema_fts
 from .ladder import overflow_step, rung_for
@@ -56,16 +64,40 @@ def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def decode_outputs(packed, valid, out_fts) -> Chunk:
-    valid = _np(valid)
+class _Reads:
+    """The device-to-host reads of one drive_*_info call, counted
+    (info["fetches"]): each read of a tensor counts one; host arrays
+    count none."""
+
+    __slots__ = ("n",)
+
+    def __init__(self):
+        self.n = 0
+
+    def array(self, x) -> np.ndarray:
+        if isinstance(x, torch.Tensor):
+            self.n += 1
+        return _np(x)
+
+    def scalar(self, x):
+        if isinstance(x, torch.Tensor):
+            self.n += 1
+            return x.item()
+        return x
+
+
+def decode_outputs(packed, valid, out_fts, fetch=_np) -> Chunk:
+    """The program's packed outputs as a host Chunk of the valid rows;
+    `fetch` brings each leaf to the host (drive_*_info's counting read)."""
+    valid = fetch(valid)
     idx = np.nonzero(valid)[0]
     cols = []
     for ft, out in zip(out_fts, packed):
         if len(out) == 4:  # string: words, null, raw bytes, lengths
             _, null, data, length = out
-            null = _np(null)[idx]
-            data = _np(data)[idx]
-            length = _np(length)[idx]
+            null = fetch(null)[idx]
+            data = fetch(data)[idx]
+            length = fetch(length)[idx]
             keep = np.where(null, 0, length)
             offs = np.zeros(len(idx) + 1, np.int64)
             np.cumsum(keep, out=offs[1:])
@@ -76,7 +108,7 @@ def decode_outputs(packed, valid, out_fts) -> Chunk:
             # string column without raw bytes (e.g. CASE/IF over string
             # operands): reconstruct from the packed compare words — covers
             # the first STRING_WORDS*8 bytes, the packed-key contract
-            words, null = _np(out[0]), _np(out[1])
+            words, null = fetch(out[0]), fetch(out[1])
             words, null = words[idx], null[idx]
             w = words.shape[1] - 1
             payload = (words[:, :w].astype(np.uint64) ^ np.uint64(1 << 63))
@@ -92,8 +124,8 @@ def decode_outputs(packed, valid, out_fts) -> Chunk:
             cols.append(Column(ft, None, null.copy(), offs, blob))
         else:
             v, null = out
-            v = _np(v)[idx]
-            null = _np(null)[idx]
+            v = fetch(v)[idx]
+            null = fetch(null)[idx]
             if ft.is_unsigned() or ft.is_time():
                 v = v.view(np.uint64) if v.dtype == np.int64 else v.astype(np.uint64)
             cols.append(Column(ft, v.copy(), null.copy()))
@@ -117,15 +149,12 @@ def drive_program(cache: ProgramCache, dag: DAGRequest, batches, group_capacity:
     return chunk, counts
 
 
-def _radix_attribution(prog, jc: int, radix_esc, info: dict):
+def _radix_attribution(prog, jc: int, esc: int, info: dict):
     """info["radix"]: what the first radix join of the program ran
     (partitions, probe strategy), the join-capacity rung, and the escaped
-    row count, which arrived in the same fetch as the overflow flags."""
+    row count, already on the host."""
     ri = prog.radix_info
     if ri:
-        from ..util import tracing
-
-        esc = int(radix_esc)
         with tracing.span("exec.join_radix", partitions=ri.get("partitions"), rung=jc, escapes=esc,
                           strategy=ri.get("strategy")):
             pass
@@ -158,23 +187,33 @@ def drive_program_info(cache: ProgramCache, dag: DAGRequest, batches, group_capa
     uj = True
     rj = True
     info = {"cache_hit": True, "compile_ns": 0}
+    reads = _Reads()
     for _ in range(max_retries + 1):
         prog, hit, build_ns = cache.get_info(dag, caps, gc, jc, tf, smg, device=device, unique_joins=uj,
                                              radix_joins=rj)
         t0 = time.perf_counter_ns()
         metrics.PROGRAM_LAUNCHES.inc()
-        packed, valid, n, (g_ovf, j_ovf, t_ovf, g_need, j_need, radix_esc), ex_rows = prog.fn(*batches)
-        g_ovf, j_ovf, t_ovf = bool(g_ovf), bool(j_ovf), bool(t_ovf)
+        with tracing.span("exec.launch"):
+            packed, valid, n, (g_ovf, j_ovf, t_ovf, g_need, j_need, radix_esc), ex_rows = prog.fn(*batches)
+        with tracing.span("exec.wait"):
+            g_ovf = bool(reads.scalar(g_ovf))
+            j_ovf, t_ovf = bool(reads.scalar(j_ovf)), bool(reads.scalar(t_ovf))
         if not hit:
             info["cache_hit"] = False
             info["compile_ns"] += build_ns + (time.perf_counter_ns() - t0)
         if not g_ovf and not j_ovf and not t_ovf:
-            counts = [int(x) for x in _np(ex_rows)]
-            _radix_attribution(prog, jc, radix_esc, info)
-            return decode_outputs(packed, valid, prog.out_fts), counts, info
+            with tracing.span("exec.fetch"):
+                counts = [int(x) for x in reads.array(ex_rows)]
+                esc = int(reads.scalar(radix_esc)) if prog.radix_info else 0
+                chunk = decode_outputs(packed, valid, prog.out_fts, reads.array)
+            _radix_attribution(prog, jc, esc, info)
+            info["fetches"] = reads.n
+            return chunk, counts, info
+        with tracing.span("exec.fetch"):
+            g_need, j_need = int(reads.scalar(g_need)), int(reads.scalar(j_need))
         if g_ovf:
             smg = None
-        gc, jc, drop = overflow_step(gc, jc, g_ovf, j_ovf, int(g_need), int(j_need))
+        gc, jc, drop = overflow_step(gc, jc, g_ovf, j_ovf, g_need, j_need)
         if drop:
             uj = False
             rj = False
@@ -213,29 +252,35 @@ def drive_batched_program_info(cache: ProgramCache, dag: DAGRequest, stacked, au
                                          device=stacked.device, vmap_batch=int(B))
     t0 = time.perf_counter_ns()
     metrics.PROGRAM_LAUNCHES.inc()
-    packed, valid, _n, (g_ovf, j_ovf, t_ovf, _g_need, _j_need, radix_esc), ex_rows = prog.fn(stacked, *aux_batches)
-    # one fetch: the three flags, the escapes and ex_rows side by side
-    head = torch.stack([g_ovf.to(torch.int64), j_ovf.to(torch.int64), t_ovf.to(torch.int64),
-                        radix_esc.to(torch.int64)], dim=1)
-    fetched = _np(torch.cat([head, ex_rows.to(torch.int64)], dim=1))
+    reads = _Reads()
+    with tracing.span("exec.launch"):
+        packed, valid, _n, flags, ex_rows = prog.fn(stacked, *aux_batches)
+    g_ovf, j_ovf, t_ovf, _g_need, _j_need, radix_esc = flags
+    with tracing.span("exec.wait"):
+        # one fetch: the three flags, the escapes and ex_rows side by side
+        head = torch.stack([g_ovf.to(torch.int64), j_ovf.to(torch.int64), t_ovf.to(torch.int64),
+                            radix_esc.to(torch.int64)], dim=1)
+        fetched = reads.array(torch.cat([head, ex_rows.to(torch.int64)], dim=1))
     info = {"cache_hit": hit, "compile_ns": 0}
     if not hit:
         # the fetch above waited for the program: the first call's time
         # counts as build time, as drive_program_info counts it
         info["compile_ns"] = build_ns + (time.perf_counter_ns() - t0)
     fell = fetched[:, :3].any(axis=1)
-    host_packed = [tuple(_np(a) for a in out) for out in packed] if not fell.all() else []
-    valid_np = _np(valid) if not fell.all() else None
     per_region: list = []
     esc_by_lane: list = []
-    for b in range(int(B)):
-        if fell[b]:
-            per_region.append(None)
-            esc_by_lane.append(0)
-            continue
-        esc_by_lane.append(int(fetched[b, 3]))
-        chunk = decode_outputs(_slice_region(host_packed, b), valid_np[b], prog.out_fts)
-        per_region.append((chunk, [int(x) for x in fetched[b, 4:]]))
+    with tracing.span("exec.fetch"):
+        host_packed = [tuple(reads.array(a) for a in out) for out in packed] if not fell.all() else []
+        valid_np = reads.array(valid) if not fell.all() else None
+        for b in range(int(B)):
+            if fell[b]:
+                per_region.append(None)
+                esc_by_lane.append(0)
+                continue
+            esc_by_lane.append(int(fetched[b, 3]))
+            chunk = decode_outputs(_slice_region(host_packed, b), valid_np[b], prog.out_fts)
+            per_region.append((chunk, [int(x) for x in fetched[b, 4:]]))
+    info["fetches"] = reads.n
     _radix_attribution(prog, jc, sum(esc_by_lane), info)
     if "radix" in info:
         # each lane's own escapes (the batch total stamped on every lane
@@ -268,19 +313,25 @@ def drive_mesh_program_info(cache: ProgramCache, dag: DAGRequest, stacked, aux_b
                                          mesh_kind=kind)
     t0 = time.perf_counter_ns()
     metrics.PROGRAM_LAUNCHES.inc()
-    merged, mvalid, ex_rows, ovf, radix_esc = prog.fn(stacked, *aux_batches)
-    head = torch.stack([ovf.to(torch.int64).reshape(()), radix_esc.to(torch.int64).reshape(())])
-    fetched = _np(torch.cat([head, ex_rows.to(torch.int64).reshape(-1)]))
+    reads = _Reads()
+    with tracing.span("exec.launch"):
+        merged, mvalid, ex_rows, ovf, radix_esc = prog.fn(stacked, *aux_batches)
+    with tracing.span("exec.wait"):
+        head = torch.stack([ovf.to(torch.int64).reshape(()), radix_esc.to(torch.int64).reshape(())])
+        fetched = reads.array(torch.cat([head, ex_rows.to(torch.int64).reshape(-1)]))
     info = {"cache_hit": hit, "compile_ns": 0}
     if not hit:
         # the fetch above waited for the program: the first call's time
         # counts as build time, as drive_program_info counts it
         info["compile_ns"] = build_ns + (time.perf_counter_ns() - t0)
     lane_counts = [[int(x) for x in row] for row in fetched[2:].reshape(int(R), -1)]
-    if fetched[0]:
+    with tracing.span("exec.fetch"):
+        chunk = None if fetched[0] else decode_outputs(merged, mvalid, prog.out_fts, reads.array)
+    info["fetches"] = reads.n
+    if chunk is None:
         return None, lane_counts, info
     _radix_attribution(prog, jc, int(fetched[1]), info)
-    return decode_outputs(merged, mvalid, prog.out_fts), lane_counts, info
+    return chunk, lane_counts, info
 
 
 def _group_key_partition(chunk: Chunk, key_cols: list[int], n_parts: int, salt: int = 0) -> list[Chunk]:

@@ -207,10 +207,13 @@ def _apply_radix_attribution(summaries: list, walk, info) -> None:
 # batch_launches_saved: executions a bucket spared over one per region;
 # batch_fallbacks: groups or buckets that an error sent to the single path;
 # mesh_batches / mesh_lanes / mesh_fallbacks: the mesh tier's launches, the
-# lanes they merged, and the groups it declined or that failed)
+# lanes they merged, and the groups it declined or that failed;
+# host_fetches: the device-to-host reads of the programs the coprocessor
+# ran, the drive_*_info functions' info["fetches"])
 STAT_KEYS = ("device_served", "oracle_fallbacks", "result_cache_hits", "other_errors", "chunk_decodes",
              "native_decodes", "device_uploads", "aux_uploads", "batch_batches", "batch_regions",
-             "batch_launches_saved", "batch_fallbacks", "mesh_batches", "mesh_lanes", "mesh_fallbacks")
+             "batch_launches_saved", "batch_fallbacks", "mesh_batches", "mesh_lanes", "mesh_fallbacks",
+             "host_fetches")
 
 
 class TPUStore:
@@ -994,6 +997,7 @@ class TPUStore:
                     xsp.set("rows", chunk.num_rows())
                     xsp.set("cache_hit", info["cache_hit"])
             self._count("device_served")
+            self._count("host_fetches", info["fetches"])
         except (OverflowRetryError, NotImplementedError):
             # degenerate fan-out OR an op the device program cannot express
             # (JSON, host-only funcs, ops not ported yet): fall back to the
@@ -1183,6 +1187,7 @@ class TPUStore:
                                                                     group_capacity, kind, mesh,
                                                                     small_groups=req0.small_groups)
                 launch_ns = time.monotonic_ns() - t_launch
+                self._count("host_fetches", info["fetches"])
                 if xsp is not None:
                     xsp.set("cache_hit", info["cache_hit"])
         except Exception:  # noqa: BLE001 — degrade, never lose the group
@@ -1300,6 +1305,7 @@ class TPUStore:
                 stacked = to_stacked_device_batch(lanes, cap, device=self.device)
                 per_region, info = drive_batched_program_info(self.programs, dag, stacked, aux_batches,
                                                               group_capacity, small_groups=req0.small_groups)
+                self._count("host_fetches", info["fetches"])
                 if xsp is not None:
                     xsp.set("cache_hit", info["cache_hit"])
         except Exception:  # noqa: BLE001 — degrade, never lose the bucket

@@ -4,10 +4,11 @@ The reference samples CPU on a timer and attributes samples to the SQL /
 plan digest stored in goroutine labels, then a reporter aggregates the
 samples into fixed windows of top-N digests. In-process we can do better
 than statistical sampling: every layer that already measures (thread CPU
-deltas at the session boundary, the fused-program clock in the store,
-the Backoffer's slept intervals, the admission gate's queue wait)
-records its EXACT measurement onto an ambient per-statement resource
-tag, and the reporter folds finished statements into windows.
+deltas at the session boundary and over each pool task, the
+fused-program clock in the store, the Backoffer's slept intervals, the
+admission gate's queue wait) records its EXACT measurement onto an
+ambient per-statement resource tag, and the reporter folds finished
+statements into windows.
 
 Three pieces:
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextvars
 import threading
+import time
 from contextlib import contextmanager
 
 from .reporter import COLLECTOR
@@ -64,11 +65,17 @@ class ResourceTag:
             self.queue_ms += queue_ms
             self.cop_cache_hits += cop_cache_hits
 
-    def finish(self, cpu_ns: int) -> dict:
-        """Statement end: the session lands its exact thread-CPU delta
-        and takes the flush snapshot in one locked step."""
+    def add_cpu(self, cpu_ns: int) -> None:
+        """A pool worker's thread-CPU delta over its task."""
         with self._mu:
-            self.cpu_ns = cpu_ns
+            self.cpu_ns += cpu_ns
+
+    def finish(self, cpu_ns: int) -> dict:
+        """Statement end: the session adds its own exact thread-CPU delta
+        to what its pool workers added and takes the flush snapshot in
+        one locked step."""
+        with self._mu:
+            self.cpu_ns += cpu_ns
         return self.snapshot()
 
     def snapshot(self) -> dict:
@@ -109,15 +116,21 @@ def deactivate(token) -> None:
 def adopt(tag: ResourceTag | None):
     """Cross-thread handoff: a dispatch pool worker adopts the session
     thread's tag for the duration of its task (contextvars do not cross
-    ThreadPoolExecutor, exactly like the dispatch_span handoff)."""
+    ThreadPoolExecutor, exactly like the dispatch_span handoff). A thread
+    that runs no statement of its own (no tag ambient) adds its CPU time
+    over the block to the tag; a statement's own thread does not, since
+    the session lands that thread's whole delta at `finish`."""
     if tag is None:
         yield
         return
+    cpu0 = time.thread_time_ns() if _tag.get() is None else None
     token = _tag.set(tag)
     try:
         yield
     finally:
         _tag.reset(token)
+        if cpu0 is not None:
+            tag.add_cpu(time.thread_time_ns() - cpu0)
 
 
 # ------------------------------------------------------------------ sinks

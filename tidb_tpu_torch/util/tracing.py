@@ -19,8 +19,15 @@ Design:
 
 Durations are perf_counter_ns; a span still inside `with` reports the
 elapsed time so a partial tree (failing statement) renders consistently.
+A span that opens and closes on one thread also records `cpu_ns`, the
+thread's CPU time (`time.thread_time_ns`) over it, rendered beside
+`duration_ns`: their difference is the time the thread was runnable or
+blocked but off a CPU (the GIL, a device wait). A span given `start_ns`
+(`span(..., start_ns=t)`) began on another thread at `t`, say a pool
+task's queue wait from its submit; it carries no `cpu_ns`.
 
-A copy of the JAX package's tidb_tpu/util/tracing.py (stdlib only).
+A copy of the JAX package's tidb_tpu/util/tracing.py (stdlib only), with
+`cpu_ns` and `start_ns` added.
 """
 
 from __future__ import annotations
@@ -37,19 +44,20 @@ _current: contextvars.ContextVar = contextvars.ContextVar("tidb_tpu_span", defau
 class Span:
     """One timed operation with attributes and children."""
 
-    __slots__ = ("name", "attrs", "start_ns", "end_ns", "children", "_lock")
+    __slots__ = ("name", "attrs", "start_ns", "end_ns", "cpu_ns", "children", "_lock")
 
-    def __init__(self, name: str, **attrs):
+    def __init__(self, name: str, start_ns: int | None = None, **attrs):
         self.name = name
         self.attrs: dict = dict(attrs)
-        self.start_ns = time.perf_counter_ns()
+        self.start_ns = time.perf_counter_ns() if start_ns is None else start_ns
         self.end_ns: int | None = None
+        self.cpu_ns: int | None = None  # thread CPU over the span; None across threads
         self.children: list[Span] = []  # guarded_by: _lock
         self._lock = threading.Lock()
 
     # -- building ----------------------------------------------------------
-    def child(self, name: str, **attrs) -> "Span":
-        sp = Span(name, **attrs)
+    def child(self, name: str, start_ns: int | None = None, **attrs) -> "Span":
+        sp = Span(name, start_ns, **attrs)
         with self._lock:
             self.children.append(sp)
         return sp
@@ -93,6 +101,8 @@ class Span:
         with self._lock:
             kids = list(self.children)
         d: dict = {"name": self.name, "duration_ns": self.duration_ns}
+        if self.cpu_ns is not None:
+            d["cpu_ns"] = self.cpu_ns
         if self.attrs:
             d["attrs"] = dict(self.attrs)
         if kids:
@@ -130,25 +140,30 @@ def current_span() -> Span | None:
 def trace(name: str, **attrs):
     """Open a root span and make it ambient. The statement entry point."""
     root = Span(name, **attrs)
+    cpu0 = time.thread_time_ns()
     token = _current.set(root)
     try:
         yield root
     finally:
+        root.cpu_ns = time.thread_time_ns() - cpu0
         root.finish()
         _current.reset(token)
 
 
 @contextmanager
-def span(name: str, parent: Span | None = None, **attrs):
+def span(name: str, parent: Span | None = None, start_ns: int | None = None, **attrs):
     """Child span of `parent` (explicit cross-thread handoff) or of the
     ambient span; yields None — and skips all bookkeeping — when neither
     exists. Exceptions are recorded on the span and re-raised, so a failing
-    statement leaves a partial tree with `error` attributes."""
+    statement leaves a partial tree with `error` attributes. `start_ns`
+    (perf_counter_ns, taken on another thread) backdates the span's start;
+    such a span records no `cpu_ns`."""
     cur = parent if parent is not None else _current.get()
     if cur is None:
         yield None
         return
-    sp = cur.child(name, **attrs)
+    sp = cur.child(name, start_ns, **attrs)
+    cpu0 = time.thread_time_ns() if start_ns is None else None
     token = _current.set(sp)
     try:
         yield sp
@@ -156,5 +171,7 @@ def span(name: str, parent: Span | None = None, **attrs):
         sp.attrs["error"] = f"{type(exc).__name__}: {exc}"
         raise
     finally:
+        if cpu0 is not None:
+            sp.cpu_ns = time.thread_time_ns() - cpu0
         sp.finish()
         _current.reset(token)
